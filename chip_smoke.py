@@ -6,32 +6,54 @@
 
 Phases, in order (any failure raises and exits non-zero):
   1. device   the card's name and power limit (nvidia-smi), torch's name
-  2. build    nvcc builds every CUDA kernel of the path for sm_90a, in
+  2. build    nvcc builds every CUDA source of the path for sm_90a, in
               parallel; prints each kernel's registers, shared memory and
               spills (-Xptxas -v)
-  3. kernels  each kernel against its plain PyTorch version on the card at
-              the main path's shapes (roberta-large, llama2-7b) and one long
-              shape, T in {1, 8}, with and without an input tangent, window in
-              {None, 256}, KV in {H, H/4}, fp32 (rtol 1e-4, atol 1e-5 x
+  3. kernels  each of the five kernels against its plain PyTorch version on
+              the card at the main path's shapes (roberta-large, llama2-7b)
+              and one long shape, T in {1, 8}, with and without an input
+              tangent (and odd M/N/K for the LoRA contraction), window in
+              {None, 256}, KV in {H, H/4}; fp32 (rtol 1e-4, atol 1e-5 x
               max|plain|: sums run in another order) and bf16 (the kernel's
               bf16 output against the plain version run in fp32 on the same
-              bf16-valued inputs, rtol = atol = 2e-2); times the
+              bf16-valued inputs, rtol = atol = 2e-2). The two contraction
+              epilogues return sums of n products, held against 1e-6 x
+              sum|terms| in both dtypes (the kernel reads bf16 exactly into
+              the same fp32 sums as fp32; a typical contraction is about
+              sum|terms| / sqrt(n), so a wrong or dropped term fails), and
+              print err / sum|terms| as ``err_over_terms``. Times the
               kernel, the plain version and either one PyTorch call that
-              computes the same function (library_ms) or, where none
-              does, the kernel's largest GEMM as a yardstick
-              (yardstick_ms) (CUDA events), and computes each case's bound
+              computes the same function (library_ms) or, where none does,
+              a yardstick (yardstick_ms: the kernel's largest GEMM; for the
+              attention epilogue, the multi-tangent kernel followed by the
+              contraction) (CUDA events), and computes each case's bound
               from its shapes
   4. parity   one reduced-roberta SPRY round on the card (kernels) against
               the same round on the CPU (plain versions) with the same
-              weights, batch and perturbations
-  5. train    ``repro_torch.launch.train.run_training`` at full published
-              width and depth: roberta-large-lora (spry K=1, spry K=8,
-              spry_periter K=8; 2 rounds, 4 clients) and llama2-7b (spry K=4,
-              1 round, 2 clients); every launch counter is zeroed just before
-              and read just after each run: each kernel must have launched,
-              and on the batched routes the multi-tangent launches of a round
-              must equal estimates x sites (one launch per site for all K)
-The line before the last is the ``kernels`` JSON; the last line is
+              weights, batch and perturbations, on the standard and on the
+              fused-contraction route
+  5. site     the single-projection LoRA estimator (a ``SplitLoss`` of kind
+              'lora', through ``forward_gradient``) at roberta-large and
+              llama2-7b widths, K=8, with and without an input tangent:
+              exactly one LoRA contraction epilogue an estimate
+  6. train    ``repro_torch.launch.train.run_training`` at full published
+              width and depth: roberta-large-lora on sst2, 4 clients (spry K=1,
+              spry K=8, spry_periter K=8 on the standard route; spry K=8 and
+              spry_periter K=8 on the fused route; fedfgd K=8; 2 rounds each;
+              fedavg, fedyogi, fedsgd, fedavgsplit, fedmezo, baffle, fwdllm,
+              1 round each) and llama2-7b, 2 clients (spry K=4 on both routes
+              and fedavg, 1 round each). Every launch counter is zeroed just
+              before and read just after each run; a round must launch
+              exactly one multi-tangent kernel per site and estimate on the
+              standard route, L-1 attention ones plus ONE attention
+              contraction epilogue per estimate on the fused route, and no
+              kernel at all on the backprop and zero-order rounds. Prints
+              each run's loss, test accuracy, seconds per round and peak
+              device memory of a round (weights included, model init
+              excluded), and SPRY's and FedAvg's llama2-7b round peaks side
+              by side.
+Every kernel must have launched over phases 5 and 6 (the main path). The
+line before the last is the ``kernels`` JSON; the last line is
 ``{"ok": true, "device": {...}}``. Without a card, or without the repo
 beside it, the script exits non-zero and prints no result.
 """
@@ -55,11 +77,15 @@ REPLACES = {
     "lora_dual_mt": "src/repro/kernels/lora_dual/kernel.py:92",
     "swa_attention": "src/repro/kernels/swa_attention/kernel.py:140",
     "swa_attention_mt": "src/repro/kernels/swa_attention/kernel.py:365",
+    "swa_attention_mt_jvps": "src/repro/kernels/swa_attention/kernel.py:313",
+    "lora_dual_mt_jvps": "src/repro/kernels/lora_dual/kernel.py:225",
 }
 SOURCES = {
     "lora_dual_mt": "src/repro_torch/csrc/lora_dual_mt.cu",
     "swa_attention": "src/repro_torch/csrc/swa_attention.cu",
     "swa_attention_mt": "src/repro_torch/csrc/swa_attention.cu",
+    "swa_attention_mt_jvps": "src/repro_torch/csrc/swa_attention.cu",
+    "lora_dual_mt_jvps": "src/repro_torch/csrc/lora_dual_mt.cu",
 }
 
 
@@ -155,6 +181,96 @@ def lora_case(M, K, N, r, T, has_xd, dtype, gen, timed):
     return res
 
 
+JVPS_RTOL = 1e-6
+
+
+def close_jvps(name, got, want, mag):
+    """A contraction of n products against its plain version, both summed in
+    fp32 whatever the inputs' dtype: |err| <= JVPS_RTOL * sum|terms| (``mag``,
+    per tangent). Returns (max |err|, max |err| / sum|terms|)."""
+    import torch
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{name}: kernel output is not finite")
+    err = (got.float() - want.float()).abs()
+    if not bool((err <= JVPS_RTOL * mag).all()):
+        raise AssertionError(f"{name}: kernel vs plain |err| {err.tolist()} beyond "
+                             f"{JVPS_RTOL} x sum|terms| {mag.tolist()}")
+    return float(err.max()), float((err / mag).max())
+
+
+def lora_jvps_case(M, K, N, r, T, has_xd, dtype, gen, timed):
+    import torch
+    from repro_torch.kernels.lora_dual import ops
+    rn = lambda *s: torch.randn(s, generator=gen, device="cuda")  # noqa: E731
+    x = rn(M, K).to(dtype)
+    xd = rn(T, M, K).to(dtype) if has_xd else None
+    w = (rn(K, N) / math.sqrt(K)).to(dtype)
+    a, ad = rn(K, r) / math.sqrt(K), rn(T, K, r) / math.sqrt(K)
+    b, bd = rn(r, N), rn(T, r, N)
+    gy = rn(M, N).to(dtype)
+    args = (x, w, a, ad, b, bd, gy, 1.0, xd)
+    got = ops.lora_dual_mt_jvps(*args)
+    want = ops.lora_dual_mt_jvps_ref(*_f32(args))
+    yd = ops.lora_dual_mt_tangents_ref(*_f32((x, xd, w, a, ad, b, bd, 1.0)))
+    mag = (gy.float()[None] * yd.float()).abs().sum(dim=(1, 2))
+    torch.cuda.synchronize()
+    name = f"lora_dual_mt_jvps M={M} K={K} N={N} r={r} T={T} xd={has_xd} {dtype}"
+    err, rel = close_jvps(name, got, want, mag)
+    res = {"max_abs_err": err, "err_over_terms": rel}
+    if timed:
+        es = x.element_size()
+        flops = (2 * M * K * r + 2 * M * N * r * 2 + 2 * T * M * K * r * (1 + has_xd)
+                 + 2 * T * (M * r + r * N) + has_xd * (2 * M * N * K + 2 * T * M * K))
+        nbytes = (es * (M * K * (1 + T * has_xd) + has_xd * K * N + M * N)
+                  + 4 * (K * r + r * N) * (1 + T) + 4 * T)
+        res["bound_ms"], res["bound_by"] = bound_ms(flops, nbytes, dtype)
+        res["ms"] = time_ms(lambda: ops.lora_dual_mt_jvps(*args))
+        res["plain_ms"] = time_ms(lambda: ops.lora_dual_mt_jvps_ref(*args))
+        # no one PyTorch call computes this function; its frozen-W product
+        # gy @ W^T alone is timed as a yardstick
+        res["library_ms"] = None
+        res["yardstick_ms"] = time_ms(lambda: torch.matmul(gy, w.T))
+    log(f"[kernels] {name}: " + json.dumps(res))
+    return res
+
+
+def swa_jvps_case(B, H, KV, S, hd, window, T, dtype, gen, timed):
+    import torch
+    from repro_torch.kernels.swa_attention import ops
+    rn = lambda *s: torch.randn(s, generator=gen, device="cuda").to(dtype)  # noqa: E731
+    q, k, v = rn(B, H, S, hd), rn(B, KV, S, hd), rn(B, KV, S, hd)
+    qd, kd, vd = rn(T, B, H, S, hd), rn(T, B, KV, S, hd), rn(T, B, KV, S, hd)
+    gy = rn(B, H, S, hd)
+    args = (q, k, v, qd, kd, vd, gy, window)
+    got = ops.swa_attention_mt_jvps(*args)
+    od = ops.swa_attention_mt_tangents_ref(*_f32(args[:6]), window)
+    want = torch.einsum("bhsd,tbhsd->t", gy.float(), od)
+    mag = (gy.float()[None] * od).abs().sum(dim=(1, 2, 3, 4))
+    del od
+    torch.cuda.synchronize()
+    name = (f"swa_attention_mt_jvps B={B} H={H} KV={KV} S={S} hd={hd} "
+            f"window={window} T={T} {dtype}")
+    err, rel = close_jvps(name, got, want, mag)
+    res = {"max_abs_err": err, "err_over_terms": rel}
+    if timed:
+        es = q.element_size()
+        pairs = B * H * _kept_pairs(S, window)
+        flops = 4 * hd * pairs + 8 * hd * T * pairs + 2 * T * B * H * S * hd
+        nbytes = es * (B * H * S * hd * (2 + T) + 2 * B * KV * S * hd * (1 + T)) + 4 * T
+        res["bound_ms"], res["bound_by"] = bound_ms(flops, nbytes, dtype)
+        res["ms"] = time_ms(lambda: ops.swa_attention_mt_jvps(*args))
+        res["plain_ms"] = time_ms(lambda: ops.swa_attention_mt_jvps_ref(*args))
+        # no one PyTorch call computes this function; the multi-tangent
+        # kernel followed by the contraction (the route it replaces) is
+        # timed as a yardstick
+        res["library_ms"] = None
+        res["yardstick_ms"] = time_ms(lambda: torch.einsum(
+            "bhsd,tbhsd->t", gy.float(),
+            ops.swa_attention_mt_tangents(*args[:6], window).float()))
+    log(f"[kernels] {name}: " + json.dumps(res))
+    return res
+
+
 def _kept_pairs(S, window):
     return sum(min(q + 1, window) if window else q + 1 for q in range(S))
 
@@ -216,7 +332,13 @@ def phase_kernels():
     import torch
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
-    main = {}
+    main, worst = {}, {}
+
+    def note(name, dtype, res):         # the largest err / sum|terms| seen
+        key = f"{name} {dtype}"
+        worst[key] = max(worst.get(key, 0.0), res["err_over_terms"])
+        return res
+
     for dtype in (torch.float32, torch.bfloat16):
         bf = dtype == torch.bfloat16
         for K in (1024, 4096):              # roberta-large, llama2-7b widths
@@ -226,6 +348,16 @@ def phase_kernels():
                                     timed=(bf and T == 8))
                     if bf and K == 1024 and T == 8 and has_xd:
                         main["lora_dual_mt"] = res
+                    res = note("lora_dual_mt_jvps", dtype, lora_jvps_case(
+                        8 * 32, K, K, 1, T, has_xd, dtype, gen, timed=(bf and T == 8)))
+                    if bf and K == 1024 and T == 8 and has_xd:
+                        main["lora_dual_mt_jvps"] = res
+        for T in (1, 8):                    # odd M, N, K and rank
+            for has_xd in (True, False):
+                note("lora_dual_mt_jvps", dtype, lora_jvps_case(
+                    37, 100, 72, 3, T, has_xd, dtype, gen, timed=False))
+        note("lora_dual_mt_jvps", dtype, lora_jvps_case(   # rank, tangent limits
+            70, 33, 65, 16, 64, True, dtype, gen, timed=False))
         shapes = [(8, 16, 32, 64), (8, 32, 32, 128), (1, 16, 2048, 128)]
         for si, (B, H, S, hd) in enumerate(shapes):
             for window in (None, 256):
@@ -238,6 +370,13 @@ def phase_kernels():
                                 main["swa_attention"] = res
                             elif T == 8:
                                 main["swa_attention_mt"] = res
+                        if T:
+                            res = note("swa_attention_mt_jvps", dtype, swa_jvps_case(
+                                B, H, KV, S, hd, window, T, dtype, gen, timed))
+                            if bf and si == 0 and window is None and KV == H and T == 8:
+                                main["swa_attention_mt_jvps"] = res
+    log(f"[kernels] contraction epilogues, largest err / sum|terms| (limit "
+        f"{JVPS_RTOL}): " + json.dumps(worst))
     return main
 
 
@@ -245,7 +384,7 @@ def phase_kernels():
 # phase 4: one reduced round, kernels on the card vs plain versions on the CPU
 # ---------------------------------------------------------------------------
 
-def phase_parity():
+def phase_parity(fused):
     import dataclasses
     import numpy as np
     import torch
@@ -259,7 +398,7 @@ def phase_parity():
                               n_classes=2)
     K, M = 4, 2
     sc = SpryConfig(n_clients_per_round=M, k_perturbations=K, local_lr=5e-3,
-                    server_lr=1e-2, seed=0)
+                    server_lr=1e-2, seed=0, fused_contraction=fused)
     gen = torch.Generator(device="cpu")
     gen.manual_seed(0)
     base = get_model(cfg).init_base(cfg, gen)
@@ -282,61 +421,136 @@ def phase_parity():
                 for g, c in zip(tree_leaves(gpu_state.peft), tree_leaves(cpu_state.peft)))
     res = {"loss_gpu": float(gpu_met["loss"]), "loss_cpu": float(cpu_met["loss"]),
            "jvps_rel_err": jv_err, "peft_rel_err": p_err}
-    log("[parity] reduced roberta, 1 spry round K=4, card vs cpu: " + json.dumps(res))
+    route = "fused" if fused else "standard"
+    log(f"[parity] reduced roberta, 1 spry round K=4, {route} route, card vs cpu: "
+        + json.dumps(res))
     if not (jv_err <= 1e-4 and p_err <= 1e-4 and
             abs(res["loss_gpu"] - res["loss_cpu"]) <= 1e-5 * abs(res["loss_cpu"])):
-        raise AssertionError(f"parity: card round disagrees with cpu round {res}")
+        raise AssertionError(f"parity ({route}): card round disagrees with cpu round {res}")
 
 
 # ---------------------------------------------------------------------------
-# phase 5: full-size training through the entry point
+# phase 5: the single-projection LoRA estimator (SplitLoss kind 'lora')
 # ---------------------------------------------------------------------------
 
-def phase_train(phases):
+def phase_site(totals):
+    """forward_gradient on a LoRA site at full widths, K=8: the fused route
+    makes one LoRA contraction epilogue an estimate (plus, with an input
+    tangent, the upstream projection's one multi-tangent launch) and agrees
+    with the standard route."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import SplitLoss, forward_gradient
+    from repro_torch.kernels import dispatch, launch_counts, reset_launch_counts
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    rn = lambda *s: torch.randn(s, generator=gen, device="cuda")  # noqa: E731
+    for arch in ("roberta-large-lora", "llama2-7b"):
+        d = get_config(arch).d_model
+        x0 = (rn(8 * 32, d) * 0.3).bfloat16()
+        w0, w1 = ((rn(d, d) / math.sqrt(d)).bfloat16() for _ in range(2))
+        for x_has_tangent in (False, True):
+            peft = {"A1": rn(d, 1) / math.sqrt(d), "B1": rn(1, d) * 0.1}
+            if x_has_tangent:
+                peft.update({"A0": rn(d, 1) / math.sqrt(d), "B0": rn(1, d) * 0.1})
+
+            def pre(p, xt=x_has_tangent):
+                x = dispatch.lora_proj(x0, w0, p["A0"], p["B0"], 1.0) if xt else x0
+                return (x, w1, p["A1"], p["B1"]), None
+            split = SplitLoss(pre, "lora", lambda y, ctx, p: (y.float() ** 2).mean(),
+                              x_has_tangent=x_has_tangent)
+            reset_launch_counts()
+            loss, _, jvps = forward_gradient(split, peft, 7, 8, fused_contraction=True)
+            torch.cuda.synchronize()
+            counts = launch_counts()
+            _, _, jvps_std = forward_gradient(split, peft, 7, 8)
+            want = {k: 0 for k in counts}
+            want.update({"lora_dual_mt_jvps": 1, "lora_dual_mt": int(x_has_tangent)})
+            err = float((jvps - jvps_std).abs().max() / jvps_std.abs().max())
+            res = {"arch": arch, "x_has_tangent": x_has_tangent, "loss": float(loss),
+                   "jvps_rel_err_vs_standard": err, "launches": counts}
+            log("[site] lora SplitLoss K=8: " + json.dumps(res))
+            if counts != want:
+                raise AssertionError(f"site {arch}: launches {counts} != {want}")
+            # the standard route rounds each tangent output to bf16 before
+            # contracting it; the epilogue contracts in fp32
+            if not (math.isfinite(float(loss)) and err <= 2e-2):
+                raise AssertionError(f"site {arch}: fused vs standard jvps {err}")
+            for k, n in counts.items():
+                totals[k] += n
+
+
+# ---------------------------------------------------------------------------
+# phase 6: full-size training through the entry point
+# ---------------------------------------------------------------------------
+
+def round_launches(kind, L, estimates):
+    """The launches one round must make: per estimate, one multi-tangent
+    kernel per site on the standard route; L-1 attention ones and one
+    attention contraction epilogue on the fused route; none by reverse mode
+    or by the zero-order clients."""
+    want = {"lora_dual_mt": 0, "lora_dual_mt_jvps": 0, "swa_attention": 0,
+            "swa_attention_mt": 0, "swa_attention_mt_jvps": 0}
+    if kind in ("standard", "fused"):
+        want.update({"lora_dual_mt": estimates * 2 * L,       # wq, wv per layer
+                     "swa_attention": estimates * L,
+                     "swa_attention_mt": estimates * (L - (kind == "fused")),
+                     "swa_attention_mt_jvps": estimates * (kind == "fused")})
+    return want
+
+
+def phase_train(phases, totals):
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.launch.train import run_training
 
-    totals = {k: 0 for k in launch_counts()}
-    for arch, method, K, rounds, clients in phases:
+    results = []
+    for arch, method, K, rounds, clients, fused in phases:
         L = get_config(arch).n_layers
-        torch.cuda.reset_peak_memory_stats()
         reset_launch_counts()
         hist = run_training(arch=arch, task="sst2", method=method, rounds=rounds,
                             clients_per_round=clients, batch_size=8,
                             k_perturbations=K, eval_every=1, reduced=False,
-                            device="cuda", log=lambda s: log("  " + s))
+                            fused_contraction=fused, device="cuda",
+                            log=lambda s: log("  " + s))
         torch.cuda.synchronize()
         counts = launch_counts()
+        # the route each round reported; the launch counts below hold the
+        # entry point to it, and it must be the route that was asked for
+        routes = [h.get("route", "none") for h in hist]
+        asked = ("fused" if fused else "standard") if method in (
+            "spry", "spry_periter", "fedfgd") else "none"
+        if routes != [asked] * len(hist):
+            raise AssertionError(f"train {arch} {method}: rounds reported routes "
+                                 f"{routes}, asked for {asked}")
+        kind = routes[-1]
         res = {"arch": arch, "method": method, "K": K, "clients": clients,
-               "loss": [h["loss"] for h in hist], "test_acc": [h["acc"] for h in hist],
+               "route": kind, "loss": [h["loss"] for h in hist],
+               "test_acc": [h["acc"] for h in hist],
                "round_s": [h["round_s"] for h in hist],
                "personalized_acc": hist[-1]["personalized_acc"],
-               "max_memory_allocated_GiB": torch.cuda.max_memory_allocated() / 2 ** 30,
+               "round_peak_GiB": max(h["round_peak_bytes"] for h in hist) / 2 ** 30,
                "launches": counts, "round_launches": [h["launches"] for h in hist]}
-        log(f"[train] {arch} {method} K={K}: " + json.dumps(res))
+        log(f"[train] {arch} {method} K={K} {kind}: " + json.dumps(res))
         if not all(math.isfinite(x) for x in res["loss"]):
             raise AssertionError(f"train {arch} {method}: loss not finite")
-        missing = [k for k, n in counts.items() if n == 0]
-        if missing:
-            raise AssertionError(f"train {arch} {method}: kernels never launched {missing}")
-        estimates = clients            # one estimate a client (local_iters=1)
-        for rl in res["round_launches"]:
-            want = {"lora_dual_mt": estimates * 2 * L,          # wq, wv per layer
-                    "swa_attention": estimates * L,
-                    "swa_attention_mt": estimates * L}
+        for route, rl in zip(routes, res["round_launches"]):
+            want = round_launches(route, L, clients)   # one estimate a client
             if rl != want:
-                raise AssertionError(f"train {arch} {method} K={K}: round launches "
-                                     f"{rl} != one per site and estimate {want}")
+                raise AssertionError(f"train {arch} {method} K={K} {kind}: round "
+                                     f"launches {rl} != {want}")
         for k, n in counts.items():
             totals[k] += n
-    return totals
+        results.append(res)
+    return results
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description="On-card smoke test of repro_torch")
-    ap.add_argument("--only", choices=("kernels", "parity", "train"), default=None)
+    ap.add_argument("--only", choices=("kernels", "parity", "train"), default=None,
+                    help="run one phase; 'train' covers the site and train phases")
     args = ap.parse_args(argv)
     if not os.path.isdir(os.path.join(ROOT, "src", "repro_torch")):
         print("chip_smoke: src/repro_torch not found beside this script",
@@ -372,18 +586,34 @@ def main(argv=None):
 
     main_cases = phase_kernels() if args.only in (None, "kernels") else {}
     if args.only in (None, "parity"):
-        phase_parity()
-    totals = {}
+        phase_parity(fused=False)
+        phase_parity(fused=True)
+    from repro_torch.kernels import launch_counts
+    totals = {k: 0 for k in launch_counts()}
     if args.only in (None, "train"):
-        totals = phase_train([
-            ("roberta-large-lora", "spry", 1, 2, 4),
-            ("roberta-large-lora", "spry", 8, 2, 4),
-            ("roberta-large-lora", "spry_periter", 8, 2, 4),
-            ("llama2-7b", "spry", 4, 1, 2),
-        ])
+        phase_site(totals)
+        rb, ll = "roberta-large-lora", "llama2-7b"
+        results = phase_train(
+            [(rb, "spry", 1, 2, 4, False), (rb, "spry", 8, 2, 4, False),
+             (rb, "spry_periter", 8, 2, 4, False),
+             (rb, "spry", 8, 2, 4, True), (rb, "spry_periter", 8, 2, 4, True),
+             (rb, "fedfgd", 8, 2, 4, False)]
+            + [(rb, m, 1, 1, 4, False) for m in ("fedavg", "fedyogi", "fedsgd",
+                                                 "fedavgsplit", "fedmezo", "baffle",
+                                                 "fwdllm")]
+            + [(ll, "spry", 4, 1, 2, False), (ll, "spry", 4, 1, 2, True),
+               (ll, "fedavg", 1, 1, 2, False)], totals)
+        peak = {f"{r['method']}_{r['route']}": r["round_peak_GiB"]
+                for r in results if r["arch"] == ll}
+        log("[train] llama2-7b peak device memory GiB (2 clients, batch 8 x 32 "
+            "tokens, one round): " + json.dumps(peak))
+        missing = [k for k, n in totals.items() if n == 0]
+        if missing:
+            raise AssertionError(f"main path never launched {missing}")
     log(f"[done] {time.time() - t0:.1f}s")
     kernels = []
-    for name in ("lora_dual_mt", "swa_attention", "swa_attention_mt"):
+    for name in ("lora_dual_mt", "swa_attention", "swa_attention_mt",
+                 "swa_attention_mt_jvps", "lora_dual_mt_jvps"):
         c = main_cases.get(name, {})
         kernels.append({"name": name, "route": "cuda", "source": SOURCES[name],
                         "replaces": REPLACES[name], "launches": totals.get(name, 0),

@@ -63,9 +63,13 @@ class SpryConfig:
     k_perturbations: int = 1             # K
     tangent_batch: int | None = None     # None = all K in one batched pass;
                                          # 1 = sequential; 1<b<K = groups of b
+    fused_contraction: bool = False      # contract the final mixer site's K
+                                         # tangent outputs against the post-head
+                                         # cotangent in-kernel (split losses)
     local_lr: float = 1e-4               # eta_l
     server_lr: float = 1e-2              # eta
     server_opt: str = "fedyogi"          # fedyogi | fedadam | fedavg | fedsgd | fedadagrad
+    client_opt: str = "sgd"              # sgd | adamw (backprop baselines)
     local_iters: int = 1
     jvp_clip: float | None = None
     lora_rank: int = 1                   # paper default r=1, alpha=1

@@ -3,7 +3,8 @@
 ``from_reference(cfg, base_np, peft_np, device)`` takes the JAX package's
 ``base`` and ``peft`` trees as nested dicts of numpy arrays (per-layer
 leaves stacked under a leading L axis, as the reference keeps them) and
-returns the port's trees on ``device``. Both packages use the same tree
+returns the port's trees on ``device`` (required: the port never picks a
+device for the caller). Both packages use the same tree
 layout and leaf names, so this is a dtype-preserving copy (bf16 leaves
 stay bf16); it checks the stacked depth against ``cfg``.
 """
@@ -22,7 +23,7 @@ def _to_torch(a, device):
     return torch.from_numpy(np.array(a)).to(device)   # a writable copy
 
 
-def from_reference(cfg, base_np, peft_np, device="cpu"):
+def from_reference(cfg, base_np, peft_np, device):
     base = tree_map(lambda a: _to_torch(a, device), base_np)
     peft = tree_map(lambda a: _to_torch(a, device), peft_np)
     for what, tree in (("base", base["layers"]), ("peft", peft.get("layers", {}))):

@@ -8,6 +8,7 @@ from repro_torch.core.assignment import (
     enumerate_units,
 )
 from repro_torch.core.forward_grad import (
+    SplitLoss,
     fold_in,
     forward_gradient,
     masked_perturbation,
@@ -17,6 +18,7 @@ from repro_torch.core.forward_grad import (
 from repro_torch.core.spry import (
     SpryState,
     aggregate_payloads,
+    estimator_route,
     init_state,
     make_client_jvp_fn,
     make_client_update_fn,

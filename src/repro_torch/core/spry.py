@@ -48,12 +48,32 @@ def init_state(base, peft) -> SpryState:
 
 
 def make_task_loss(cfg, spry_cfg, task, base, batch):
-    """The client objective as a function of the peft tree only."""
+    """The client objective as a function of the peft tree only: the
+    registry's ``SplitLoss`` with ``spry_cfg.fused_contraction`` (the
+    estimator then runs the in-kernel contraction at the final mixer site),
+    else the plain closure. Both run the same loss ops."""
+    if spry_cfg.fused_contraction:
+        return get_loss_fn(task, split=True)(cfg, base, batch,
+                                             lora_scale=spry_cfg.lora_alpha)
     loss_fn_kind = get_loss_fn(task)
 
     def loss_of(p):
         return loss_fn_kind(cfg, base, p, batch, lora_scale=spry_cfg.lora_alpha)
     return loss_of
+
+
+def estimator_route(spry_cfg) -> str:
+    """'fused' (in-kernel jvp contraction at the final mixer site) or
+    'standard' (tangent outputs materialized, then contracted)."""
+    return "fused" if spry_cfg.fused_contraction else "standard"
+
+
+def _estimate(loss_of, peft, key, spry_cfg, mask_tree, injected):
+    return forward_gradient(
+        loss_of, peft, key, k_perturbations=spry_cfg.k_perturbations,
+        mask_tree=mask_tree, jvp_clip=spry_cfg.jvp_clip,
+        tangent_batch=spry_cfg.tangent_batch, perturbations=injected,
+        fused_contraction=spry_cfg.fused_contraction)
 
 
 def _injected(perturbations, seed_id, it):
@@ -65,7 +85,6 @@ def make_client_update_fn(cfg, spry_cfg, task: str = "cls"):
     forward-gradient SGD on the units of ``mask_row``. Returns
     ``client_update(base, peft, round_key, seed_id, mask_row, client_batch,
     perturbations=None) -> (delta, loss_mean, jvps)``."""
-    K = spry_cfg.k_perturbations
     lr_l = spry_cfg.local_lr
 
     def client_update(base, peft, round_key, seed_id, mask_row, client_batch,
@@ -77,11 +96,9 @@ def make_client_update_fn(cfg, spry_cfg, task: str = "cls"):
         peft_c = peft
         losses, jvps_all = [], []
         for it in range(spry_cfg.local_iters):
-            loss, g, jvps = forward_gradient(
-                loss_of, peft_c, fold_in(ckey, it), k_perturbations=K,
-                mask_tree=mask_tree, jvp_clip=spry_cfg.jvp_clip,
-                tangent_batch=spry_cfg.tangent_batch,
-                perturbations=_injected(perturbations, seed_id, it))
+            loss, g, jvps = _estimate(loss_of, peft_c, fold_in(ckey, it),
+                                      spry_cfg, mask_tree,
+                                      _injected(perturbations, seed_id, it))
             peft_c = tree_map(lambda p, gi: p - lr_l * gi, peft_c, g)
             losses.append(loss)
             jvps_all.append(jvps)
@@ -95,18 +112,14 @@ def make_client_jvp_fn(cfg, spry_cfg, task: str = "cls"):
     """Per-iteration client (§3.2): one estimate at the server weights; the
     K jvp scalars are the whole uplink. ``client_jvp(base, peft, round_key,
     seed_id, mask_row, client_batch, perturbations=None) -> (loss, jvps)``."""
-    K = spry_cfg.k_perturbations
-
     def client_jvp(base, peft, round_key, seed_id, mask_row, client_batch,
                    perturbations=None):
         index = enumerate_units(peft)
         mask_tree = build_mask_tree(peft, index, mask_row)
         ikey = fold_in(fold_in(round_key, seed_id), 0)
         loss_of = make_task_loss(cfg, spry_cfg, task, base, client_batch)
-        loss, _, jvps = forward_gradient(
-            loss_of, peft, ikey, k_perturbations=K, mask_tree=mask_tree,
-            jvp_clip=spry_cfg.jvp_clip, tangent_batch=spry_cfg.tangent_batch,
-            perturbations=_injected(perturbations, seed_id, 0))
+        loss, _, jvps = _estimate(loss_of, peft, ikey, spry_cfg, mask_tree,
+                                  _injected(perturbations, seed_id, 0))
         return loss, jvps
 
     return client_jvp
@@ -143,11 +156,16 @@ def aggregate_payloads(peft, index, payloads, counts, head_count):
     return tree_map(lambda leaf, c: leaf.sum(0) / c, stacked, count_tree)
 
 
-def _round_setup(state, spry_cfg, M):
+def _round_setup(state, spry_cfg, M, split=True):
+    """(unit index, client x unit mask, per-unit counts, round key);
+    ``split=False`` gives every client every unit."""
     index = enumerate_units(state.peft)
     device = next(iter(state.peft["head"].values())).device
-    mask_matrix = assignment_matrix(index.n_units, M, state.round_idx % M,
-                                    device=device)
+    if split:
+        mask_matrix = assignment_matrix(index.n_units, M, state.round_idx % M,
+                                        device=device)
+    else:
+        mask_matrix = torch.ones((M, index.n_units), device=device)
     round_key = fold_in(spry_cfg.seed, state.round_idx)
     return index, mask_matrix, client_counts(mask_matrix), round_key
 
@@ -156,15 +174,23 @@ def _client_batch(batch, m):
     return {k: v[m] for k, v in batch.items()}
 
 
-def make_round_step(cfg, spry_cfg, task: str = "cls"):
+def _route_metric(spry_cfg):
+    """1.0 on the fused route, 0.0 on the standard one."""
+    return torch.tensor(float(spry_cfg.fused_contraction))
+
+
+def make_round_step(cfg, spry_cfg, task: str = "cls", split: bool = True):
     """round_step(state, batch, perturbations=None) -> (state, metrics);
-    batch leaves lead with the M simulated clients."""
+    batch leaves lead with the M simulated clients. ``split=False`` turns
+    the paper's weight splitting off (the FedFGD ablation: every client
+    perturbs every unit)."""
     M = spry_cfg.n_clients_per_round
     client_update = make_client_update_fn(cfg, spry_cfg, task)
 
     def round_step(state: SpryState, batch, perturbations=None):
         base, peft = state.base, state.peft
-        index, mask_matrix, counts, round_key = _round_setup(state, spry_cfg, M)
+        index, mask_matrix, counts, round_key = _round_setup(state, spry_cfg, M,
+                                                             split)
         outs = [client_update(base, peft, round_key, m, mask_matrix[m],
                               _client_batch(batch, m), perturbations)
                 for m in range(M)]
@@ -179,6 +205,7 @@ def make_round_step(cfg, spry_cfg, task: str = "cls"):
             "delta_norm": torch.sqrt(sum(torch.sum(d * d) for d in
                                          tree_leaves(delta))),
             "jvps": jvps,
+            "fused_route": _route_metric(spry_cfg),
         }
         return SpryState(base, new_peft, server, state.round_idx + 1), metrics
 
@@ -207,7 +234,8 @@ def make_round_step_per_iteration(cfg, spry_cfg, task: str = "cls"):
                                          state.server, lr=spry_cfg.server_lr)
         jvps = torch.stack(jvps)
         metrics = {"loss": torch.stack(losses).mean(),
-                   "jvp_abs_mean": jvps.abs().mean(), "jvps": jvps}
+                   "jvp_abs_mean": jvps.abs().mean(), "jvps": jvps,
+                   "fused_route": _route_metric(spry_cfg)}
         return SpryState(base, new_peft, server, state.round_idx + 1), metrics
 
     return round_step

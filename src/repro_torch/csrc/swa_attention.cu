@@ -1,13 +1,17 @@
-// Causal (sliding-window) GQA flash attention for Hopper (sm_90a), primal
-// and multi-tangent, plain C interface.
+// Causal (sliding-window) GQA flash attention for Hopper (sm_90a): primal,
+// multi-tangent, and the multi-tangent jvp-contraction epilogue; plain C
+// interface.
 //
 // Replaces the TPU kernels repro/kernels/swa_attention/kernel.py::
-// swa_attention_kernel and swa_attention_mt_kernel (emit_primal=False).
-// See repro_torch/kernels/swa_attention/ops.py for the design note.
+// swa_attention_kernel, swa_attention_mt_kernel (emit_primal=False) and
+// swa_attention_mt_jvps_kernel. See repro_torch/kernels/swa_attention/ops.py
+// for the design note.
 //
 // Layout: q (BH, S, hd), k/v (BKV, S, hd) with BKV = BH / G; the tangents
 // lead with T: qd (T, BH, S, hd), kd/vd (T, BKV, S, hd) -> od (T, BH, S, hd).
-// Query row (bh, i) reads kv row (bh / H) * (H / G) + (bh % H) / G.
+// Query row (bh, i) reads kv row (bh / H) * (H / G) + (bh % H) / G. The
+// contraction epilogue reads gy (BH, S, hd) instead of writing od and
+// writes one fp32 partial per (bh, query block, t): parts (BH, QB, T).
 //
 // One warp per query row; lanes split hd (NI = ceil(hd / 32) elements a
 // lane). Keys are walked in chunks of KC = 32 staged in shared memory as
@@ -23,6 +27,10 @@ constexpr int T_MAX = 64;   // at hd = 128 one warp a block then needs 132 KB
 constexpr int HD_MAX = 128;
 constexpr float NEG_INF = -1e30f;
 constexpr size_t SMEM_LIMIT = 232448;   // 227 KB a block on sm_90
+
+// what a launch computes: the primal, T tangent outputs, or T contractions
+// <gy, od_t> with no tangent output
+enum Mode { PRIMAL = 0, TANGENTS = 1, JVPS = 2 };
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -62,18 +70,30 @@ __device__ __forceinline__ void stage(float* dst, const XT* src, int c0, int S,
   }
 }
 
-size_t smem_floats(bool tang, int hd, int T, int nwarps) {
+size_t smem_floats(int mode, int hd, int T, int nwarps) {
+  const bool tang = mode != PRIMAL;
   size_t kv = (size_t)KC * (2 * hd + 1) * (tang ? 2 : 1);
   size_t per_warp = hd + (tang ? (size_t)2 * T * hd + T : 0);
-  return kv + per_warp * nwarps;
+  size_t red = mode == JVPS ? (size_t)nwarps * T : 0;   // the block's row partials
+  return kv + per_warp * nwarps + red;
 }
 
-template <typename XT, int NI, bool TANG>
+// warps (query rows) a block: 8, halved until the shared-memory plan fits
+int pick_warps(int mode, int hd, int T) {
+  int nwarps = 8;
+  while (nwarps > 1 && smem_floats(mode, hd, T, nwarps) * sizeof(float) > SMEM_LIMIT)
+    nwarps /= 2;
+  return nwarps;
+}
+
+template <typename XT, int NI, int MODE>
 __global__ void swa_kernel(const XT* __restrict__ q, const XT* __restrict__ k,
                            const XT* __restrict__ v, const XT* __restrict__ qd,
                            const XT* __restrict__ kd, const XT* __restrict__ vd,
-                           XT* __restrict__ out, int BH, int S, int hd, int H,
-                           int G, int T, int window, float scale) {
+                           const XT* __restrict__ gy, XT* __restrict__ out,
+                           float* __restrict__ parts, int BH, int S, int hd,
+                           int H, int G, int T, int window, float scale) {
+  constexpr bool TANG = MODE != PRIMAL;
   extern __shared__ float smem[];
   const int nwarps = blockDim.x / 32;
   const int warp = threadIdx.x / 32;
@@ -202,8 +222,41 @@ __global__ void swa_kernel(const XT* __restrict__ q, const XT* __restrict__ k,
     }
   }
 
-  if (!active) return;
   const float lc = fmaxf(l, 1e-30f);
+  if (MODE == JVPS) {
+    // finish: od_t = accd_t / l - (mud_t / l) * out, contracted with this
+    // row's gy in fp32 and reduced over the warp; the block's rows are
+    // then summed in warp order (no atomics: the same sum every run)
+    float* red = wbase + nwarps * per_warp;         // nwarps x T
+    float g[NI];
+    const XT* gyg = gy + ((size_t)bh * S + (active ? qpos : 0)) * hd;
+#pragma unroll
+    for (int i = 0; i < NI; ++i) {
+      const int d = lane + 32 * i;
+      g[i] = (active && d < hd) ? to_f(gyg[d]) : 0.f;
+    }
+    for (int t = 0; t < T; ++t) {
+      float part = 0.f;
+      if (active) {
+        const float mu_l = mud[t] / lc;
+#pragma unroll
+        for (int i = 0; i < NI; ++i) {
+          const int d = lane + 32 * i;
+          if (d < hd) part = fmaf(g[i], accd[t * hd + d] / lc - mu_l * (acc[i] / lc), part);
+        }
+      }
+      part = warp_sum(part);
+      if (lane == 0) red[warp * T + t] = part;
+    }
+    __syncthreads();
+    for (int t = threadIdx.x; t < T; t += blockDim.x) {
+      float sum = 0.f;
+      for (int w = 0; w < nwarps; ++w) sum += red[w * T + t];
+      parts[((size_t)bh * gridDim.y + blockIdx.y) * T + t] = sum;
+    }
+    return;
+  }
+  if (!active) return;
   if (!TANG) {
     XT* og = out + ((size_t)bh * S + qpos) * hd;
 #pragma unroll
@@ -224,16 +277,15 @@ __global__ void swa_kernel(const XT* __restrict__ q, const XT* __restrict__ k,
   }
 }
 
-template <typename XT, int NI, bool TANG>
+template <typename XT, int NI, int MODE>
 int launch_ni(const void* q, const void* k, const void* v, const void* qd,
-              const void* kd, const void* vd, void* out, int BH, int S, int hd,
-              int H, int G, int T, int window, float scale, cudaStream_t stream) {
-  int nwarps = 8;
-  while (nwarps > 1 && smem_floats(TANG, hd, T, nwarps) * sizeof(float) > SMEM_LIMIT)
-    nwarps /= 2;
-  const size_t smem = smem_floats(TANG, hd, T, nwarps) * sizeof(float);
+              const void* kd, const void* vd, const void* gy, void* out,
+              int BH, int S, int hd, int H, int G, int T, int window,
+              float scale, cudaStream_t stream) {
+  const int nwarps = pick_warps(MODE, hd, T);
+  const size_t smem = smem_floats(MODE, hd, T, nwarps) * sizeof(float);
   if (smem > SMEM_LIMIT) return (int)cudaErrorInvalidValue;
-  auto kern = swa_kernel<XT, NI, TANG>;
+  auto kern = swa_kernel<XT, NI, MODE>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -242,19 +294,21 @@ int launch_ni(const void* q, const void* k, const void* v, const void* qd,
   const dim3 grid(BH, (S + nwarps - 1) / nwarps);
   kern<<<grid, nwarps * 32, smem, stream>>>(
       (const XT*)q, (const XT*)k, (const XT*)v, (const XT*)qd, (const XT*)kd,
-      (const XT*)vd, (XT*)out, BH, S, hd, H, G, T, window, scale);
+      (const XT*)vd, (const XT*)gy, MODE == JVPS ? nullptr : (XT*)out,
+      MODE == JVPS ? (float*)out : nullptr, BH, S, hd, H, G, T, window, scale);
   return (int)cudaGetLastError();
 }
 
-template <typename XT, bool TANG>
+template <typename XT, int MODE>
 int launch(const void* q, const void* k, const void* v, const void* qd,
-           const void* kd, const void* vd, void* out, int BH, int S, int hd,
-           int H, int G, int T, int window, float scale, cudaStream_t s) {
+           const void* kd, const void* vd, const void* gy, void* out, int BH,
+           int S, int hd, int H, int G, int T, int window, float scale,
+           cudaStream_t s) {
   switch ((hd + 31) / 32) {
-    case 1: return launch_ni<XT, 1, TANG>(q, k, v, qd, kd, vd, out, BH, S, hd, H, G, T, window, scale, s);
-    case 2: return launch_ni<XT, 2, TANG>(q, k, v, qd, kd, vd, out, BH, S, hd, H, G, T, window, scale, s);
-    case 3: return launch_ni<XT, 3, TANG>(q, k, v, qd, kd, vd, out, BH, S, hd, H, G, T, window, scale, s);
-    case 4: return launch_ni<XT, 4, TANG>(q, k, v, qd, kd, vd, out, BH, S, hd, H, G, T, window, scale, s);
+    case 1: return launch_ni<XT, 1, MODE>(q, k, v, qd, kd, vd, gy, out, BH, S, hd, H, G, T, window, scale, s);
+    case 2: return launch_ni<XT, 2, MODE>(q, k, v, qd, kd, vd, gy, out, BH, S, hd, H, G, T, window, scale, s);
+    case 3: return launch_ni<XT, 3, MODE>(q, k, v, qd, kd, vd, gy, out, BH, S, hd, H, G, T, window, scale, s);
+    case 4: return launch_ni<XT, 4, MODE>(q, k, v, qd, kd, vd, gy, out, BH, S, hd, H, G, T, window, scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -276,9 +330,9 @@ extern "C" int swa_attention_fwd(int dtype, const void* q, const void* k,
   if (bad_args(BH, S, hd, H, G, 1)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0)
-    return launch<float, false>(q, k, v, nullptr, nullptr, nullptr, out, BH, S, hd, H, G, 1, window, scale, s);
+    return launch<float, PRIMAL>(q, k, v, nullptr, nullptr, nullptr, nullptr, out, BH, S, hd, H, G, 1, window, scale, s);
   if (dtype == 1)
-    return launch<__nv_bfloat16, false>(q, k, v, nullptr, nullptr, nullptr, out, BH, S, hd, H, G, 1, window, scale, s);
+    return launch<__nv_bfloat16, PRIMAL>(q, k, v, nullptr, nullptr, nullptr, nullptr, out, BH, S, hd, H, G, 1, window, scale, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -291,8 +345,31 @@ extern "C" int swa_attention_mt_tangents(int dtype, const void* q,
   if (bad_args(BH, S, hd, H, G, T)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0)
-    return launch<float, true>(q, k, v, qd, kd, vd, od, BH, S, hd, H, G, T, window, scale, s);
+    return launch<float, TANGENTS>(q, k, v, qd, kd, vd, nullptr, od, BH, S, hd, H, G, T, window, scale, s);
   if (dtype == 1)
-    return launch<__nv_bfloat16, true>(q, k, v, qd, kd, vd, od, BH, S, hd, H, G, T, window, scale, s);
+    return launch<__nv_bfloat16, TANGENTS>(q, k, v, qd, kd, vd, nullptr, od, BH, S, hd, H, G, T, window, scale, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// Query blocks of a contraction-epilogue launch: parts has (BH, this, T).
+extern "C" int swa_attention_mt_jvps_blocks(int S, int hd, int T) {
+  if (S < 1 || hd < 1 || hd > HD_MAX || T < 1 || T > T_MAX) return -1;
+  const int nwarps = pick_warps(JVPS, hd, T);
+  return (S + nwarps - 1) / nwarps;
+}
+
+// parts: fp32 (BH, swa_attention_mt_jvps_blocks(S, hd, T), T).
+extern "C" int swa_attention_mt_jvps(int dtype, const void* q, const void* k,
+                                     const void* v, const void* qd,
+                                     const void* kd, const void* vd,
+                                     const void* gy, void* parts, int BH, int S,
+                                     int hd, int H, int G, int T, int window,
+                                     float scale, void* stream) {
+  if (bad_args(BH, S, hd, H, G, T)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (dtype == 0)
+    return launch<float, JVPS>(q, k, v, qd, kd, vd, gy, parts, BH, S, hd, H, G, T, window, scale, s);
+  if (dtype == 1)
+    return launch<__nv_bfloat16, JVPS>(q, k, v, qd, kd, vd, gy, parts, BH, S, hd, H, G, T, window, scale, s);
   return (int)cudaErrorInvalidValue;
 }

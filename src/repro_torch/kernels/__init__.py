@@ -1,11 +1,14 @@
 """Hand-written Hopper kernels of the port and their dispatch.
 
 lora_dual/      LoRA multi-tangent projection (tangents of every LoRA
-                projection inside the estimator)
-swa_attention/  causal (sliding-window) GQA flash attention, primal and
-                multi-tangent
+                projection inside the estimator) and its jvp-contraction
+                epilogue (the final site of a 'lora' split loss)
+swa_attention/  causal (sliding-window) GQA flash attention: primal,
+                multi-tangent, and the multi-tangent contraction epilogue
+                (the dense family's final site on the fused route)
 dispatch.py     forward-mode rules that route the model's LoRA projections
-                and attention mixers to those kernels
+                and attention mixers to those kernels, and the contraction
+                ops of the fused-contraction route
 build.py        nvcc build at first use, ctypes loading
 csrc/           the CUDA sources
 

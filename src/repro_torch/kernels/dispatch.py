@@ -1,6 +1,8 @@
 """Forward-mode rules that route LoRA projections and attention mixers to
-the multi-tangent kernels. Port of ``repro/kernels/dispatch.py``
-(``lora_proj``, ``swa_attend``, ``forward_ad_region``).
+the multi-tangent kernels, and the cotangent-known contraction ops of the
+fused-contraction route. Port of ``repro/kernels/dispatch.py``
+(``lora_proj``, ``swa_attend``, ``forward_ad_region``,
+``lora_jvp_contract``, ``swa_jvp_contract``).
 
 The reference pairs ``jax.custom_jvp`` with ``custom_vmap``; here each op is
 a ``torch.autograd.Function`` with a ``jvp`` staticmethod, and its tangent
@@ -14,7 +16,18 @@ PyTorch version, given CUDA tensors it launches its kernel or raises.
 ``forward_ad_region()`` (a contextvar set by the estimator) decides whether
 the tangent kernels are used at all: outside it the LoRA rule computes its
 tangent with plain ops and the model keeps its plain attention path, as the
-reference does. The kernels have no reverse-mode rule.
+reference does.
+
+Reverse mode never reaches a kernel: ``lora_proj`` has a ``backward`` in
+plain ops (the fused route reverses the post-head through it, and the
+backprop baselines reverse the whole model), and outside the forward-AD
+region the model's attention is plain ``attend_prefill``. ``swa_attend``
+stays forward-only.
+
+The contraction ops compute <gy, ydot> for a site whose output cotangent
+gy is known: one tangent in ``forward``, K stacked tangents in ``vmap`` as
+ONE T=K call of the ``*_mt_jvps`` epilogue, which never writes the (K, ...)
+tangent output.
 """
 from __future__ import annotations
 
@@ -24,11 +37,13 @@ import contextvars
 import torch
 
 from repro_torch.kernels.lora_dual.ops import (
+    lora_dual_mt_jvps,
     lora_dual_mt_tangents,
     lora_dual_mt_tangents_ref,
 )
 from repro_torch.kernels.swa_attention.ops import (
     swa_attention,
+    swa_attention_mt_jvps,
     swa_attention_mt_tangents,
 )
 
@@ -48,6 +63,11 @@ def forward_ad_region():
 
 def in_forward_ad_region() -> bool:
     return _fwd_region.get()
+
+
+def _one(t):
+    """A single tangent as a T=1 stack for the kernel."""
+    return None if t is None else t.contiguous()[None]
 
 
 def _stack(t, dim, size):
@@ -107,7 +127,28 @@ class _LoraProj(torch.autograd.Function):
     def setup_context(ctx, inputs, output):
         x, w, a, b, scale = inputs
         ctx.save_for_forward(x, w, a, b)
+        ctx.save_for_backward(x, w, a, b)
         ctx.scale = scale
+
+    @staticmethod
+    def backward(ctx, gy):
+        """Reverse mode in plain ops: gradients for x, A and B, and for the
+        frozen W only when it requires one."""
+        x, w, a, b = ctx.saved_tensors
+        K, N = w.shape
+        x2 = x.reshape(-1, K)
+        g2 = gy.reshape(-1, N)
+        gu = (g2.to(a.dtype) @ b.T) * ctx.scale                 # (M, r)
+        gx = gw = ga = gb = None
+        if ctx.needs_input_grad[0]:
+            gx = (g2 @ w.T + (gu @ a.T).to(g2.dtype)).reshape(x.shape)
+        if ctx.needs_input_grad[1]:
+            gw = x2.T @ g2
+        if ctx.needs_input_grad[2]:
+            ga = x2.to(a.dtype).T @ gu
+        if ctx.needs_input_grad[3]:
+            gb = (x2.to(a.dtype) @ a).T @ g2.to(a.dtype) * ctx.scale
+        return gx, gw, ga, gb, None
 
     @staticmethod
     def jvp(ctx, xd, wd, ad, bd, _):
@@ -131,8 +172,41 @@ class _LoraProj(torch.autograd.Function):
 
 
 def lora_proj(x, w, a, b, scale):
-    """y = x@W + s*(x@A)@B with the multi-tangent forward-mode rule."""
+    """y = x@W + s*(x@A)@B with the multi-tangent forward-mode rule and a
+    plain reverse-mode rule."""
     return _LoraProj.apply(x, w, a, b, scale)
+
+
+class _LoraContract(torch.autograd.Function):
+    """<gy, ydot> of a LoRA projection for one tangent (forward) or K
+    stacked tangents (vmap -> one T=K ``lora_dual_mt_jvps`` call)."""
+
+    @staticmethod
+    def forward(gy, x, w, a, b, xd, ad, bd, scale):
+        return lora_dual_mt_jvps(x, w, a, _one(ad), b, _one(bd), gy, scale,
+                                 xdots=_one(xd))[0]
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def vmap(info, in_dims, gy, x, w, a, b, xd, ad, bd, scale):
+        if any(d is not None for d in in_dims[:5]):
+            _primal_batched("lora_jvp_contract")
+        n = info.batch_size
+        return lora_dual_mt_jvps(
+            x, w, a, _stack(ad, in_dims[6], n), b, _stack(bd, in_dims[7], n), gy,
+            scale, xdots=_stack(xd, in_dims[5], n)), 0
+
+
+def lora_jvp_contract(gy, x, w, a, b, ad, bd, xd=None, *, scale=1.0):
+    """jvp partial <gy, ydot> of a LoRA projection site against its known
+    output cotangent gy, for tangents (xd, ad, bd); ``xd=None`` removes the
+    input-tangent terms (the projection's input carries no tangent)."""
+    return _LoraContract.apply(gy.contiguous(), x.contiguous(), w.contiguous(),
+                               a.contiguous(), b.contiguous(), xd, ad, bd,
+                               float(scale))
 
 
 # ---------------------------------------------------------------------------
@@ -188,3 +262,33 @@ def swa_attend(q, k, v, window):
     k,v (B,KV,S,hd). Primal through the flash kernel, tangents through the
     multi-tangent kernel."""
     return _SwaAttend.apply(q, k, v, window)
+
+
+class _SwaContract(torch.autograd.Function):
+    """<gy, outd> of the attention mixer for one tangent (forward) or K
+    stacked tangents (vmap -> one T=K ``swa_attention_mt_jvps`` call)."""
+
+    @staticmethod
+    def forward(gy, q, k, v, qd, kd, vd, window):
+        return swa_attention_mt_jvps(q, k, v, _one(qd), _one(kd), _one(vd), gy,
+                                     window)[0]
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def vmap(info, in_dims, gy, q, k, v, qd, kd, vd, window):
+        if any(d is not None for d in in_dims[:4]):
+            _primal_batched("swa_jvp_contract")
+        n = info.batch_size
+        return swa_attention_mt_jvps(
+            q, k, v, _stack(qd, in_dims[4], n), _stack(kd, in_dims[5], n),
+            _stack(vd, in_dims[6], n), gy, window), 0
+
+
+def swa_jvp_contract(gy, q, k, v, qd, kd, vd, window):
+    """jvp partial <gy, outd> of an attention site (kernel layout) against
+    its known output cotangent gy (B,H,S,hd)."""
+    return _SwaContract.apply(gy.contiguous(), q.contiguous(), k.contiguous(),
+                              v.contiguous(), qd, kd, vd, window)

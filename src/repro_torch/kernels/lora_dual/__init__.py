@@ -1,4 +1,6 @@
 from repro_torch.kernels.lora_dual.ops import (
+    lora_dual_mt_jvps,
+    lora_dual_mt_jvps_ref,
     lora_dual_mt_tangents,
     lora_dual_mt_tangents_ref,
 )

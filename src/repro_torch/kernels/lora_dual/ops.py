@@ -3,7 +3,9 @@
     ydot_t = s * ((x@Adot_t + xdot_t@A) @ B + (x@A) @ Bdot_t) + xdot_t@W
 
 for T stacked tangents (``xdots (T,M,K)`` or None, ``adots (T,K,r)``,
-``bdots (T,r,N)`` -> ``(T,M,N)``).
+``bdots (T,r,N)`` -> ``(T,M,N)``), and its jvp-contraction epilogue
+``<gy, ydot_t>`` for T tangents with no (T,M,N) output (second half of
+this module).
 
 Replaces the TPU kernel ``repro/kernels/lora_dual/kernel.py::
 lora_dual_mt_kernel`` (body ``_mt_kernel``) in its ``emit_primal=False``
@@ -35,7 +37,9 @@ import torch
 from repro_torch.kernels import build
 
 R_MAX = 16          # LoRA rank bound of the kernel's shared-memory tiles
-launches = {"lora_dual_mt": 0}   # kernel launches; the plain version does not count
+JT_MAX = 64         # tangents a contraction-epilogue launch
+# kernel launches; the plain versions do not count
+launches = {"lora_dual_mt": 0, "lora_dual_mt_jvps": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -58,48 +62,53 @@ def lora_dual_mt_tangents_ref(x, xdots, w, a, adots, b, bdots, scale):
     return yd.reshape((T,) + x.shape[:-1] + (w.shape[1],))
 
 
-def _lib():
-    lib = build.load("lora_dual")
-    fn = lib.lora_dual_mt_tangents
+def _fn(symbol):
+    fn = getattr(build.load("lora_dual"), symbol)
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [
-            ctypes.c_float, ctypes.c_void_p]
+        n_ptr = 8 if symbol == "lora_dual_mt_tangents" else 9
+        fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * n_ptr + \
+            [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
 
-def _check(x, xdots, w, a, adots, b, bdots):
+def _check(x, xdots, w, a, adots, b, bdots, gy=None, what="lora_dual_mt_tangents",
+           t_max=65535):
     dev = x.device
     K, N = w.shape
     r = a.shape[1]
     T = adots.shape[0]
     tensors = {"x": x, "w": w, "a": a, "adots": adots, "b": b, "bdots": bdots}
-    if xdots is not None:
-        tensors["xdots"] = xdots
+    for name, t in (("xdots", xdots), ("gy", gy)):
+        if t is not None:
+            tensors[name] = t
     for name, t in tensors.items():
         if t.device != dev:
-            raise ValueError(f"lora_dual_mt_tangents: {name} on {t.device}, x on {dev}")
+            raise ValueError(f"{what}: {name} on {t.device}, x on {dev}")
         if not t.is_contiguous():
-            raise ValueError(f"lora_dual_mt_tangents: {name} is not contiguous")
-    if x.dtype not in _DTYPE_CODE or w.dtype != x.dtype or (
-            xdots is not None and xdots.dtype != x.dtype):
-        raise TypeError("lora_dual_mt_tangents: x, xdots and w must share one "
-                        f"dtype of {list(_DTYPE_CODE)}")
+            raise ValueError(f"{what}: {name} is not contiguous")
+    if x.dtype not in _DTYPE_CODE or any(
+            tensors[n].dtype != x.dtype for n in ("w", "xdots", "gy") if n in tensors):
+        raise TypeError(f"{what}: x, xdots, w (and gy) must share one dtype of "
+                        f"{list(_DTYPE_CODE)}")
     for name in ("a", "adots", "b", "bdots"):
         if tensors[name].dtype != torch.float32:
-            raise TypeError(f"lora_dual_mt_tangents: {name} must be float32")
+            raise TypeError(f"{what}: {name} must be float32")
     if x.shape[-1] != K or a.shape != (K, r) or adots.shape != (T, K, r) or \
             b.shape != (r, N) or bdots.shape != (T, r, N):
-        raise ValueError("lora_dual_mt_tangents: inconsistent shapes "
+        raise ValueError(f"{what}: inconsistent shapes "
                          f"x{tuple(x.shape)} w{tuple(w.shape)} a{tuple(a.shape)} "
                          f"adots{tuple(adots.shape)} b{tuple(b.shape)} "
                          f"bdots{tuple(bdots.shape)}")
     if xdots is not None and xdots.shape != (T,) + tuple(x.shape):
-        raise ValueError(f"lora_dual_mt_tangents: xdots{tuple(xdots.shape)} "
+        raise ValueError(f"{what}: xdots{tuple(xdots.shape)} "
                          f"is not (T,)+x{tuple(x.shape)}")
-    if not 1 <= r <= R_MAX or not 1 <= T <= 65535 or K < 1:
-        raise ValueError(f"lora_dual_mt_tangents: needs 1<=r<={R_MAX}, "
-                         f"1<=T<=65535, K>=1 (r={r}, T={T}, K={K})")
+    if gy is not None and gy.shape != tuple(x.shape[:-1]) + (N,):
+        raise ValueError(f"{what}: gy{tuple(gy.shape)} is not x{tuple(x.shape)} "
+                         f"with its last axis N={N}")
+    if not 1 <= r <= R_MAX or not 1 <= T <= t_max or K < 1:
+        raise ValueError(f"{what}: needs 1<=r<={R_MAX}, "
+                         f"1<=T<={t_max}, K>=1 (r={r}, T={T}, K={K})")
 
 
 def lora_dual_mt_tangents(x, xdots, w, a, adots, b, bdots, scale=1.0):
@@ -117,8 +126,7 @@ def lora_dual_mt_tangents(x, xdots, w, a, adots, b, bdots, scale=1.0):
     out = torch.empty((T,) + x.shape[:-1] + (N,), dtype=x.dtype, device=x.device)
     if M == 0 or N == 0:
         return out
-    fn = _lib()
-    err = fn(_DTYPE_CODE[x.dtype], x.data_ptr(),
+    err = _fn("lora_dual_mt_tangents")(_DTYPE_CODE[x.dtype], x.data_ptr(),
              None if xdots is None else xdots.data_ptr(), w.data_ptr(),
              a.data_ptr(), adots.data_ptr(), b.data_ptr(), bdots.data_ptr(),
              out.data_ptr(), M, K, N, r, T, float(scale),
@@ -126,3 +134,79 @@ def lora_dual_mt_tangents(x, xdots, w, a, adots, b, bdots, scale=1.0):
     build.check(err, "lora_dual_mt_tangents")
     launches["lora_dual_mt"] += 1
     return out
+
+
+# ---------------------------------------------------------------------------
+# Contraction epilogue: <gy, ydot_t> for T tangents, no (T,M,N) output
+# ---------------------------------------------------------------------------
+#
+# Replaces the TPU kernel ``repro/kernels/lora_dual/kernel.py::
+# lora_dual_mt_jvps_kernel`` (body ``_mt_jvps_kernel``), which
+# ``kernels/dispatch.lora_jvp_contract`` reaches for the final site of a
+# ``SplitLoss`` of kind 'lora' on the fused-contraction route.
+#
+# On the H100: the work is one frozen-W product gy@W^T (2*M*K*N
+# operations) shared by all T tangents plus rank-r terms, so with an input
+# tangent it is bound by operations at bf16 rates only for very small T;
+# at the main path's shapes the bytes of the T xdot tangents (T*M*K) bound
+# it; without one it reads x, gy and the rank-r factors only. The CUDA kernel
+# (``csrc/lora_dual_mt.cu``, ``lora_dual_mt_jvps_kernel``) runs a
+# (N/64, M/64) grid; each block holds its gy tile in shared memory and
+# rewrites its contraction as <gy@W^T + s*(gy@B^T)@A^T, xdot_t> +
+# s*<x^T(gy@B^T), Adot_t> + s*<(x@A)^T gy, Bdot_t>, so the frozen-W product
+# and every other factor that does not depend on t is formed once per K
+# step for all T, and each tangent costs one read of its xdot tile and
+# rank-r dots. Sums are fp32 SIMT FMAs, kept per thread and summed in a
+# fixed order (no atomics), one (T,) partial per block, summed here.
+# Tensor cores for gy@W^T and reading x once for all N tiles are later
+# work.
+
+
+def lora_dual_mt_jvps_ref(x, w, a, adots, b, bdots, gy, scale=1.0, xdots=None):
+    """Plain version: the reference's reassociated rank-r form
+    (``lora_dual/ops.py::lora_dual_mt_jvps`` with ``impl='reassoc'``); it
+    never builds a (T,M,N) tensor."""
+    K, N = w.shape
+    T = adots.shape[0]
+    x2 = x.reshape(-1, K).to(a.dtype)
+    gy2 = gy.reshape(-1, N).float()
+    u = x2 @ a                                     # (M, r)
+    z1 = gy2 @ b.T                                 # (M, r)
+    z2 = u.T @ gy2                                 # (r, N)
+    udots = x2 @ adots                             # (T, M, r)
+    if xdots is not None:
+        xd = xdots.reshape(T, -1, K)
+        udots = udots + xd.to(a.dtype) @ a
+    jvps = scale * (torch.einsum("mr,tmr->t", z1, udots)
+                    + torch.einsum("rn,trn->t", z2, bdots.float()))
+    if xdots is not None:
+        jvps = jvps + torch.einsum("mk,tmk->t", gy2 @ w.float().T, xd.float())
+    return jvps
+
+
+def lora_dual_mt_jvps(x, w, a, adots, b, bdots, gy, scale=1.0, xdots=None):
+    """All T jvp scalars <gy, ydot_t> (fp32, (T,)): x (..., K); w (K, N);
+    a (K, r); adots (T, K, r); b (r, N); bdots (T, r, N); gy (..., N) in
+    x's dtype; xdots (T, ..., K) or None."""
+    if x.device.type == "cpu":
+        return lora_dual_mt_jvps_ref(x, w, a, adots, b, bdots, gy, scale, xdots)
+    if x.device.type != "cuda":
+        raise ValueError(f"lora_dual_mt_jvps: unsupported device {x.device}")
+    _check(x, xdots, w, a, adots, b, bdots, gy, what="lora_dual_mt_jvps",
+           t_max=JT_MAX)
+    K, N = w.shape
+    T, r = adots.shape[0], a.shape[1]
+    M = x.numel() // K
+    if M == 0 or N == 0:
+        return torch.zeros(T, dtype=torch.float32, device=x.device)
+    parts = torch.empty(((M + 63) // 64, (N + 63) // 64, T), dtype=torch.float32,
+                        device=x.device)
+    err = _fn("lora_dual_mt_jvps")(
+        _DTYPE_CODE[x.dtype], x.data_ptr(),
+        None if xdots is None else xdots.data_ptr(), w.data_ptr(), a.data_ptr(),
+        adots.data_ptr(), b.data_ptr(), bdots.data_ptr(), gy.data_ptr(),
+        parts.data_ptr(), M, K, N, r, T, float(scale),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    build.check(err, "lora_dual_mt_jvps")
+    launches["lora_dual_mt_jvps"] += 1
+    return parts.sum(dim=(0, 1))

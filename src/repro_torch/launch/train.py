@@ -3,8 +3,9 @@
     PYTHONPATH=src python -m repro_torch.launch.train --arch roberta-large-lora \
         --task sst2 --method spry --rounds 100 --clients 8
 
-Port of ``repro/launch/train.py``: synthetic task -> Dirichlet partition ->
-client sampling -> SPRY round step -> server update, with test accuracy at
+Port of ``repro/launch/train.py``'s in-process path: synthetic task ->
+Dirichlet partition -> client sampling -> round step (SPRY on either
+estimator route, or a baseline) -> server update, with test accuracy at
 every eval round and the personalized accuracy at the end. Runs on CUDA
 unless ``--device cpu`` is given; asking for CUDA without a card raises.
 TF32 is switched off for matmuls and cuDNN: the reference is fp32-exact.
@@ -20,10 +21,17 @@ import torch
 
 from repro_torch.configs import SpryConfig, get_config, reduce_config
 from repro_torch.core import (
+    estimator_route,
     forward_gradient,
     init_state,
     make_round_step,
     make_round_step_per_iteration,
+)
+from repro_torch.core.baselines import (
+    ZOState,
+    init_zo_state,
+    make_backprop_round_step,
+    make_zeroorder_round_step,
 )
 from repro_torch.data import make_task
 from repro_torch.data.loader import ClientDataset, stack_client_batches
@@ -34,7 +42,15 @@ from repro_torch.models.common import accuracy_from_logits
 from repro_torch.peft import init_peft
 from repro_torch.utils.pytree import tree_map
 
-METHODS = ("spry", "spry_periter")
+METHODS = ("spry", "spry_periter", "fedavg", "fedyogi", "fedsgd",
+           "fedavgsplit", "fedfgd", "fedmezo", "baffle", "fwdllm")
+# (client lr, server lr) per method, as the reference
+_LR_DEFAULTS = {
+    "spry": (5e-3, 1e-2), "spry_periter": (5e-3, 1e-2), "fedfgd": (5e-3, 1e-2),
+    "fedavg": (5e-2, 1.0), "fedyogi": (5e-2, 1e-2), "fedsgd": (5e-2, 1.0),
+    "fedavgsplit": (5e-2, 1.0),
+    "fedmezo": (5e-3, 1e-2), "baffle": (5e-3, 1e-2), "fwdllm": (5e-3, 1e-2),
+}
 # reference flags whose paths are later port slices
 _NOT_PORTED = ("--runtime", "--runtime-executor", "--runtime-microbatch",
                "--async", "--buffer-size", "--staleness-decay",
@@ -42,7 +58,7 @@ _NOT_PORTED = ("--runtime", "--runtime-executor", "--runtime-microbatch",
                "--deadline", "--dropout-rate", "--wire-dtype",
                "--wire-simulate", "--faults", "--quorum", "--checkpoint-dir",
                "--checkpoint-every", "--resume", "--telemetry", "--trace-out",
-               "--prom-out", "--fused-contraction")
+               "--prom-out")
 
 
 def resolve_device(device: str) -> torch.device:
@@ -93,33 +109,62 @@ def personalized_accuracy(cfg, state, clients, x, y, rng, device, steps=5,
     return float(np.mean(accs)) if accs else float("nan")
 
 
+def build_round_step(cfg, sc: SpryConfig, method: str, task="cls"):
+    """(round_step, kind): kind 'spry' (forward gradients), 'bp' (backprop)
+    or 'zo' (zero-order; its state is a ``ZOState``)."""
+    if method == "spry":
+        return make_round_step(cfg, sc, task), "spry"
+    if method == "spry_periter":
+        return make_round_step_per_iteration(cfg, sc, task), "spry"
+    if method == "fedfgd":
+        # forward gradients without splitting: every client perturbs all units
+        return make_round_step(cfg, sc, task, split=False), "spry"
+    if method in ("fedavg", "fedyogi", "fedsgd"):
+        return make_backprop_round_step(cfg, sc, task, method=method), "bp"
+    if method == "fedavgsplit":
+        return make_backprop_round_step(cfg, sc, task, method="fedavg",
+                                        split=True), "bp"
+    if method in ("fedmezo", "baffle", "fwdllm"):
+        return make_zeroorder_round_step(cfg, sc, task, method=method), "zo"
+    raise ValueError(f"unknown method {method!r}; known: {METHODS}")
+
+
 def run_training(arch="roberta-large-lora", task="sst2", method="spry",
                  rounds=100, clients_per_round=8, total_clients=32,
                  batch_size=8, local_iters=1, local_lr=None, server_lr=None,
                  dirichlet_alpha=0.1, seed=0, eval_every=10, reduced=True,
                  k_perturbations=1, jvp_clip=None, tangent_batch=None,
-                 device="cuda", log=print):
-    """Run ``rounds`` SPRY rounds; returns the eval history (one entry per
-    eval round: round, acc, loss, round_s, the round's kernel launches, t;
+                 fused_contraction=False, device="cuda", log=print):
+    """Run ``rounds`` rounds of ``method``; returns the eval history (one
+    entry per eval round: round, acc, loss, round_s, round_peak_bytes (the
+    round's peak device memory on CUDA, else None), the round's kernel
+    launches, t, and the estimator route for the forward-gradient methods;
     the last also carries personalized_acc)."""
     if method not in METHODS:
-        raise ValueError(f"method {method!r} is not ported yet; "
-                         f"the port runs {METHODS}")
+        raise ValueError(f"unknown method {method!r}; known: {METHODS}")
     dev = resolve_device(device)
     cfg = get_config(arch)
     if reduced:
         cfg = reduce_config(cfg)
     x_tr, y_tr, x_te, y_te = make_task(task, seed=seed, vocab=cfg.vocab)
     cfg = dataclasses.replace(cfg, n_classes=int(y_tr.max()) + 1)
+    d_lr, d_slr = _LR_DEFAULTS[method]
     sc = SpryConfig(
         n_clients_per_round=clients_per_round, n_total_clients=total_clients,
         local_iters=local_iters,
-        local_lr=local_lr if local_lr is not None else 5e-3,
-        server_lr=server_lr if server_lr is not None else 1e-2,
+        local_lr=local_lr if local_lr is not None else d_lr,
+        server_lr=server_lr if server_lr is not None else d_slr,
         k_perturbations=k_perturbations, jvp_clip=jvp_clip,
-        tangent_batch=tangent_batch, dirichlet_alpha=dirichlet_alpha,
-        server_opt="fedyogi", seed=seed)
-    log(f"[{method}] estimator route: standard")
+        tangent_batch=tangent_batch, fused_contraction=fused_contraction,
+        dirichlet_alpha=dirichlet_alpha,
+        server_opt="fedavg" if method in ("fedavg", "fedsgd", "fedavgsplit")
+        else "fedyogi",
+        seed=seed)
+    if method in ("spry", "spry_periter", "fedfgd"):
+        route = estimator_route(sc)
+        log(f"[{method}] estimator route: {route}"
+            + (" (in-kernel jvp contraction at the final mixer site)"
+               if route == "fused" else ""))
 
     rng = np.random.default_rng(seed)
     gen = torch.Generator(device=dev)
@@ -128,8 +173,12 @@ def run_training(arch="roberta-large-lora", task="sst2", method="spry",
     state = init_state(base, init_peft(cfg, gen, sc))
     parts = dirichlet_partition(y_tr, total_clients, dirichlet_alpha, seed=seed)
     client_data = [ClientDataset(x_tr, y_tr, idx) for idx in parts]
-    step_fn = (make_round_step(cfg, sc) if method == "spry"
-               else make_round_step_per_iteration(cfg, sc))
+    step_fn, kind = build_round_step(cfg, sc, method)
+    if kind == "zo":
+        state = init_zo_state(state)
+
+    def the_state(s):
+        return s.inner if isinstance(s, ZOState) else s
 
     history = []
     t0 = time.time()
@@ -138,6 +187,8 @@ def run_training(arch="roberta-large-lora", task="sst2", method="spry",
         bx, by = stack_client_batches([client_data[c] for c in chosen], rng,
                                       batch_size)
         before = launch_counts()
+        if dev.type == "cuda":          # the round's own peak, not init's
+            torch.cuda.reset_peak_memory_stats(dev)
         t_round = time.perf_counter()
         state, metrics = step_fn(state, {
             "tokens": torch.as_tensor(bx, device=dev),
@@ -145,23 +196,28 @@ def run_training(arch="roberta-large-lora", task="sst2", method="spry",
         _sync(dev)
         round_s = time.perf_counter() - t_round
         launches = {k: n - before[k] for k, n in launch_counts().items()}
+        peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else None
         if (r + 1) % eval_every == 0 or r == rounds - 1:
+            st = the_state(state)
             accs = []
             with torch.no_grad():
                 for i in range(0, min(len(x_te), 512), 64):
-                    lg = cls_logits(cfg, state.base, state.peft, {
+                    lg = cls_logits(cfg, st.base, st.peft, {
                         "tokens": torch.as_tensor(x_te[i:i + 64], device=dev)})
                     accs.append(float(accuracy_from_logits(
                         lg, torch.as_tensor(y_te[i:i + 64], device=dev))))
             acc = float(np.mean(accs))
             loss = float(metrics["loss"])
-            history.append({"round": r + 1, "acc": acc, "loss": loss,
-                            "round_s": round_s, "launches": launches,
-                            "t": time.time() - t0})
+            entry = {"round": r + 1, "acc": acc, "loss": loss,
+                     "round_s": round_s, "round_peak_bytes": peak,
+                     "launches": launches, "t": time.time() - t0}
+            if "fused_route" in metrics:
+                entry["route"] = "fused" if float(metrics["fused_route"]) else "standard"
+            history.append(entry)
             log(f"[{method}] round {r+1:4d} loss={loss:.4f} "
                 f"test_acc={acc:.4f} ({time.time()-t0:.0f}s)")
     history[-1]["personalized_acc"] = personalized_accuracy(
-        cfg, state, client_data, x_tr, y_tr, rng, dev)
+        cfg, the_state(state), client_data, x_tr, y_tr, rng, dev)
     log(f"[{method}] personalized_acc={history[-1]['personalized_acc']:.4f}")
     return history
 
@@ -184,10 +240,20 @@ def build_parser():
     ap.add_argument("--total-clients", type=int, default=32)
     ap.add_argument("--batch-size", type=int, default=8)
     ap.add_argument("--local-iters", type=int, default=1)
+    ap.add_argument("--lr", type=float, default=None,
+                    help="client learning rate (default: the method's)")
+    ap.add_argument("--server-lr", type=float, default=None,
+                    help="server learning rate (default: the method's)")
+    ap.add_argument("--alpha", type=float, default=0.1,
+                    help="Dirichlet alpha of the client partition")
     ap.add_argument("--k", type=int, default=1)
+    ap.add_argument("--jvp-clip", type=float, default=None)
     ap.add_argument("--tangent-batch", type=int, default=None,
                     help="tangents per batched estimator pass (None = all "
                          "K; 1 = sequential; 1<b<K = groups of b)")
+    ap.add_argument("--fused-contraction", action="store_true",
+                    help="contract the final mixer site's tangents against "
+                         "the post-head cotangent in-kernel")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--full-size", action="store_true",
                     help="use the full (unreduced) architecture")
@@ -204,9 +270,12 @@ def main(argv=None):
     run_training(arch=args.arch, task=args.task, method=args.method,
                  rounds=args.rounds, clients_per_round=args.clients,
                  total_clients=args.total_clients, batch_size=args.batch_size,
-                 local_iters=args.local_iters, seed=args.seed,
-                 reduced=not args.full_size, k_perturbations=args.k,
-                 tangent_batch=args.tangent_batch, device=args.device)
+                 local_iters=args.local_iters, local_lr=args.lr,
+                 server_lr=args.server_lr, dirichlet_alpha=args.alpha,
+                 seed=args.seed, reduced=not args.full_size,
+                 k_perturbations=args.k, jvp_clip=args.jvp_clip,
+                 tangent_batch=args.tangent_batch,
+                 fused_contraction=args.fused_contraction, device=args.device)
 
 
 if __name__ == "__main__":

@@ -5,4 +5,6 @@ from repro_torch.models.registry import (
     get_loss_fn,
     get_model,
     lm_loss,
+    split_cls_loss,
+    split_lm_loss,
 )

@@ -43,6 +43,20 @@ def tree_unflatten_like(tree, leaves):
     return build(tree)
 
 
+def tree_dot(a, b):
+    """Inner product over the whole tree in fp32, leaves summed in leaf
+    order (0.0 for an empty tree)."""
+    total = None
+    for x, y in zip(tree_leaves(a), tree_leaves(b)):
+        s = torch.sum(x.float() * y.float())
+        total = s if total is None else total + s
+    return torch.zeros(()) if total is None else total
+
+
+def tree_norm(tree):
+    return torch.sqrt(tree_dot(tree, tree))
+
+
 def tree_zeros_like(tree):
     return tree_map(torch.zeros_like, tree)
 

@@ -1,8 +1,9 @@
 """Card-only tests of the port's CUDA kernels (marker ``cuda``).
 
 Each kernel is held against its plain PyTorch version on the card, and one
-reduced estimate shows one multi-tangent launch per site for all K
-tangents. This file imports no JAX (the machine with the card has none);
+reduced estimate per estimator route shows one multi-tangent launch per
+site (standard) or one contraction epilogue at the final site (fused) for
+all K tangents. This file imports no JAX (the machine with the card has none);
 run it there with
 
     PYTHONPATH=src python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
@@ -124,5 +125,99 @@ def test_one_launch_per_site_for_k_tangents(dev):
     torch.cuda.synchronize()
     L = cfg.n_layers
     assert torch.isfinite(loss) and torch.isfinite(jvps).all()
-    assert launch_counts() == {"lora_dual_mt": 2 * L, "swa_attention": L,
-                               "swa_attention_mt": L}
+    assert launch_counts() == {"lora_dual_mt": 2 * L, "lora_dual_mt_jvps": 0,
+                               "swa_attention": L, "swa_attention_mt": L,
+                               "swa_attention_mt_jvps": 0}
+
+
+def _jvps_close(got, want, mag):
+    """Contractions of n terms, summed in another order: the error is held
+    against the terms' absolute sum ``mag``, at 1e-6 in both dtypes (bf16
+    inputs are read exactly into the same fp32 sums; a typical contraction
+    is about mag / sqrt(n), so a wrong or dropped term fails)."""
+    assert torch.isfinite(got).all()
+    err = (got.float() - want.float()).abs()
+    assert bool((err <= 1e-6 * mag).all()), (err, mag)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M,K,N,r,T,has_xd", [
+    (256, 1024, 1024, 1, 8, True),
+    (256, 1024, 1024, 1, 8, False),
+    (37, 100, 72, 3, 3, True),       # ragged edges
+    (70, 33, 65, 16, 64, True),      # rank and tangent limits
+])
+def test_lora_jvps_kernel_matches_plain(dev, dtype, M, K, N, r, T, has_xd):
+    from repro_torch.kernels.lora_dual import ops
+    g = torch.Generator(device=dev)
+    g.manual_seed(2)
+    rn = lambda *s: torch.randn(s, generator=g, device=dev)  # noqa: E731
+    x = rn(M, K).to(dtype)
+    xd = rn(T, M, K).to(dtype) if has_xd else None
+    w = (rn(K, N) / math.sqrt(K)).to(dtype)
+    a, ad, b, bd = rn(K, r) / math.sqrt(K), rn(T, K, r) / math.sqrt(K), rn(r, N), rn(T, r, N)
+    gy = rn(M, N).to(dtype)
+    before = ops.launches["lora_dual_mt_jvps"]
+    got = ops.lora_dual_mt_jvps(x, w, a, ad, b, bd, gy, 0.5, xdots=xd)
+    again = ops.lora_dual_mt_jvps(x, w, a, ad, b, bd, gy, 0.5, xdots=xd)
+    torch.cuda.synchronize()
+    assert ops.launches["lora_dual_mt_jvps"] == before + 2
+    assert torch.equal(got, again)               # no atomics: the same sum
+    f = lambda t: None if t is None else t.float()  # noqa: E731
+    yd = ops.lora_dual_mt_tangents_ref(f(x), f(xd), f(w), a, ad, b, bd, 0.5)
+    mag = (gy.float()[None] * yd).abs().sum(dim=(1, 2))
+    _jvps_close(got, ops.lora_dual_mt_jvps_ref(f(x), f(w), a, ad, b, bd, f(gy), 0.5,
+                                               f(xd)), mag)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,KV,S,hd,window,T", [
+    (8, 16, 16, 32, 64, None, 8),
+    (1, 8, 2, 100, 128, 40, 3),      # GQA, band, ragged S
+    (2, 4, 1, 33, 48, None, 1),      # MQA, hd not a multiple of 32
+    (1, 4, 2, 40, 128, None, 64),    # T_MAX tangents at hd=128
+])
+def test_swa_jvps_kernel_matches_plain(dev, dtype, B, H, KV, S, hd, window, T):
+    from repro_torch.kernels.swa_attention import ops
+    g = torch.Generator(device=dev)
+    g.manual_seed(3)
+    rn = lambda *s: torch.randn(s, generator=g, device=dev).to(dtype)  # noqa: E731
+    q, k, v = rn(B, H, S, hd), rn(B, KV, S, hd), rn(B, KV, S, hd)
+    qd, kd, vd = rn(T, B, H, S, hd), rn(T, B, KV, S, hd), rn(T, B, KV, S, hd)
+    gy = rn(B, H, S, hd)
+    got = ops.swa_attention_mt_jvps(q, k, v, qd, kd, vd, gy, window)
+    again = ops.swa_attention_mt_jvps(q, k, v, qd, kd, vd, gy, window)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    od = ops.swa_attention_mt_tangents_ref(*_f32((q, k, v, qd, kd, vd)), window)
+    mag = (gy.float()[None] * od).abs().sum(dim=(1, 2, 3, 4))
+    _jvps_close(got, torch.einsum("bhsd,tbhsd->t", gy.float(), od), mag)
+
+
+def test_fused_route_one_epilogue_per_estimate(dev):
+    from repro_torch.configs import SpryConfig, get_config, reduce_config
+    from repro_torch.core import forward_gradient
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import get_loss_fn, get_model
+    from repro_torch.peft import init_peft
+    cfg = dataclasses.replace(reduce_config(get_config("llama2-7b")), n_classes=2)
+    g = torch.Generator(device=dev)
+    g.manual_seed(0)
+    base = get_model(cfg).init_base(cfg, g)
+    peft = init_peft(cfg, g, SpryConfig())
+    batch = {"tokens": torch.randint(0, cfg.vocab, (2, 32), device=dev),
+             "labels": torch.randint(0, 2, (2,), device=dev)}
+    split = get_loss_fn("cls", split=True)(cfg, base, batch)
+    reset_launch_counts()
+    loss, grad, jvps = forward_gradient(split, peft, 3, k_perturbations=8,
+                                        fused_contraction=True)
+    torch.cuda.synchronize()
+    L = cfg.n_layers
+    assert torch.isfinite(loss) and torch.isfinite(jvps).all()
+    assert launch_counts() == {"lora_dual_mt": 2 * L, "lora_dual_mt_jvps": 0,
+                               "swa_attention": L, "swa_attention_mt": L - 1,
+                               "swa_attention_mt_jvps": 1}
+    # the standard route on the same perturbations agrees
+    _, _, jvps_std = forward_gradient(lambda p: split(p), peft, 3, k_perturbations=8)
+    torch.testing.assert_close(jvps, jvps_std, rtol=1e-4,
+                               atol=1e-5 * float(jvps_std.abs().max()))

@@ -2,10 +2,12 @@
 
 Inputs are made with numpy from a seed and fed to both packages; JAX runs
 on the CPU. The plain versions are held against the JAX oracles
-(``lora_dual_mt_ref``, ``swa_attention_gqa_ref``, ``swa_attention_mt_ref``)
-at fp32 rel 1e-5, and one small case of each against the Pallas kernels in
-interpret mode, as tests/test_kernels.py runs them. The CUDA kernels
-themselves are held against these plain versions on the card
+(``lora_dual_mt_ref``, ``swa_attention_gqa_ref``, ``swa_attention_mt_ref``,
+``lora_dual_mt_jvps_ref``, ``swa_attention_mt_jvps_ref``, and the
+reference's ``lora_dual_mt_jvps(impl='reassoc')``) at fp32 rel 1e-5, and
+one small case of each against the Pallas kernels in interpret mode, as
+tests/test_kernels.py and tests/test_jvps_epilogue.py run them. The CUDA
+kernels themselves are held against these plain versions on the card
 (tests/test_torch_cuda.py, chip_smoke.py).
 """
 import functools
@@ -16,13 +18,19 @@ import numpy as np
 import pytest
 import torch
 
+from repro.kernels.lora_dual.ops import lora_dual_mt_jvps as jax_lora_jvps
 from repro.kernels.lora_dual.ops import lora_dual_mt_tangents as jax_lora_mt_pallas
-from repro.kernels.lora_dual.ref import lora_dual_mt_ref
+from repro.kernels.lora_dual.ref import lora_dual_mt_jvps_ref, lora_dual_mt_ref
 from repro.kernels.swa_attention.ops import swa_attention as jax_swa_pallas
+from repro.kernels.swa_attention.ops import swa_attention_mt_jvps as jax_swa_jvps
 from repro.kernels.swa_attention.ops import (
     swa_attention_mt_tangents as jax_swa_mt_pallas,
 )
-from repro.kernels.swa_attention.ref import swa_attention_gqa_ref, swa_attention_mt_ref
+from repro.kernels.swa_attention.ref import (
+    swa_attention_gqa_ref,
+    swa_attention_mt_jvps_ref,
+    swa_attention_mt_ref,
+)
 from repro_torch.kernels import dispatch
 from repro_torch.kernels.lora_dual import ops as lora_ops
 from repro_torch.kernels.swa_attention import ops as swa_ops
@@ -217,3 +225,167 @@ def test_cuda_tensors_never_take_the_plain_version(monkeypatch):
     with pytest.raises(Exception):    # no CUDA in this torch
         swa_ops.swa_attention_mt_tangents(t, t, t, z[None], z[None], z[None])
     assert lora_ops.launches["lora_dual_mt"] == 0
+
+
+# ---------------------------------------------------------------------------
+# contraction epilogues (<gy, ydot_t> with no tangent output)
+# ---------------------------------------------------------------------------
+
+LORA_JVPS_CASES = [
+    (64, 256, 256, 1, 4, True),
+    (64, 256, 256, 1, 4, False),
+    (37, 100, 72, 2, 3, True),     # ragged widths
+    (8, 64, 128, 4, 1, False),
+]
+
+
+def _lora_jvps_inputs(seed, M, K, N, r, T, has_xd):
+    d = _lora_inputs(seed, M, K, N, r, T, has_xd)
+    d["gy"] = np.random.default_rng(seed + 100).standard_normal((M, N)).astype(np.float32)
+    return d
+
+
+def _lora_jvps_args(d, conv):
+    return ([conv(d[k]) for k in ("x", "w", "a", "adots", "b", "bdots", "gy")],
+            None if d["xdots"] is None else conv(d["xdots"]))
+
+
+@pytest.mark.parametrize("M,K,N,r,T,has_xd", LORA_JVPS_CASES)
+def test_lora_mt_jvps_plain_matches_jax(M, K, N, r, T, has_xd):
+    """The plain version (the reassociated rank-r form) against the JAX
+    oracle (materialize, then contract) and the reference's own
+    ``impl='reassoc'`` mirror."""
+    d = _lora_jvps_inputs(10, M, K, N, r, T, has_xd)
+    jargs, jxd = _lora_jvps_args(d, jnp.asarray)
+    targs, txd = _lora_jvps_args(d, _t)
+    got = lora_ops.lora_dual_mt_jvps(*targs, 0.5, xdots=txd)
+    assert got.shape == (T,) and got.dtype == torch.float32
+    assert _rel(got, lora_dual_mt_jvps_ref(*jargs, 0.5, xdots=jxd)) <= RTOL
+    assert _rel(got, jax_lora_jvps(*jargs, scale=0.5, xdots=jxd,
+                                   impl="reassoc")) <= RTOL
+
+
+@pytest.mark.parametrize("has_xd", [True, False])
+def test_lora_mt_jvps_plain_matches_pallas_interpret(has_xd):
+    d = _lora_jvps_inputs(11, 40, 96, 80, 1, 2, has_xd)
+    jargs, jxd = _lora_jvps_args(d, jnp.asarray)
+    targs, txd = _lora_jvps_args(d, _t)
+    want = jax_lora_jvps(*jargs, scale=1.0, xdots=jxd, impl="kernel", block_m=32,
+                         block_n=32, block_k=32, interpret=True)
+    assert _rel(lora_ops.lora_dual_mt_jvps(*targs, 1.0, xdots=txd), want) <= RTOL
+
+
+def _gy(seed, B, H, S, hd):
+    return np.random.default_rng(seed).standard_normal((B, H, S, hd)).astype(np.float32)
+
+
+@pytest.mark.parametrize("B,H,KV,S,hd,window", SWA_CASES)
+def test_swa_mt_jvps_plain_matches_jax_ref(B, H, KV, S, hd, window):
+    arrs = _swa_inputs(12, B, H, KV, S, hd, 3)
+    gy = _gy(13, B, H, S, hd)
+    want = swa_attention_mt_jvps_ref(*map(jnp.asarray, arrs), jnp.asarray(gy),
+                                     window=window)
+    got = swa_ops.swa_attention_mt_jvps(*map(_t, arrs), _t(gy), window)
+    assert got.shape == (3,) and got.dtype == torch.float32
+    assert _rel(got, want) <= RTOL
+
+
+def test_swa_mt_jvps_plain_matches_pallas_interpret():
+    arrs = _swa_inputs(14, 1, 4, 2, 64, 32, 2)          # GQA + band
+    gy = _gy(15, 1, 4, 64, 32)
+    want = jax_swa_jvps(*map(jnp.asarray, arrs), jnp.asarray(gy), window=24,
+                        block_q=32, block_k=32, interpret=True)
+    assert _rel(swa_ops.swa_attention_mt_jvps(*map(_t, arrs), _t(gy), 24),
+                want) <= RTOL
+
+
+@pytest.mark.parametrize("site", ["lora", "lora_no_xd", "swa"])
+def test_contract_rules_vmap_to_one_call(monkeypatch, site):
+    """K stacked tangents reach the contraction epilogue as ONE T=K call,
+    and the contraction equals gy contracted with the site's tangents."""
+    calls = []
+    name = "swa_attention_mt_jvps" if site == "swa" else "lora_dual_mt_jvps"
+    real = getattr(dispatch, name)
+
+    def counting(*args, **kw):
+        calls.append(args[3].shape[0])      # adots (lora) / qds (swa): T
+        return real(*args, **kw)
+    monkeypatch.setattr(dispatch, name, counting)
+    if site == "swa":
+        q, k, v, qd, kd, vd = map(_t, _swa_inputs(16, 1, 4, 2, 16, 32, 4))
+        gy = _t(_gy(17, 1, 4, 16, 32))
+        got = torch.func.vmap(lambda a, b_, c: dispatch.swa_jvp_contract(
+            gy, q, k, v, a, b_, c, 8))(qd, kd, vd)
+        want = torch.einsum("bhsd,tbhsd->t", gy,
+                            swa_ops.swa_attention_mt_tangents_ref(q, k, v, qd, kd, vd, 8))
+    else:
+        d = {k: _t(v) for k, v in _lora_jvps_inputs(18, 12, 32, 24, 2, 4, True).items()}
+        xd = d["xdots"] if site == "lora" else None
+        got = torch.func.vmap(
+            lambda x_d, a_d, b_d: dispatch.lora_jvp_contract(
+                d["gy"], d["x"], d["w"], d["a"], d["b"], a_d, b_d, xd=x_d, scale=0.5),
+            in_dims=(None if xd is None else 0, 0, 0))(xd, d["adots"], d["bdots"])
+        yd = lora_ops.lora_dual_mt_tangents_ref(d["x"], xd, d["w"], d["a"], d["adots"],
+                                                d["b"], d["bdots"], 0.5)
+        want = torch.einsum("mn,tmn->t", d["gy"], yd)
+    assert calls == [4]
+    assert _rel(got, want) <= RTOL
+
+
+def test_lora_proj_backward_matches_jax_grad():
+    """Reverse mode through ``lora_proj`` (plain ops, no kernel) equals
+    jax.grad of the same projection, for x, A and B."""
+    d = _lora_inputs(19, 12, 32, 24, 2, 1, False)
+    gy = np.random.default_rng(20).standard_normal((12, 24)).astype(np.float32)
+
+    def jf(x_, a_, b_):
+        return jnp.sum((x_ @ d["w"] + (x_ @ a_) @ b_ * 0.5) * gy)
+    want = jax.grad(jf, argnums=(0, 1, 2))(d["x"], d["a"], d["b"])
+    x, a, b = (_t(d[k]).requires_grad_(True) for k in ("x", "a", "b"))
+    (dispatch.lora_proj(x, _t(d["w"]), a, b, 0.5) * _t(gy)).sum().backward()
+    for got, w_ in zip((x.grad, a.grad, b.grad), want):
+        assert _rel(got, w_) <= RTOL
+
+
+def test_jvps_wrappers_check_and_never_take_the_plain_version(monkeypatch):
+    """The epilogue wrappers reject what their kernels do not take, and a
+    CUDA tensor never reaches a plain version (no card here: they raise)."""
+    d = {k: _t(v) for k, v in _lora_jvps_inputs(21, 8, 16, 8, 1, 2, True).items()}
+    args = [d[k] for k in ("x", "xdots", "w", "a", "adots", "b", "bdots")]
+    lora_ops._check(*args, d["gy"], what="lora_dual_mt_jvps", t_max=lora_ops.JT_MAX)
+    with pytest.raises(ValueError, match="gy"):
+        lora_ops._check(*args, d["gy"][:4], what="lora_dual_mt_jvps")
+    with pytest.raises(TypeError, match="dtype"):
+        lora_ops._check(*args, d["gy"].double(), what="lora_dual_mt_jvps")
+    with pytest.raises(ValueError, match="T<=64"):
+        big = [d["x"], None, d["w"], d["a"], torch.zeros(65, 16, 1), d["b"],
+               torch.zeros(65, 1, 8)]
+        lora_ops._check(*big, d["gy"], what="lora_dual_mt_jvps", t_max=lora_ops.JT_MAX)
+    q, k, v, qd, kd, vd = map(_t, _swa_inputs(22, 1, 4, 2, 8, 16, 2))
+    assert swa_ops._check_jvps(q, k, v, qd, kd, vd, q) == 2
+    with pytest.raises(ValueError, match="gy"):
+        swa_ops._check_jvps(q, k, v, qd, kd, vd, q[:, :, :4].contiguous())
+
+    def plain_reached(*a, **k):
+        pytest.fail("a CUDA tensor reached the plain version")
+    monkeypatch.setattr(lora_ops, "lora_dual_mt_jvps_ref", plain_reached)
+    monkeypatch.setattr(swa_ops, "swa_attention_mt_jvps_ref", plain_reached)
+    monkeypatch.setattr(lora_ops, "_check", lambda *a, **k: None)
+    monkeypatch.setattr(swa_ops, "_check_jvps", lambda *a, **k: 1)
+
+    class OnCuda:
+        """Stands in for a CUDA tensor (this torch has no CUDA)."""
+        device = torch.device("cuda")
+        dtype = torch.float32
+        shape = (1, 2, 4, 8)
+
+        def numel(self):
+            return 64
+    t = OnCuda()
+    z = torch.zeros(8, 8)
+    with pytest.raises(Exception):    # no CUDA in this torch
+        lora_ops.lora_dual_mt_jvps(t, z, z[:, :1], z[None, :, :1], z[:1], z[None, :1], t)
+    with pytest.raises(Exception):    # no nvcc, no CUDA here
+        swa_ops.swa_attention_mt_jvps(t, t, t, t, t, t, t)
+    assert lora_ops.launches["lora_dual_mt_jvps"] == 0
+    assert swa_ops.launches["swa_attention_mt_jvps"] == 0

@@ -85,7 +85,7 @@ def model(request):
         B = jpeft["layers"][t]["B"]
         jpeft["layers"][t]["B"] = 0.2 * jax.random.normal(k, B.shape)
     tbase, tpeft = from_reference(tc, jax.tree.map(np.asarray, jbase),
-                                  jax.tree.map(np.asarray, jpeft))
+                                  jax.tree.map(np.asarray, jpeft), "cpu")
     return jc, tc, jbase, jpeft, tbase, tpeft
 
 

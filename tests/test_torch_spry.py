@@ -62,7 +62,7 @@ def setup():
         B = jpeft["layers"][t]["B"]
         jpeft["layers"][t]["B"] = 0.2 * jax.random.normal(k, B.shape)
     tbase, tpeft = from_reference(tc, jax.tree.map(np.asarray, jbase),
-                                  jax.tree.map(np.asarray, jpeft))
+                                  jax.tree.map(np.asarray, jpeft), "cpu")
     rng = np.random.default_rng(0)
     tokens = rng.integers(0, jc.vocab, (M, 2, 16)).astype(np.int32)
     labels = rng.integers(0, jc.n_classes, (M, 2)).astype(np.int32)
