@@ -9,29 +9,40 @@ Phases, in order (any failure raises and exits non-zero):
   2. build    nvcc builds every CUDA source of the path for sm_90a, in
               parallel; prints each kernel's registers, shared memory and
               spills (-Xptxas -v)
-  3. kernels  each of the five kernels against its plain PyTorch version on
-              the card at the main path's shapes (roberta-large, llama2-7b)
-              and one long shape, T in {1, 8}, with and without an input
-              tangent (and odd M/N/K for the LoRA contraction), window in
-              {None, 256}, KV in {H, H/4}; fp32 (rtol 1e-4, atol 1e-5 x
-              max|plain|: sums run in another order) and bf16 (the kernel's
-              bf16 output against the plain version run in fp32 on the same
-              bf16-valued inputs, rtol = atol = 2e-2). The two contraction
-              epilogues return sums of n products, held against 1e-6 x
-              sum|terms| in both dtypes (the kernel reads bf16 exactly into
-              the same fp32 sums as fp32; a typical contraction is about
+  3. kernels  each of the eight kernels against its plain PyTorch version on
+              the card at the main path's shapes (roberta-large, llama2-7b,
+              zamba2) and one long shape. LoRA and attention: T in {1, 8},
+              with and without an input tangent (and odd M/N/K for the LoRA
+              contraction), window in {None, 256}, KV in {H, H/4}; fp32
+              (rtol 1e-4, atol 1e-5 x max|plain|: sums run in another order)
+              and bf16 (the kernel's bf16 output against the plain version
+              run in fp32 on the same bf16-valued inputs, rtol = atol =
+              2e-2). The mamba2 recurrence (fp32 only, as the reference's
+              kernels): zamba2's shapes (B=8, S=32, H=64, hd=N=64), a ragged
+              shape and N=100, T in {1, 8, 64}; a T=8 launch must equal eight
+              T=1 launches bit for bit (tangents and contraction) and two
+              contraction launches must agree bit for bit. The three
+              contraction epilogues return sums of n products, held against
+              1e-6 x sum|terms| in every dtype (the kernel reads bf16 exactly
+              into the same fp32 sums as fp32; a typical contraction is about
               sum|terms| / sqrt(n), so a wrong or dropped term fails), and
               print err / sum|terms| as ``err_over_terms``. Times the
               kernel, the plain version and either one PyTorch call that
               computes the same function (library_ms) or, where none does,
-              a yardstick (yardstick_ms: the kernel's largest GEMM; for the
-              attention epilogue, the multi-tangent kernel followed by the
-              contraction) (CUDA events), and computes each case's bound
+              a yardstick (yardstick_ms: the kernel's largest GEMM, for the
+              recurrence the batched GEMM of its quadratic form; for the
+              contraction epilogues, the multi-tangent kernel followed by
+              the contraction) (CUDA events), and computes each case's bound
               from its shapes
-  4. parity   one reduced-roberta SPRY round on the card (kernels) against
-              the same round on the CPU (plain versions) with the same
-              weights, batch and perturbations, on the standard and on the
-              fused-contraction route
+  4. parity   one reduced SPRY round on the card (kernels) against the same
+              round on the CPU (plain versions) with the same weights, batch
+              and perturbations, on the standard and on the fused-contraction
+              route: roberta, zamba2 with n_layers=3, hybrid_attn_every=2
+              (final site mamba2) and reduced zamba2 (final site attention);
+              loss and jvps within 1e-5 relative; the new PEFT within 1e-5
+              of the CPU round replayed with the card's jvps (aggregation and
+              server step) and end to end within PEFT_RTOL, set per config
+              from its readings (1e-5 roberta, 3e-5 zamba2)
   5. site     the single-projection LoRA estimator (a ``SplitLoss`` of kind
               'lora', through ``forward_gradient``) at roberta-large and
               llama2-7b widths, K=8, with and without an input tangent:
@@ -41,17 +52,21 @@ Phases, in order (any failure raises and exits non-zero):
               spry K=8, spry_periter K=8 on the standard route; spry K=8 and
               spry_periter K=8 on the fused route; fedfgd K=8; 2 rounds each;
               fedavg, fedyogi, fedsgd, fedavgsplit, fedmezo, baffle, fwdllm,
-              1 round each) and llama2-7b, 2 clients (spry K=4 on both routes
-              and fedavg, 1 round each). Every launch counter is zeroed just
-              before and read just after each run; a round must launch
-              exactly one multi-tangent kernel per site and estimate on the
-              standard route, L-1 attention ones plus ONE attention
-              contraction epilogue per estimate on the fused route, and no
-              kernel at all on the backprop and zero-order rounds. Prints
+              1 round each), llama2-7b, 2 clients (spry K=4 on both routes
+              and fedavg, 1 round each) and zamba2-1.2b, 4 clients (spry K=8
+              on the standard route, 2 rounds; spry K=8 and spry_periter K=8
+              on the fused route and fedavg, 1 round each). Every launch
+              counter is zeroed just before and read just after each run; a
+              round must make exactly the launches ``round_launches`` derives
+              from the config (per estimate one primal and one multi-tangent
+              kernel per mixer site and one LoRA kernel per adapted
+              projection on the standard route; on the fused route the final
+              site's tangent kernel replaced by ONE contraction epilogue), and
+              no kernel at all on the backprop and zero-order rounds. Prints
               each run's loss, test accuracy, seconds per round and peak
               device memory of a round (weights included, model init
-              excluded), and SPRY's and FedAvg's llama2-7b round peaks side
-              by side.
+              excluded), and SPRY's and FedAvg's round peaks side by side for
+              llama2-7b and zamba2.
 Every kernel must have launched over phases 5 and 6 (the main path). The
 line before the last is the ``kernels`` JSON; the last line is
 ``{"ok": true, "device": {...}}``. Without a card, or without the repo
@@ -79,6 +94,9 @@ REPLACES = {
     "swa_attention_mt": "src/repro/kernels/swa_attention/kernel.py:365",
     "swa_attention_mt_jvps": "src/repro/kernels/swa_attention/kernel.py:313",
     "lora_dual_mt_jvps": "src/repro/kernels/lora_dual/kernel.py:225",
+    "mamba2_scan": "src/repro/kernels/mamba2_scan/kernel.py:55",
+    "mamba2_scan_mt": "src/repro/kernels/mamba2_scan/kernel.py:222",
+    "mamba2_scan_mt_jvps": "src/repro/kernels/mamba2_scan/kernel.py:177",
 }
 SOURCES = {
     "lora_dual_mt": "src/repro_torch/csrc/lora_dual_mt.cu",
@@ -86,6 +104,9 @@ SOURCES = {
     "swa_attention_mt": "src/repro_torch/csrc/swa_attention.cu",
     "swa_attention_mt_jvps": "src/repro_torch/csrc/swa_attention.cu",
     "lora_dual_mt_jvps": "src/repro_torch/csrc/lora_dual_mt.cu",
+    "mamba2_scan": "src/repro_torch/csrc/mamba2_scan.cu",
+    "mamba2_scan_mt": "src/repro_torch/csrc/mamba2_scan.cu",
+    "mamba2_scan_mt_jvps": "src/repro_torch/csrc/mamba2_scan.cu",
 }
 
 
@@ -326,6 +347,106 @@ def swa_case(B, H, KV, S, hd, window, T, dtype, gen, timed):
     return res
 
 
+def mamba2_inputs(B, S, H, hd, N, T, gen):
+    """Recurrence operands at the model's scales: decay in (0, 1)."""
+    import torch
+    rn = lambda *s: torch.randn(s, generator=gen, device="cuda")  # noqa: E731
+    prim = (rn(B, S, H, hd) * 0.3, rn(B, S, N) * 0.3, rn(B, S, N) * 0.3,
+            torch.sigmoid(rn(B, S, H)))
+    tang = (rn(T, B, S, H, hd) * 0.3, rn(T, B, S, N) * 0.3, rn(T, B, S, N) * 0.3,
+            rn(T, B, S, H) * 0.1)
+    return prim, tang, rn(B, S, H, hd)
+
+
+def mamba2_cases(B, S, H, hd, N, T, gen, timed):
+    """The three mamba2 kernels on one problem (fp32, their only dtype):
+    primal and tangents against the plain versions (``close``), the
+    contraction against JVPS_RTOL x sum|terms|. Returns {kernel: result}."""
+    import torch
+    from repro_torch.kernels.mamba2_scan import ops
+    prim, tang, gy = mamba2_inputs(B, S, H, hd, N, T, gen)
+    shape = f"B={B} S={S} H={H} hd={hd} N={N}"
+    out = {}
+    y = ops.mamba2_scan(*prim)
+    y_ref, yd_ref = ops.mamba2_scan_mt_ref(*prim, *tang)
+    yd = ops.mamba2_scan_mt_tangents(*prim, *tang)
+    jv = ops.mamba2_scan_mt_jvps(*prim, *tang, gy)
+    jv_ref = torch.einsum("bshd,tbshd->t", gy, yd_ref)
+    mag = (gy[None] * yd_ref).abs().sum(dim=(1, 2, 3, 4))
+    torch.cuda.synchronize()
+    out["mamba2_scan"] = {"max_abs_err": close(f"mamba2_scan {shape}", y, y_ref,
+                                               torch.float32)}
+    out["mamba2_scan_mt"] = {"max_abs_err": close(
+        f"mamba2_scan_mt {shape} T={T}", yd, yd_ref, torch.float32)}
+    err, rel = close_jvps(f"mamba2_scan_mt_jvps {shape} T={T}", jv, jv_ref, mag)
+    out["mamba2_scan_mt_jvps"] = {"max_abs_err": err, "err_over_terms": rel}
+    del yd_ref
+    if timed:
+        el = B * S * H * hd * N            # state elements walked a token
+        prim_bytes = 4 * (2 * B * S * H * hd + 2 * B * S * N + B * S * H)
+        tang_bytes = 4 * T * (2 * B * S * H * hd + 2 * B * S * N + B * S * H)
+        # the primal walk: 3 flops an element for the state update, 2 for
+        # the readout y = h C, which the tangent modes do not emit
+        costs = {"mamba2_scan": (5 * el, prim_bytes),
+                 "mamba2_scan_mt": (3 * el + 11 * T * el,
+                                    prim_bytes - 4 * B * S * H * hd + tang_bytes),
+                 "mamba2_scan_mt_jvps": (3 * el + 11 * T * el + 2 * T * B * S * H * hd,
+                                         prim_bytes + tang_bytes
+                                         - 4 * T * B * S * H * hd + 4 * T)}
+        runs = {"mamba2_scan": (lambda: ops.mamba2_scan(*prim),
+                                lambda: ops.mamba2_scan_ref(*prim)),
+                "mamba2_scan_mt": (lambda: ops.mamba2_scan_mt_tangents(*prim, *tang),
+                                   lambda: ops.mamba2_scan_mt_ref(*prim, *tang)),
+                "mamba2_scan_mt_jvps": (
+                    lambda: ops.mamba2_scan_mt_jvps(*prim, *tang, gy),
+                    lambda: ops.mamba2_scan_mt_jvps_ref(*prim, *tang, gy))}
+        # no one PyTorch call computes a linear recurrence; the yardstick is
+        # the batched GEMM of its quadratic (SSD) form, (S x S) scores times
+        # x, per head (and tangent); for the contraction, the multi-tangent
+        # kernel followed by the contraction (the route it replaces)
+        g = torch.randn((B * H, S, S), generator=gen, device="cuda")
+        xb = prim[0].permute(0, 2, 1, 3).reshape(B * H, S, hd).contiguous()
+        gt, xt = g.expand(T, -1, -1, -1), xb.expand(T, -1, -1, -1)
+        yard = {"mamba2_scan": lambda: torch.matmul(g, xb),
+                "mamba2_scan_mt": lambda: torch.matmul(gt, xt),
+                "mamba2_scan_mt_jvps": lambda: torch.einsum(
+                    "bshd,tbshd->t", gy, ops.mamba2_scan_mt_tangents(*prim, *tang))}
+        for name, (flops, nbytes) in costs.items():
+            res = out[name]
+            res["bound_ms"], res["bound_by"] = bound_ms(flops, nbytes, torch.float32)
+            res["ms"] = time_ms(runs[name][0])
+            res["plain_ms"] = time_ms(runs[name][1], iters=3, warmup=1)
+            res["library_ms"] = None
+            res["yardstick_ms"] = time_ms(yard[name])
+    for name, res in out.items():
+        log(f"[kernels] {name} {shape} T={T}: " + json.dumps(res))
+    return out
+
+
+def mamba2_lanes_and_repeats(B, S, H, hd, N, gen):
+    """A T=8 launch against eight T=1 launches, bit for bit, for the
+    tangents and the contraction; two contraction launches on the same
+    inputs give the same jvps."""
+    import torch
+    from repro_torch.kernels.mamba2_scan import ops
+    prim, tang, gy = mamba2_inputs(B, S, H, hd, N, 8, gen)
+    yd = ops.mamba2_scan_mt_tangents(*prim, *tang)
+    jv = ops.mamba2_scan_mt_jvps(*prim, *tang, gy)
+    for t in range(8):
+        one = tuple(x[t:t + 1].contiguous() for x in tang)
+        if not torch.equal(ops.mamba2_scan_mt_tangents(*prim, *one)[0], yd[t]):
+            raise AssertionError(f"mamba2_scan_mt: tangent {t} of a T=8 launch is "
+                                 f"not bitwise its T=1 launch")
+        if not torch.equal(ops.mamba2_scan_mt_jvps(*prim, *one, gy)[0], jv[t]):
+            raise AssertionError(f"mamba2_scan_mt_jvps: tangent {t} of a T=8 launch "
+                                 f"is not bitwise its T=1 launch")
+    if not torch.equal(ops.mamba2_scan_mt_jvps(*prim, *tang, gy), jv):
+        raise AssertionError("mamba2_scan_mt_jvps: two launches on the same "
+                             "inputs differ")
+    log(f"[kernels] mamba2 B={B} S={S} H={H} hd={hd} N={N}: T=8 lanes bitwise "
+        f"equal to T=1 launches (tangents and jvps), jvps repeat bitwise")
+
+
 def phase_kernels():
     """Every case; returns the timed main-path case of each kernel
     (roberta-large shapes in bf16, the full-size dtype, T=8)."""
@@ -375,6 +496,19 @@ def phase_kernels():
                                 B, H, KV, S, hd, window, T, dtype, gen, timed))
                             if bf and si == 0 and window is None and KV == H and T == 8:
                                 main["swa_attention_mt_jvps"] = res
+    # the mamba2 recurrence (fp32 only): zamba2's shapes (one client estimate,
+    # B=8, S=32, H=64, hd=N=64), a ragged shape (odd S; hd, N and B*H*hd not
+    # multiples of 32 or of a block's 16 rows) and N > 64; T in {1, 8, 64}
+    for (B, S, H, hd, N) in ((8, 32, 64, 64, 64), (3, 37, 5, 24, 20),
+                             (2, 19, 3, 40, 100)):
+        for T in (1, 8, 64):
+            timed = (B, T) == (8, 8)
+            res = mamba2_cases(B, S, H, hd, N, T, gen, timed)
+            note("mamba2_scan_mt_jvps", torch.float32, res["mamba2_scan_mt_jvps"])
+            if timed:
+                main.update(res)
+    mamba2_lanes_and_repeats(8, 32, 64, 64, 64, gen)
+    mamba2_lanes_and_repeats(3, 37, 5, 24, 20, gen)
     log(f"[kernels] contraction epilogues, largest err / sum|terms| (limit "
         f"{JVPS_RTOL}): " + json.dumps(worst))
     return main
@@ -384,7 +518,25 @@ def phase_kernels():
 # phase 4: one reduced round, kernels on the card vs plain versions on the CPU
 # ---------------------------------------------------------------------------
 
-def phase_parity(fused):
+PARITY_RTOL = 1e-5     # card vs CPU, fp32 throughout: loss, jvps, server step
+# card vs CPU end to end, the new PEFT, per config (see parity_round): about
+# twice the largest reading on the H100 (PERF.md, Findings: roberta 5.0e-6,
+# zamba2 1.38e-5)
+PEFT_RTOL = {"roberta-large-lora": 1e-5, "zamba2-1.2b": 3e-5}
+
+
+def parity_round(fused, arch="roberta-large-lora", **overrides):
+    """One reduced SPRY round, kernels on the card against plain versions on
+    the CPU; ``overrides`` replace fields of the reduced config (zamba2 with
+    ``n_layers=3, hybrid_attn_every=2`` ends in a mamba2 site). Returns the
+    readings, checks nothing.
+
+    The new PEFT is read in two parts: the CPU round replayed with the
+    card's jvps against the card's PEFT (the aggregation and the server
+    step), and the two rounds end to end. A zero-initialised LoRA B leaf
+    holds only the first FedYogi step, which is linear in the gradient below
+    |delta| ~ 1e-2 and turns a jvp difference of a few 1e-6 of max|jvp| into
+    ~1e-5 of that leaf (PERF.md, Findings)."""
     import dataclasses
     import numpy as np
     import torch
@@ -392,10 +544,10 @@ def phase_parity(fused):
     from repro_torch.core import init_state, make_round_step, stacked_perturbations
     from repro_torch.models import get_model
     from repro_torch.peft import init_peft
-    from repro_torch.utils.pytree import tree_leaves, tree_map
+    from repro_torch.utils.pytree import tree_leaves, tree_map, tree_paths
 
-    cfg = dataclasses.replace(reduce_config(get_config("roberta-large-lora")),
-                              n_classes=2)
+    cfg = dataclasses.replace(reduce_config(get_config(arch)), n_classes=2,
+                              **overrides)
     K, M = 4, 2
     sc = SpryConfig(n_clients_per_round=M, k_perturbations=K, local_lr=5e-3,
                     server_lr=1e-2, seed=0, fused_contraction=fused)
@@ -403,8 +555,10 @@ def phase_parity(fused):
     gen.manual_seed(0)
     base = get_model(cfg).init_base(cfg, gen)
     peft = init_peft(cfg, gen, sc)
-    peft["layers"]["wq"]["B"] = torch.randn(peft["layers"]["wq"]["B"].shape,
-                                            generator=gen) * 0.1
+    for group, t in (("layers", "wq"), ("layers", "in_proj"), ("shared", "wq")):
+        if t in peft.get(group, {}):      # B = 0 at init: make the LoRA path live
+            peft[group][t]["B"] = torch.randn(peft[group][t]["B"].shape,
+                                              generator=gen) * 0.1
     rng = np.random.default_rng(0)
     batch = {"tokens": torch.as_tensor(rng.integers(0, cfg.vocab, (M, 4, 32))),
              "labels": torch.as_tensor(rng.integers(0, 2, (M, 4)))}
@@ -417,16 +571,55 @@ def phase_parity(fused):
     torch.cuda.synchronize()
     jv_err = float((gpu_met["jvps"].cpu() - cpu_met["jvps"]).abs().max()
                    / cpu_met["jvps"].abs().max())
-    p_err = max(float((g.cpu() - c).abs().max() / c.abs().max().clamp(min=1e-30))
-                for g, c in zip(tree_leaves(gpu_state.peft), tree_leaves(cpu_state.peft)))
-    res = {"loss_gpu": float(gpu_met["loss"]), "loss_cpu": float(cpu_met["loss"]),
-           "jvps_rel_err": jv_err, "peft_rel_err": p_err}
+    def peft_rel(got, want):
+        """(largest relative error of a leaf, that leaf's path)."""
+        return max((float((g.cpu() - c).abs().max() / c.abs().max().clamp(min=1e-30)),
+                    "/".join(path))
+                   for g, (path, c) in zip(tree_leaves(got.peft),
+                                           tree_paths(want.peft)))
+    p_err, p_leaf = peft_rel(gpu_state, cpu_state)
+    # the CPU round again, each client's estimate replaced by the card's jvps
+    # combined with the same perturbations
+    from repro_torch.core import spry as spry_mod
+    from repro_torch.core.forward_grad import _combine
+    card_jvps = iter(gpu_met["jvps"].cpu().reshape(-1, K))
+
+    def replay(loss_fn, p, key, k_perturbations=1, mask_tree=None,
+               perturbations=None, **_):
+        jv = next(card_jvps)
+        vs = stacked_perturbations(key, tree_map(lambda x: x.float(), p),
+                                   list(range(K)), mask_tree, perturbations)
+        return torch.zeros(()), _combine(jv, vs, K), jv
+    real_fg, spry_mod.forward_gradient = spry_mod.forward_gradient, replay
+    try:
+        replayed, _ = step(init_state(base, peft), batch, perts)
+    finally:
+        spry_mod.forward_gradient = real_fg
+    p_same = peft_rel(gpu_state, replayed)[0]
+    from repro_torch.models import registry
+    kind = registry.get_model(cfg).split_site(cfg)[0]
+    return {"final_site": kind,
+            "loss_gpu": float(gpu_met["loss"]), "loss_cpu": float(cpu_met["loss"]),
+            "jvps_max_abs": float(cpu_met["jvps"].abs().max()),
+            "jvps_rel_err": jv_err, "peft_rel_err_same_jvps": p_same,
+            "peft_rel_err": p_err, "peft_worst_leaf": p_leaf}
+
+
+def phase_parity(fused, arch="roberta-large-lora", **overrides):
+    """``parity_round``, held to its limits: loss, jvps and the replayed PEFT
+    within PARITY_RTOL, the end-to-end PEFT within the config's PEFT_RTOL."""
+    res = parity_round(fused, arch, **overrides)
     route = "fused" if fused else "standard"
-    log(f"[parity] reduced roberta, 1 spry round K=4, {route} route, card vs cpu: "
-        + json.dumps(res))
-    if not (jv_err <= 1e-4 and p_err <= 1e-4 and
-            abs(res["loss_gpu"] - res["loss_cpu"]) <= 1e-5 * abs(res["loss_cpu"])):
-        raise AssertionError(f"parity ({route}): card round disagrees with cpu round {res}")
+    peft_rtol = PEFT_RTOL[arch]
+    log(f"[parity] reduced {arch} {overrides or ''} (final site {res['final_site']}), "
+        f"1 spry round K=4, {route} route, card (kernels) vs cpu (limits "
+        f"{PARITY_RTOL}, end-to-end PEFT {peft_rtol}): " + json.dumps(res))
+    if not (res["jvps_rel_err"] <= PARITY_RTOL
+            and res["peft_rel_err_same_jvps"] <= PARITY_RTOL
+            and res["peft_rel_err"] <= peft_rtol
+            and abs(res["loss_gpu"] - res["loss_cpu"]) <= PARITY_RTOL * abs(res["loss_cpu"])):
+        raise AssertionError(f"parity ({arch}, {route}): card round disagrees with "
+                             f"cpu round {res}")
 
 
 # ---------------------------------------------------------------------------
@@ -485,18 +678,43 @@ def phase_site(totals):
 # phase 6: full-size training through the entry point
 # ---------------------------------------------------------------------------
 
-def round_launches(kind, L, estimates):
-    """The launches one round must make: per estimate, one multi-tangent
-    kernel per site on the standard route; L-1 attention ones and one
-    attention contraction epilogue on the fused route; none by reverse mode
-    or by the zero-order clients."""
-    want = {"lora_dual_mt": 0, "lora_dual_mt_jvps": 0, "swa_attention": 0,
-            "swa_attention_mt": 0, "swa_attention_mt_jvps": 0}
-    if kind in ("standard", "fused"):
-        want.update({"lora_dual_mt": estimates * 2 * L,       # wq, wv per layer
-                     "swa_attention": estimates * L,
-                     "swa_attention_mt": estimates * (L - (kind == "fused")),
-                     "swa_attention_mt_jvps": estimates * (kind == "fused")})
+KERNELS = ("lora_dual_mt", "swa_attention", "swa_attention_mt",
+           "swa_attention_mt_jvps", "lora_dual_mt_jvps", "mamba2_scan",
+           "mamba2_scan_mt", "mamba2_scan_mt_jvps")
+
+
+def round_launches(cfg, kind, estimates):
+    """The launches a round of ``estimates`` estimates must make on ``cfg``:
+    per estimate, one primal and one multi-tangent kernel per mixer site and
+    one multi-tangent LoRA kernel per adapted projection on the standard
+    route. The fused route replaces the final site's tangent kernel by ONE
+    contraction epilogue; at a mamba2 site the final layer's out_proj sits in
+    the reversed post-head and launches nothing. Reverse mode and the
+    zero-order clients launch no kernel."""
+    want = dict.fromkeys(KERNELS, 0)
+    if kind not in ("standard", "fused"):
+        return want
+    L = cfg.n_layers
+    if cfg.family == "hybrid":
+        every = cfg.hybrid_attn_every
+        sites = L // every                 # shared attention applications
+        per = {"lora_dual_mt": 2 * L + 2 * sites,   # in_proj, out_proj; wq, wv
+               "swa_attention": sites, "swa_attention_mt": sites,
+               "mamba2_scan": L, "mamba2_scan_mt": L}
+        final = "swa" if (L - 1) % every == every - 1 else "mamba2"
+    else:
+        per = {"lora_dual_mt": 2 * L,      # wq, wv per layer
+               "swa_attention": L, "swa_attention_mt": L}
+        final = "swa"
+    if kind == "fused":
+        if final == "swa":
+            per["swa_attention_mt"] -= 1
+            per["swa_attention_mt_jvps"] = 1
+        else:
+            per["mamba2_scan_mt"] -= 1
+            per["mamba2_scan_mt_jvps"] = 1
+            per["lora_dual_mt"] -= 1
+    want.update({k: n * estimates for k, n in per.items()})
     return want
 
 
@@ -508,7 +726,7 @@ def phase_train(phases, totals):
 
     results = []
     for arch, method, K, rounds, clients, fused in phases:
-        L = get_config(arch).n_layers
+        cfg = get_config(arch)
         reset_launch_counts()
         hist = run_training(arch=arch, task="sst2", method=method, rounds=rounds,
                             clients_per_round=clients, batch_size=8,
@@ -537,7 +755,7 @@ def phase_train(phases, totals):
         if not all(math.isfinite(x) for x in res["loss"]):
             raise AssertionError(f"train {arch} {method}: loss not finite")
         for route, rl in zip(routes, res["round_launches"]):
-            want = round_launches(route, L, clients)   # one estimate a client
+            want = round_launches(cfg, route, clients)   # one estimate a client
             if rl != want:
                 raise AssertionError(f"train {arch} {method} K={K} {kind}: round "
                                      f"launches {rl} != {want}")
@@ -586,13 +804,15 @@ def main(argv=None):
 
     main_cases = phase_kernels() if args.only in (None, "kernels") else {}
     if args.only in (None, "parity"):
-        phase_parity(fused=False)
-        phase_parity(fused=True)
+        for fused in (False, True):
+            phase_parity(fused)
+            phase_parity(fused, "zamba2-1.2b", n_layers=3, hybrid_attn_every=2)
+            phase_parity(fused, "zamba2-1.2b")      # final site attention
     from repro_torch.kernels import launch_counts
     totals = {k: 0 for k in launch_counts()}
     if args.only in (None, "train"):
         phase_site(totals)
-        rb, ll = "roberta-large-lora", "llama2-7b"
+        rb, ll, zb = "roberta-large-lora", "llama2-7b", "zamba2-1.2b"
         results = phase_train(
             [(rb, "spry", 1, 2, 4, False), (rb, "spry", 8, 2, 4, False),
              (rb, "spry_periter", 8, 2, 4, False),
@@ -602,18 +822,21 @@ def main(argv=None):
                                                  "fedavgsplit", "fedmezo", "baffle",
                                                  "fwdllm")]
             + [(ll, "spry", 4, 1, 2, False), (ll, "spry", 4, 1, 2, True),
-               (ll, "fedavg", 1, 1, 2, False)], totals)
-        peak = {f"{r['method']}_{r['route']}": r["round_peak_GiB"]
-                for r in results if r["arch"] == ll}
-        log("[train] llama2-7b peak device memory GiB (2 clients, batch 8 x 32 "
-            "tokens, one round): " + json.dumps(peak))
+               (ll, "fedavg", 1, 1, 2, False)]
+            + [(zb, "spry", 8, 2, 4, False), (zb, "spry", 8, 1, 4, True),
+               (zb, "spry_periter", 8, 1, 4, True), (zb, "fedavg", 1, 1, 4, False)],
+            totals)
+        for arch, what in ((ll, "2 clients"), (zb, "4 clients")):
+            peak = {f"{r['method']}_{r['route']}": r["round_peak_GiB"]
+                    for r in results if r["arch"] == arch}
+            log(f"[train] {arch} peak device memory GiB of a round ({what}, batch "
+                f"8 x 32 tokens): " + json.dumps(peak))
         missing = [k for k, n in totals.items() if n == 0]
         if missing:
             raise AssertionError(f"main path never launched {missing}")
     log(f"[done] {time.time() - t0:.1f}s")
     kernels = []
-    for name in ("lora_dual_mt", "swa_attention", "swa_attention_mt",
-                 "swa_attention_mt_jvps", "lora_dual_mt_jvps"):
+    for name in KERNELS:
         c = main_cases.get(name, {})
         kernels.append({"name": name, "route": "cuda", "source": SOURCES[name],
                         "replaces": REPLACES[name], "launches": totals.get(name, 0),

@@ -1,14 +1,20 @@
 """Architecture registry of the port: ``get_config(arch_id)`` / ``--arch``.
-Only the dense family's configs are ported so far."""
+The dense and hybrid families' configs are ported so far."""
 from __future__ import annotations
 
 import importlib
 
-from repro_torch.configs.base import ModelConfig, SpryConfig, reduce_config
+from repro_torch.configs.base import (
+    ModelConfig,
+    SpryConfig,
+    SSMConfig,
+    reduce_config,
+)
 
 _ARCH_MODULES = {
     "roberta-large-lora": "roberta_large_lora",
     "llama2-7b": "llama2_7b",
+    "zamba2-1.2b": "zamba2_1_2b",
 }
 
 
@@ -20,4 +26,4 @@ def get_config(arch_id: str) -> ModelConfig:
     return mod.CONFIG
 
 
-__all__ = ["ModelConfig", "SpryConfig", "reduce_config", "get_config"]
+__all__ = ["ModelConfig", "SpryConfig", "SSMConfig", "reduce_config", "get_config"]

@@ -1,9 +1,9 @@
 """Config dataclasses: model architectures and FL settings.
 
-Port of ``repro/configs/base.py`` for the dense family. ``ModelConfig.dtype``
-maps ``param_dtype`` to a torch dtype (the reference maps it to a jnp dtype).
-``reduce_config`` derives the CPU smoke-test variant (2 layers,
-d_model=256) exactly as the reference does.
+Port of ``repro/configs/base.py`` for the dense and hybrid (zamba2)
+families. ``ModelConfig.dtype`` maps ``param_dtype`` to a torch dtype (the
+reference maps it to a jnp dtype). ``reduce_config`` derives the CPU
+smoke-test variant (2 layers, d_model=256) exactly as the reference does.
 """
 from __future__ import annotations
 
@@ -17,9 +17,18 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
 
 
 @dataclasses.dataclass(frozen=True)
+class SSMConfig:
+    kind: str                     # 'rwkv6' | 'mamba2' (mamba2 ported)
+    state_dim: int = 64           # mamba2 N
+    head_dim: int = 64
+    conv_kernel: int = 4          # mamba2 depthwise conv width
+    expand: int = 2
+
+
+@dataclasses.dataclass(frozen=True)
 class ModelConfig:
     arch_id: str
-    family: str                   # dense (the only family ported so far)
+    family: str                   # dense | hybrid (the families ported so far)
     n_layers: int
     d_model: int
     n_heads: int
@@ -30,6 +39,8 @@ class ModelConfig:
     attn_pattern: str = "full"                # full | swa | local_global
     window: int = 4096
     local_global_ratio: int = 0
+    ssm: Optional[SSMConfig] = None
+    hybrid_attn_every: int = 0                # zamba2: shared attn after every N blocks
     norm: str = "rmsnorm"
     act: str = "silu"
     use_bias: bool = False
@@ -83,6 +94,9 @@ def reduce_config(cfg: ModelConfig) -> ModelConfig:
     """2 layers, d_model=256 — same family, runnable on CPU."""
     n_heads = min(cfg.n_heads, 4)
     n_kv = max(1, min(cfg.n_kv_heads, n_heads if cfg.n_kv_heads >= cfg.n_heads else 2))
+    ssm = None
+    if cfg.ssm is not None:
+        ssm = dataclasses.replace(cfg.ssm, head_dim=32, state_dim=16)
     return dataclasses.replace(
         cfg,
         n_layers=2,
@@ -93,6 +107,8 @@ def reduce_config(cfg: ModelConfig) -> ModelConfig:
         d_ff=512,
         vocab=512,
         window=64,
+        ssm=ssm,
+        hybrid_attn_every=1 if cfg.hybrid_attn_every else 0,
         param_dtype="float32",
         n_classes=cfg.n_classes or 4,
     )

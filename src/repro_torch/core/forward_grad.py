@@ -8,8 +8,9 @@ routes on both estimator routes, ``SplitLoss`` and ``reconstruct_gradient``):
 
 K perturbations are stacked on a leading tangent axis. The batched route
 runs ``torch.func.vmap`` over ``torch.func.jvp``: the primal runs once per
-estimate and, through ``kernels/dispatch``, each LoRA projection and
-attention site launches ONE multi-tangent kernel for all K tangents.
+estimate and, through ``kernels/dispatch``, each LoRA projection,
+attention and mamba2 site launches ONE multi-tangent kernel for all K
+tangents.
 
 Random numbers. Perturbation i of an estimate with integer key ``key``
 comes from a ``torch.Generator`` on the tree's device seeded with
@@ -124,9 +125,11 @@ class SplitLoss:
                 -> dispatch.lora_proj / lora_jvp_contract
         'swa'   site_args = (q, k, v), static ``window``
                 -> dispatch.swa_attend / swa_jvp_contract
+        'mamba2' site_args = (xdt, bmat, cmat, decay)
+                -> dispatch.mamba2_mix / mamba2_jvp_contract
 
-    ('wkv6' and 'mamba2', the recurrent families' sites, come with the port
-    of those families.) ``ctx`` is any side output of ``pre`` the post-head
+    ('wkv6', the rwkv6 family's site, comes with the port of that family.)
+    ``ctx`` is any side output of ``pre`` the post-head
     also needs (None if none). Calling the object evaluates the composition,
     so it is a drop-in ``loss_fn``. ``x_has_tangent=False`` (lora only)
     declares that x does not depend on the trainable tree, which removes
@@ -137,12 +140,11 @@ class SplitLoss:
     def __init__(self, pre: Callable, kind: str, post: Callable, *,
                  scale: float = 1.0, window: Optional[int] = None,
                  x_has_tangent: bool = True, site_fn: Optional[Callable] = None):
-        if kind in ("wkv6", "mamba2"):
+        if kind == "wkv6":
             raise NotImplementedError(
-                f"SplitLoss kind {kind!r} is not ported yet: it comes with the "
-                f"{'rwkv6 (ssm)' if kind == 'wkv6' else 'zamba2 (hybrid)'} "
-                f"family's slice of repro_torch")
-        if kind not in ("lora", "swa"):
+                "SplitLoss kind 'wkv6' is not ported yet: it comes with the "
+                "rwkv6 (ssm) family's slice of repro_torch")
+        if kind not in ("lora", "swa", "mamba2"):
             raise ValueError(f"unknown site kind {kind!r}")
         self.pre = pre
         self.kind = kind
@@ -157,6 +159,8 @@ class SplitLoss:
             return self.site_fn(args)
         if self.kind == "lora":
             return dispatch.lora_proj(*args, self.scale)
+        if self.kind == "mamba2":
+            return dispatch.mamba2_mix(*args)
         return dispatch.swa_attend(*args, self.window)
 
     def __call__(self, p):
@@ -185,6 +189,8 @@ def _site_contract(loss_fn, gy, site_args, argdots):
         # is frozen, kept so the arithmetic is the reference's
         zw = torch.einsum("...k,...n->kn", x.float(), gy.float())
         return val + _tree_vdot(zw, wd)
+    if loss_fn.kind == "mamba2":
+        return dispatch.mamba2_jvp_contract(gy, *site_args, *argdots)
     return dispatch.swa_jvp_contract(gy, *site_args, *argdots, loss_fn.window)
 
 

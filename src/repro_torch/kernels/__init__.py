@@ -6,9 +6,12 @@ lora_dual/      LoRA multi-tangent projection (tangents of every LoRA
 swa_attention/  causal (sliding-window) GQA flash attention: primal,
                 multi-tangent, and the multi-tangent contraction epilogue
                 (the dense family's final site on the fused route)
-dispatch.py     forward-mode rules that route the model's LoRA projections
-                and attention mixers to those kernels, and the contraction
-                ops of the fused-contraction route
+mamba2_scan/    the Mamba2 state recurrence: primal, multi-tangent, and the
+                multi-tangent contraction epilogue (the hybrid family's
+                final site on the fused route)
+dispatch.py     forward-mode rules that route the model's LoRA projections,
+                attention mixers and mamba2 recurrences to those kernels,
+                and the contraction ops of the fused-contraction route
 build.py        nvcc build at first use, ctypes loading
 csrc/           the CUDA sources
 
@@ -16,9 +19,10 @@ Each kernel module keeps a plain PyTorch version beside its wrapper (CPU
 tensors take it) and a launch counter that only a kernel launch moves.
 """
 from repro_torch.kernels.lora_dual import ops as _lora_ops
+from repro_torch.kernels.mamba2_scan import ops as _mamba2_ops
 from repro_torch.kernels.swa_attention import ops as _swa_ops
 
-_COUNTERS = (_lora_ops.launches, _swa_ops.launches)
+_COUNTERS = (_lora_ops.launches, _swa_ops.launches, _mamba2_ops.launches)
 
 
 def launch_counts() -> dict:

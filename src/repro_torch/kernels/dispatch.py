@@ -1,8 +1,9 @@
-"""Forward-mode rules that route LoRA projections and attention mixers to
-the multi-tangent kernels, and the cotangent-known contraction ops of the
-fused-contraction route. Port of ``repro/kernels/dispatch.py``
-(``lora_proj``, ``swa_attend``, ``forward_ad_region``,
-``lora_jvp_contract``, ``swa_jvp_contract``).
+"""Forward-mode rules that route LoRA projections, attention mixers and
+mamba2 recurrences to the multi-tangent kernels, and the cotangent-known
+contraction ops of the fused-contraction route. Port of
+``repro/kernels/dispatch.py`` (``lora_proj``, ``swa_attend``,
+``mamba2_mix``, ``forward_ad_region``, ``lora_jvp_contract``,
+``swa_jvp_contract``, ``mamba2_jvp_contract``).
 
 The reference pairs ``jax.custom_jvp`` with ``custom_vmap``; here each op is
 a ``torch.autograd.Function`` with a ``jvp`` staticmethod, and its tangent
@@ -41,6 +42,11 @@ from repro_torch.kernels.lora_dual.ops import (
     lora_dual_mt_tangents,
     lora_dual_mt_tangents_ref,
 )
+from repro_torch.kernels.mamba2_scan.ops import (
+    mamba2_scan,
+    mamba2_scan_mt_jvps,
+    mamba2_scan_mt_tangents,
+)
 from repro_torch.kernels.swa_attention.ops import (
     swa_attention,
     swa_attention_mt_jvps,
@@ -77,6 +83,13 @@ def _stack(t, dim, size):
         return None
     t = t.movedim(dim, 0) if dim is not None else t.expand((size,) + t.shape)
     return t.contiguous()
+
+
+def _materialize(t, like):
+    """A missing tangent (the primal does not depend on the trainable tree,
+    e.g. layer 0's B/C/decay) as explicit zeros, as the reference's
+    ``_materialize``; the kernel still runs on it."""
+    return torch.zeros_like(like) if t is None else t
 
 
 def _primal_batched(name):
@@ -292,3 +305,91 @@ def swa_jvp_contract(gy, q, k, v, qd, kd, vd, window):
     its known output cotangent gy (B,H,S,hd)."""
     return _SwaContract.apply(gy.contiguous(), q.contiguous(), k.contiguous(),
                               v.contiguous(), qd, kd, vd, window)
+
+
+# ---------------------------------------------------------------------------
+# Mamba2 state recurrence (fresh state, the training path)
+# ---------------------------------------------------------------------------
+
+class _Mamba2Tangent(torch.autograd.Function):
+    """ydot of the recurrence for one tangent (forward) or K stacked
+    tangents (vmap -> one T=K ``mamba2_scan_mt_tangents`` call)."""
+
+    @staticmethod
+    def forward(xdt, bm, cm, dec, xd, bd, cd, dd):
+        return mamba2_scan_mt_tangents(xdt, bm, cm, dec, _one(xd), _one(bd),
+                                       _one(cd), _one(dd))[0]
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def vmap(info, in_dims, xdt, bm, cm, dec, xd, bd, cd, dd):
+        if any(d is not None for d in in_dims[:4]):
+            _primal_batched("mamba2_mix")
+        n = info.batch_size
+        return mamba2_scan_mt_tangents(
+            xdt, bm, cm, dec, _stack(xd, in_dims[4], n), _stack(bd, in_dims[5], n),
+            _stack(cd, in_dims[6], n), _stack(dd, in_dims[7], n)), 0
+
+
+class _Mamba2Mix(torch.autograd.Function):
+    @staticmethod
+    def forward(xdt, bm, cm, dec):
+        return mamba2_scan(xdt.contiguous(), bm.contiguous(), cm.contiguous(),
+                           dec.contiguous())
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_forward(*inputs)
+
+    @staticmethod
+    def jvp(ctx, xd, bd, cd, dd):
+        prim = tuple(t.contiguous() for t in ctx.saved_tensors)
+        tang = (_materialize(t, p) for t, p in zip((xd, bd, cd, dd), prim))
+        return _Mamba2Tangent.apply(*prim, *tang)
+
+    @staticmethod
+    def vmap(info, in_dims, *args):
+        _primal_batched("mamba2_mix")
+
+
+def mamba2_mix(xdt, bmat, cmat, decay):
+    """y (B,S,H,hd) of the Mamba2 recurrence from a fresh state: xdt
+    (B,S,H,hd) fp32 (the dt-premultiplied input), bmat/cmat (B,S,N), decay
+    (B,S,H). Primal through the scan kernel, tangents through the
+    multi-tangent kernel."""
+    return _Mamba2Mix.apply(xdt, bmat, cmat, decay)
+
+
+class _Mamba2Contract(torch.autograd.Function):
+    """<gy, ydot> of the recurrence for one tangent (forward) or K stacked
+    tangents (vmap -> one T=K ``mamba2_scan_mt_jvps`` call)."""
+
+    @staticmethod
+    def forward(gy, xdt, bm, cm, dec, xd, bd, cd, dd):
+        return mamba2_scan_mt_jvps(xdt, bm, cm, dec, _one(xd), _one(bd),
+                                   _one(cd), _one(dd), gy)[0]
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def vmap(info, in_dims, gy, xdt, bm, cm, dec, xd, bd, cd, dd):
+        if any(d is not None for d in in_dims[:5]):
+            _primal_batched("mamba2_jvp_contract")
+        n = info.batch_size
+        return mamba2_scan_mt_jvps(
+            xdt, bm, cm, dec, _stack(xd, in_dims[5], n), _stack(bd, in_dims[6], n),
+            _stack(cd, in_dims[7], n), _stack(dd, in_dims[8], n), gy), 0
+
+
+def mamba2_jvp_contract(gy, xdt, bmat, cmat, decay, xd, bd, cd, dd):
+    """jvp partial <gy, ydot> of a mamba2 site against its known output
+    cotangent gy (B,S,H,hd); K stacked tangents make ONE
+    ``mamba2_scan_mt_jvps`` launch, which writes no (K,B,S,H,hd) output."""
+    prim = tuple(t.contiguous() for t in (xdt, bmat, cmat, decay))
+    tang = (_materialize(t, p) for t, p in zip((xd, bd, cd, dd), prim))
+    return _Mamba2Contract.apply(gy.float().contiguous(), *prim, *tang)

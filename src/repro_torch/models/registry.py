@@ -1,5 +1,5 @@
-"""Family registry and task losses. Port of the dense entries of
-``repro/models/registry.py``.
+"""Family registry and task losses. Port of the dense and hybrid entries
+of ``repro/models/registry.py``.
 
     model = get_model(cfg)
     base  = model.init_base(cfg, gen)
@@ -14,7 +14,7 @@ from typing import Callable, Optional
 
 import torch
 
-from repro_torch.models import transformer
+from repro_torch.models import hybrid, transformer
 from repro_torch.models.common import chunked_lm_loss, classification_loss
 
 
@@ -50,19 +50,37 @@ def _tf_split_post(cfg, base, y, ctx, peft, batch, lora_scale=1.0):
     return transformer.split_post(cfg, base, y, ctx, peft, lora_scale=lora_scale)
 
 
+def _hybrid_forward(cfg, base, peft, batch, lora_scale=1.0):
+    return hybrid.forward(cfg, base, peft, batch["tokens"], lora_scale=lora_scale)
+
+
+def _hybrid_split_forward(cfg, base, peft, batch, lora_scale=1.0):
+    return hybrid.split_forward(cfg, base, peft, batch["tokens"],
+                                lora_scale=lora_scale)
+
+
+def _hybrid_split_post(cfg, base, y, ctx, peft, batch, lora_scale=1.0):
+    return hybrid.split_post(cfg, base, y, ctx, peft, lora_scale=lora_scale)
+
+
 _FAMILIES = {
     "dense": ModelFns(transformer.init_base, _tf_forward, transformer.unembed,
                       split_forward=_tf_split_forward,
                       split_post=_tf_split_post,
                       split_site=transformer.split_site,
                       mixer_site=transformer.mixer_site),
+    "hybrid": ModelFns(hybrid.init_base, _hybrid_forward, hybrid.unembed,
+                       split_forward=_hybrid_split_forward,
+                       split_post=_hybrid_split_post,
+                       split_site=hybrid.split_site,
+                       mixer_site=hybrid.mixer_site),
 }
 
 
 def get_model(cfg) -> ModelFns:
     if cfg.family not in _FAMILIES:
         raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (dense only)")
+            f"family {cfg.family!r} is not ported yet (dense and hybrid only)")
     return _FAMILIES[cfg.family]
 
 

@@ -1,1 +1,1 @@
-from repro_torch.peft.lora import init_peft, target_dims
+from repro_torch.peft.lora import default_lora_targets, init_peft, target_dims

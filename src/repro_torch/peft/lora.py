@@ -4,6 +4,7 @@ classifier head. Port of the ``lora`` and ``head`` paths of
 
     peft = {
       "layers": {target: {"A": (L, din, r), "B": (L, r, dout)}},   # stacked
+      "shared": {target: {"A": (din, r), "B": (r, dout)}},         # zamba2
       "head":   {"w": (D, C), "b": (C,)},   # trained by ALL clients
     }
 
@@ -18,6 +19,14 @@ import torch
 from repro_torch.models.common import dense_init
 
 
+def default_lora_targets(cfg):
+    if cfg.family == "ssm":           # rwkv6 projections
+        return ("wr", "wv")
+    if cfg.family == "hybrid":        # mamba2 projections
+        return ("in_proj", "out_proj")
+    return ("wq", "wv")
+
+
 def target_dims(cfg, target: str):
     """(din, dout) of the matrix a LoRA pair adapts."""
     d, hd = cfg.d_model, cfg.hd
@@ -29,22 +38,36 @@ def target_dims(cfg, target: str):
         "wi": (d, cfg.d_ff),
         "wg": (d, cfg.d_ff),
         "wd": (cfg.d_ff, d),
+        # mamba2
+        "in_proj": (d, 2 * (cfg.ssm.expand * d) if cfg.ssm else 2 * d),
+        "out_proj": ((cfg.ssm.expand * d) if cfg.ssm else d, d),
     }
     return table[target]
 
 
+def _lora_pair(gen, din, dout, r, stack=()):
+    return {"A": dense_init(gen, stack + (din, r)),
+            "B": torch.zeros(stack + (r, dout), device=gen.device)}
+
+
 def init_peft(cfg, gen, spry_cfg):
     """LoRA pairs (A LeCun-normal, B zero: identity at init) on each target
-    of every layer, plus the classifier head, drawn from ``gen``."""
+    of every layer, one unstacked pair set on the hybrid family's shared
+    attention block (``wq``, ``wv``), plus the classifier head, drawn from
+    ``gen``."""
+    targets = spry_cfg.lora_targets or default_lora_targets(cfg)
+    # for ssm/hybrid families, remap the generic defaults
+    if cfg.family in ("ssm", "hybrid") and tuple(targets) == ("wq", "wv"):
+        targets = default_lora_targets(cfg)
     r, L = spry_cfg.lora_rank, cfg.n_layers
     layers = {}
-    for t in spry_cfg.lora_targets:
+    for t in targets:
         din, dout = target_dims(cfg, t)
-        layers[t] = {
-            "A": dense_init(gen, (L, din, r)),
-            "B": torch.zeros((L, r, dout), device=gen.device),
-        }
+        layers[t] = _lora_pair(gen, din, dout, r, stack=(L,))
     peft = {"layers": layers}
+    if cfg.family == "hybrid":
+        peft["shared"] = {t: _lora_pair(gen, *target_dims(cfg, t), r)
+                          for t in ("wq", "wv")}
     if cfg.n_classes:
         peft["head"] = {
             "w": dense_init(gen, (cfg.d_model, cfg.n_classes)),

@@ -1,9 +1,10 @@
 """Card-only tests of the port's CUDA kernels (marker ``cuda``).
 
-Each kernel is held against its plain PyTorch version on the card, and one
-reduced estimate per estimator route shows one multi-tangent launch per
-site (standard) or one contraction epilogue at the final site (fused) for
-all K tangents. This file imports no JAX (the machine with the card has none);
+Each kernel is held against its plain PyTorch version on the card (the
+mamba2 kernels also lane by lane: a T=8 launch is eight T=1 launches bit
+for bit), and one reduced estimate per estimator route and family shows
+one multi-tangent launch per site (standard) or one contraction epilogue
+at the final site (fused) for all K tangents. This file imports no JAX (the machine with the card has none);
 run it there with
 
     PYTHONPATH=src python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
@@ -11,7 +12,9 @@ run it there with
 Without a card every test skips (decided in the fixture, never at import).
 """
 import dataclasses
+import importlib.util
 import math
+import os
 
 import pytest
 import torch
@@ -26,6 +29,16 @@ def dev():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda")
+
+
+def _chip_smoke():
+    """chip_smoke.py, whose ``round_launches`` states the launches a round
+    must make."""
+    path = os.path.join(os.path.dirname(__file__), os.pardir, "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def _f32(args):
@@ -127,7 +140,8 @@ def test_one_launch_per_site_for_k_tangents(dev):
     assert torch.isfinite(loss) and torch.isfinite(jvps).all()
     assert launch_counts() == {"lora_dual_mt": 2 * L, "lora_dual_mt_jvps": 0,
                                "swa_attention": L, "swa_attention_mt": L,
-                               "swa_attention_mt_jvps": 0}
+                               "swa_attention_mt_jvps": 0, "mamba2_scan": 0,
+                               "mamba2_scan_mt": 0, "mamba2_scan_mt_jvps": 0}
 
 
 def _jvps_close(got, want, mag):
@@ -216,8 +230,100 @@ def test_fused_route_one_epilogue_per_estimate(dev):
     assert torch.isfinite(loss) and torch.isfinite(jvps).all()
     assert launch_counts() == {"lora_dual_mt": 2 * L, "lora_dual_mt_jvps": 0,
                                "swa_attention": L, "swa_attention_mt": L - 1,
-                               "swa_attention_mt_jvps": 1}
+                               "swa_attention_mt_jvps": 1, "mamba2_scan": 0,
+                               "mamba2_scan_mt": 0, "mamba2_scan_mt_jvps": 0}
     # the standard route on the same perturbations agrees
     _, _, jvps_std = forward_gradient(lambda p: split(p), peft, 3, k_perturbations=8)
     torch.testing.assert_close(jvps, jvps_std, rtol=1e-4,
                                atol=1e-5 * float(jvps_std.abs().max()))
+
+
+def _m2_inputs(B, S, H, hd, N, T, dev, seed):
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    rn = lambda *s: torch.randn(s, generator=g, device=dev)  # noqa: E731
+    prim = (rn(B, S, H, hd) * 0.3, rn(B, S, N) * 0.3, rn(B, S, N) * 0.3,
+            torch.sigmoid(rn(B, S, H)))
+    tang = (rn(T, B, S, H, hd) * 0.3, rn(T, B, S, N) * 0.3, rn(T, B, S, N) * 0.3,
+            rn(T, B, S, H) * 0.1)
+    return prim, tang, rn(B, S, H, hd)
+
+
+@pytest.mark.parametrize("B,S,H,hd,N,T", [
+    (8, 32, 64, 64, 64, 8),          # zamba2 shapes, one client estimate
+    (3, 37, 5, 24, 20, 3),           # ragged S, hd, N and rows a block
+    (2, 19, 3, 40, 100, 64),         # N > 64, tangents in 8 chunks
+    (1, 5, 1, 1, 1, 1),
+])
+def test_mamba2_kernels_match_plain(dev, B, S, H, hd, N, T):
+    from repro_torch.kernels.mamba2_scan import ops
+    prim, tang, gy = _m2_inputs(B, S, H, hd, N, T, dev, 4)
+    before = dict(ops.launches)
+    y = ops.mamba2_scan(*prim)
+    yd = ops.mamba2_scan_mt_tangents(*prim, *tang)
+    jv = ops.mamba2_scan_mt_jvps(*prim, *tang, gy)
+    torch.cuda.synchronize()
+    assert {k: n - before[k] for k, n in ops.launches.items()} == \
+        {"mamba2_scan": 1, "mamba2_scan_mt": 1, "mamba2_scan_mt_jvps": 1}
+    y_ref, yd_ref = ops.mamba2_scan_mt_ref(*prim, *tang)
+    _close(y, y_ref, torch.float32)
+    _close(yd, yd_ref, torch.float32)
+    mag = (gy[None] * yd_ref).abs().sum(dim=(1, 2, 3, 4))
+    _jvps_close(jv, torch.einsum("bshd,tbshd->t", gy, yd_ref), mag)
+
+
+def test_mamba2_lanes_bitwise_and_jvps_repeat(dev):
+    """Each tangent of a T=8 launch equals its own T=1 launch bit for bit
+    (tangents and contraction), and two contraction launches on the same
+    inputs give the same jvps (no atomics)."""
+    from repro_torch.kernels.mamba2_scan import ops
+    prim, tang, gy = _m2_inputs(3, 37, 5, 24, 20, 8, dev, 5)
+    yd = ops.mamba2_scan_mt_tangents(*prim, *tang)
+    jv = ops.mamba2_scan_mt_jvps(*prim, *tang, gy)
+    for t in range(8):
+        one = tuple(x[t:t + 1].contiguous() for x in tang)
+        assert torch.equal(ops.mamba2_scan_mt_tangents(*prim, *one)[0], yd[t])
+        assert torch.equal(ops.mamba2_scan_mt_jvps(*prim, *one, gy)[0], jv[t])
+    assert torch.equal(ops.mamba2_scan_mt_jvps(*prim, *tang, gy), jv)
+
+
+def test_mamba2_wrappers_raise_instead_of_falling_back(dev):
+    from repro_torch.kernels.mamba2_scan import ops
+    prim, tang, gy = _m2_inputs(1, 4, 2, 8, 4, 2, dev, 6)
+    with pytest.raises(TypeError, match="fp32"):
+        ops.mamba2_scan(prim[0].bfloat16(), *prim[1:])
+    with pytest.raises(ValueError, match="N <= 128"):
+        wide = torch.zeros(1, 4, 200, device=dev)
+        ops.mamba2_scan(prim[0], wide, wide, prim[3])
+
+
+@pytest.mark.parametrize("fused", [False, True], ids=["standard", "fused"])
+@pytest.mark.parametrize("final", ["swa", "mamba2"])
+def test_hybrid_launches_per_estimate(dev, final, fused):
+    """Reduced zamba2 (final site attention: 2 layers, the shared block
+    after each; final site mamba2: 3 layers, after every 2nd), one estimate
+    with K=8 on the card: one launch per site, or the final site's ONE
+    contraction epilogue on the fused route."""
+    from repro_torch.configs import SpryConfig, get_config, reduce_config
+    from repro_torch.core import forward_gradient
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import get_loss_fn, get_model
+    from repro_torch.peft import init_peft
+    cfg = dataclasses.replace(reduce_config(get_config("zamba2-1.2b")), n_classes=2)
+    if final == "mamba2":
+        cfg = dataclasses.replace(cfg, n_layers=3, hybrid_attn_every=2)
+    g = torch.Generator(device=dev)
+    g.manual_seed(0)
+    base = get_model(cfg).init_base(cfg, g)
+    peft = init_peft(cfg, g, SpryConfig())
+    batch = {"tokens": torch.randint(0, cfg.vocab, (2, 32), device=dev),
+             "labels": torch.randint(0, 2, (2,), device=dev)}
+    split = get_loss_fn("cls", split=True)(cfg, base, batch)
+    assert split.kind == final
+    reset_launch_counts()
+    loss, _, jvps = forward_gradient(split, peft, 3, k_perturbations=8,
+                                     fused_contraction=fused)
+    torch.cuda.synchronize()
+    want = _chip_smoke().round_launches(cfg, "fused" if fused else "standard", 1)
+    assert torch.isfinite(loss) and torch.isfinite(jvps).all()
+    assert launch_counts() == want

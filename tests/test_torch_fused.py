@@ -283,9 +283,12 @@ def test_fused_route_reverses_lora_projections_in_the_post_head(monkeypatch):
 
 
 def test_unported_site_kinds_raise():
-    for kind in ("wkv6", "mamba2"):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            tfg.SplitLoss(lambda p: ((), None), kind, lambda y, c, p: y)
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        tfg.SplitLoss(lambda p: ((), None), "wkv6", lambda y, c, p: y)
+    # the hybrid family's site kind is ported (tests/test_torch_hybrid.py)
+    assert tfg.SplitLoss(lambda p: ((), None), "mamba2", lambda y, c, p: y).kind == "mamba2"
+    with pytest.raises(ValueError, match="unknown site kind"):
+        tfg.SplitLoss(lambda p: ((), None), "conv", lambda y, c, p: y)
 
 
 # ---------------------------------------------------------------------------

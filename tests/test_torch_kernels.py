@@ -3,10 +3,12 @@
 Inputs are made with numpy from a seed and fed to both packages; JAX runs
 on the CPU. The plain versions are held against the JAX oracles
 (``lora_dual_mt_ref``, ``swa_attention_gqa_ref``, ``swa_attention_mt_ref``,
-``lora_dual_mt_jvps_ref``, ``swa_attention_mt_jvps_ref``, and the
-reference's ``lora_dual_mt_jvps(impl='reassoc')``) at fp32 rel 1e-5, and
+``lora_dual_mt_jvps_ref``, ``swa_attention_mt_jvps_ref``,
+``mamba2_scan_ref``, ``mamba2_scan_mt_ref``, ``mamba2_scan_mt_jvps_ref``, and
+the reference's ``lora_dual_mt_jvps(impl='reassoc')``) at fp32 rel 1e-5, and
 one small case of each against the Pallas kernels in interpret mode, as
-tests/test_kernels.py and tests/test_jvps_epilogue.py run them. The CUDA
+tests/test_kernels.py, tests/test_jvps_epilogue.py and
+tests/test_mamba2_mt.py run them. The CUDA
 kernels themselves are held against these plain versions on the card
 (tests/test_torch_cuda.py, chip_smoke.py).
 """
@@ -21,6 +23,16 @@ import torch
 from repro.kernels.lora_dual.ops import lora_dual_mt_jvps as jax_lora_jvps
 from repro.kernels.lora_dual.ops import lora_dual_mt_tangents as jax_lora_mt_pallas
 from repro.kernels.lora_dual.ref import lora_dual_mt_jvps_ref, lora_dual_mt_ref
+from repro.kernels.mamba2_scan.ops import mamba2_scan as jax_m2_pallas
+from repro.kernels.mamba2_scan.ops import mamba2_scan_mt_jvps as jax_m2_jvps_pallas
+from repro.kernels.mamba2_scan.ops import (
+    mamba2_scan_mt_tangents as jax_m2_mt_pallas,
+)
+from repro.kernels.mamba2_scan.ref import (
+    mamba2_scan_mt_jvps_ref as jax_m2_jvps_ref,
+)
+from repro.kernels.mamba2_scan.ref import mamba2_scan_mt_ref as jax_m2_mt_ref
+from repro.kernels.mamba2_scan.ref import mamba2_scan_ref as jax_m2_ref
 from repro.kernels.swa_attention.ops import swa_attention as jax_swa_pallas
 from repro.kernels.swa_attention.ops import swa_attention_mt_jvps as jax_swa_jvps
 from repro.kernels.swa_attention.ops import (
@@ -33,6 +45,7 @@ from repro.kernels.swa_attention.ref import (
 )
 from repro_torch.kernels import dispatch
 from repro_torch.kernels.lora_dual import ops as lora_ops
+from repro_torch.kernels.mamba2_scan import ops as m2_ops
 from repro_torch.kernels.swa_attention import ops as swa_ops
 
 torch.set_num_threads(1)
@@ -389,3 +402,159 @@ def test_jvps_wrappers_check_and_never_take_the_plain_version(monkeypatch):
         swa_ops.swa_attention_mt_jvps(t, t, t, t, t, t, t)
     assert lora_ops.launches["lora_dual_mt_jvps"] == 0
     assert swa_ops.launches["swa_attention_mt_jvps"] == 0
+
+
+# ---------------------------------------------------------------------------
+# the mamba2 recurrence (primal, multi-tangent, contraction)
+# ---------------------------------------------------------------------------
+
+def _m2_inputs(seed, B, S, H, hd, N, T):
+    """Operands at the model's scales (decay in (0, 1)), as
+    tests/test_mamba2_mt.py makes them, plus a cotangent gy."""
+    rng = np.random.default_rng(seed)
+    f = lambda *s: rng.standard_normal(s).astype(np.float32)  # noqa: E731
+    dec = (1.0 / (1.0 + np.exp(-f(B, S, H)))).astype(np.float32)
+    return ((f(B, S, H, hd) * 0.3, f(B, S, N) * 0.3, f(B, S, N) * 0.3, dec),
+            (f(T, B, S, H, hd) * 0.3, f(T, B, S, N) * 0.3, f(T, B, S, N) * 0.3,
+             f(T, B, S, H) * 0.1), f(B, S, H, hd))
+
+
+M2_CASES = [
+    (2, 16, 3, 8, 16, 3),
+    (1, 9, 2, 12, 5, 1),           # ragged S, hd and N
+    (2, 12, 4, 16, 32, 4),
+]
+
+
+@pytest.mark.parametrize("B,S,H,hd,N,T", M2_CASES)
+def test_mamba2_plain_matches_jax_ref(B, S, H, hd, N, T):
+    prim, tang, _ = _m2_inputs(30, B, S, H, hd, N, T)
+    want_y, want_state = jax_m2_ref(*map(jnp.asarray, prim))
+    got_y, got_state = m2_ops.mamba2_scan_ref(*map(_t, prim))
+    assert _rel(got_y, want_y) <= RTOL and _rel(got_state, want_state) <= RTOL
+    _, want_d = jax_m2_mt_ref(*map(jnp.asarray, prim + tang))
+    got_d = m2_ops.mamba2_scan_mt_tangents(*map(_t, prim + tang))
+    assert got_d.shape == (T, B, S, H, hd)
+    assert _rel(m2_ops.mamba2_scan(*map(_t, prim)), want_y) <= RTOL
+    assert _rel(got_d, want_d) <= RTOL
+
+
+@pytest.mark.parametrize("B,S,H,hd,N,T", M2_CASES)
+def test_mamba2_mt_jvps_plain_matches_jax_ref(B, S, H, hd, N, T):
+    prim, tang, gy = _m2_inputs(31, B, S, H, hd, N, T)
+    want = jax_m2_jvps_ref(*map(jnp.asarray, prim + tang + (gy,)))
+    got = m2_ops.mamba2_scan_mt_jvps(*map(_t, prim + tang + (gy,)))
+    assert got.shape == (T,)
+    assert _rel(got, want) <= RTOL
+
+
+def test_mamba2_plain_matches_pallas_interpret():
+    """One tiny case of each plain version against the Pallas kernels in
+    interpret mode (ragged S against block_s, as tests/test_mamba2_mt.py)."""
+    prim, tang, gy = _m2_inputs(32, 1, 10, 2, 8, 4, 2)
+    jp, jt = list(map(jnp.asarray, prim)), list(map(jnp.asarray, tang))
+    tp, tt = list(map(_t, prim)), list(map(_t, tang))
+    assert _rel(m2_ops.mamba2_scan(*tp),
+                jax_m2_pallas(*jp, block_s=4, interpret=True)) <= RTOL
+    assert _rel(m2_ops.mamba2_scan_mt_tangents(*tp, *tt),
+                jax_m2_mt_pallas(*jp, *jt, block_s=4, interpret=True)) <= RTOL
+    assert _rel(m2_ops.mamba2_scan_mt_jvps(*tp, *tt, _t(gy)),
+                jax_m2_jvps_pallas(*jp, *jt, jnp.asarray(gy), block_s=4,
+                                   interpret=True)) <= RTOL
+
+
+@pytest.mark.parametrize("bc_tangents", [True, False], ids=["all", "x_only"])
+def test_mamba2_mix_rule_matches_jax_jvp_and_vmaps_to_one_call(monkeypatch,
+                                                                bc_tangents):
+    """The recurrence's rule equals jax.jvp of the reference oracle, and K
+    stacked tangents reach the multi-tangent wrapper as ONE T=K call. With
+    tangents on xdt only (layer 0: B, C and decay come from the embedding)
+    the missing tangents go in as zeros and the launch still happens."""
+    calls = []
+    real = dispatch.mamba2_scan_mt_tangents
+
+    def counting(*args):
+        calls.append(args[4].shape[0])
+        return real(*args)
+    monkeypatch.setattr(dispatch, "mamba2_scan_mt_tangents", counting)
+    prim, tang, _ = _m2_inputs(33, 2, 11, 3, 8, 6, 4)
+    if not bc_tangents:
+        tang = (tang[0],) + tuple(np.zeros_like(t) for t in tang[1:])
+    tp, tt = tuple(map(_t, prim)), tuple(map(_t, tang))
+    with dispatch.forward_ad_region():
+        if bc_tangents:
+            y, yd = torch.func.vmap(
+                lambda *d: torch.func.jvp(dispatch.mamba2_mix, tp, d),
+                out_dims=(None, 0))(*tt)
+        else:
+            y, yd = torch.func.vmap(
+                lambda xd: torch.func.jvp(lambda x_: dispatch.mamba2_mix(x_, *tp[1:]),
+                                          (tp[0],), (xd,)),
+                out_dims=(None, 0))(tt[0])
+    assert calls == [4]
+    want_y, want_d = jax_m2_mt_ref(*map(jnp.asarray, prim + tang))
+    assert _rel(y, want_y) <= RTOL
+    assert _rel(yd, want_d) <= RTOL
+
+
+def test_mamba2_contract_rule_vmaps_to_one_call(monkeypatch):
+    """K stacked tangents reach the contraction epilogue as ONE T=K call,
+    equal to gy contracted with the recurrence's tangents."""
+    calls = []
+    real = dispatch.mamba2_scan_mt_jvps
+
+    def counting(*args):
+        calls.append(args[4].shape[0])
+        return real(*args)
+    monkeypatch.setattr(dispatch, "mamba2_scan_mt_jvps", counting)
+    prim, tang, gy = _m2_inputs(34, 2, 10, 2, 8, 6, 4)
+    tp, tt, tg = tuple(map(_t, prim)), tuple(map(_t, tang)), _t(gy)
+    got = torch.func.vmap(lambda *d: dispatch.mamba2_jvp_contract(tg, *tp, *d))(*tt)
+    assert calls == [4]
+    want = jax_m2_jvps_ref(*map(jnp.asarray, prim + tang + (gy,)))
+    assert _rel(got, want) <= RTOL
+
+
+def test_mamba2_wrappers_check_and_never_take_the_plain_version(monkeypatch):
+    """The wrappers reject what the kernels do not take (fp32 only, N <= 128,
+    agreeing shapes), and a CUDA tensor never reaches a plain version (no
+    card here: they raise)."""
+    prim, tang, gy = _m2_inputs(35, 1, 4, 2, 8, 4, 2)
+    tp, tt = tuple(map(_t, prim)), tuple(map(_t, tang))
+    assert m2_ops._check_tangents("m2", *tp, *tt) == (1, 4, 2, 8, 4, 2)
+    with pytest.raises(TypeError, match="fp32"):
+        m2_ops._check("m2", tp[0].double(), *tp[1:])
+    with pytest.raises(ValueError, match="contiguous"):
+        m2_ops._check("m2", tp[0].transpose(1, 2).contiguous().transpose(1, 2), *tp[1:])
+    with pytest.raises(ValueError, match="agree"):
+        m2_ops._check("m2", tp[0], tp[1], tp[2], tp[3][:, :, :1].contiguous())
+    with pytest.raises(ValueError, match="N <= 128"):
+        wide = torch.zeros(1, 4, 129)
+        m2_ops._check("m2", tp[0], wide, wide, tp[3])
+    with pytest.raises(ValueError, match="tangent stacks"):
+        m2_ops._check_tangents("m2", *tp, tt[0], tt[1][:1], *tt[2:])
+
+    def plain_reached(*a, **k):
+        pytest.fail("a CUDA tensor reached the plain version")
+    for n in ("mamba2_scan_ref", "mamba2_scan_mt_ref", "mamba2_scan_mt_jvps_ref"):
+        monkeypatch.setattr(m2_ops, n, plain_reached)
+    monkeypatch.setattr(m2_ops, "_check", lambda *a, **k: (1, 4, 2, 8, 4))
+    monkeypatch.setattr(m2_ops, "_check_tangents", lambda *a, **k: (1, 4, 2, 8, 4, 2))
+
+    class OnCuda:
+        """Stands in for a CUDA tensor (this torch has no CUDA)."""
+        device = torch.device("cuda")
+        dtype = torch.float32
+        shape = (1, 4, 2, 8)
+
+        def numel(self):
+            return 64
+    t = OnCuda()
+    with pytest.raises(Exception):    # no CUDA in this torch
+        m2_ops.mamba2_scan(t, t, t, t)
+    with pytest.raises(Exception):
+        m2_ops.mamba2_scan_mt_tangents(t, t, t, t, t, t, t, t)
+    with pytest.raises(Exception):
+        m2_ops.mamba2_scan_mt_jvps(t, t, t, t, t, t, t, t, t)
+    assert m2_ops.launches == {"mamba2_scan": 0, "mamba2_scan_mt": 0,
+                               "mamba2_scan_mt_jvps": 0}
