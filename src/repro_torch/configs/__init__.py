@@ -1,5 +1,6 @@
 """Architecture registry of the port: ``get_config(arch_id)`` / ``--arch``.
-The dense and hybrid families' configs are ported so far."""
+The dense and hybrid families' configs are ported so far, and rwkv6's
+(the serve CLI's default arch; its model family is a later slice)."""
 from __future__ import annotations
 
 import importlib
@@ -15,6 +16,7 @@ _ARCH_MODULES = {
     "roberta-large-lora": "roberta_large_lora",
     "llama2-7b": "llama2_7b",
     "zamba2-1.2b": "zamba2_1_2b",
+    "rwkv6-1.6b": "rwkv6_1_6b",
 }
 
 

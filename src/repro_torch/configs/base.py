@@ -28,7 +28,7 @@ class SSMConfig:
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     arch_id: str
-    family: str                   # dense | hybrid (the families ported so far)
+    family: str                   # dense | hybrid (ported); ssm (config only)
     n_layers: int
     d_model: int
     n_heads: int

@@ -18,8 +18,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = {"lora_dual": "lora_dual_mt.cu", "swa_attention": "swa_attention.cu",
-           "mamba2_scan": "mamba2_scan.cu"}
+SOURCES = {"lora_dual": "lora_dual_mt.cu", "lora_dual_multi": "lora_dual_multi.cu",
+           "swa_attention": "swa_attention.cu", "mamba2_scan": "mamba2_scan.cu"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

@@ -1,9 +1,9 @@
 """Forward-mode rules that route LoRA projections, attention mixers and
 mamba2 recurrences to the multi-tangent kernels, and the cotangent-known
 contraction ops of the fused-contraction route. Port of
-``repro/kernels/dispatch.py`` (``lora_proj``, ``swa_attend``,
-``mamba2_mix``, ``forward_ad_region``, ``lora_jvp_contract``,
-``swa_jvp_contract``, ``mamba2_jvp_contract``).
+``repro/kernels/dispatch.py`` (``lora_proj``, ``lora_proj_multi``,
+``swa_attend``, ``mamba2_mix``, ``forward_ad_region``,
+``lora_jvp_contract``, ``swa_jvp_contract``, ``mamba2_jvp_contract``).
 
 The reference pairs ``jax.custom_jvp`` with ``custom_vmap``; here each op is
 a ``torch.autograd.Function`` with a ``jvp`` staticmethod, and its tangent
@@ -41,6 +41,7 @@ from repro_torch.kernels.lora_dual.ops import (
     lora_dual_mt_jvps,
     lora_dual_mt_tangents,
     lora_dual_mt_tangents_ref,
+    lora_dual_multi,
 )
 from repro_torch.kernels.mamba2_scan.ops import (
     mamba2_scan,
@@ -188,6 +189,20 @@ def lora_proj(x, w, a, b, scale):
     """y = x@W + s*(x@A)@B with the multi-tangent forward-mode rule and a
     plain reverse-mode rule."""
     return _LoraProj.apply(x, w, a, b, scale)
+
+
+def lora_proj_multi(x, idx, w, a_stack, b_stack, scale):
+    """Serving's multi-adapter projection: row b of ``x`` (B, ..., K)
+    projects through adapter page ``idx[b]`` of the (P, K, r) / (P, r, N)
+    page stacks, one pass over the frozen W for the whole batch (the
+    ``lora_dual_multi`` kernel on CUDA tensors, its plain version on CPU
+    ones). The reference's ``custom_vmap`` only collapses JAX's per-row vmap
+    into this one call; here the batch is one call already. No gradient,
+    as in the reference: asking for one raises."""
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, w, a_stack, b_stack)):
+        raise NotImplementedError("lora_proj_multi has no gradient (serving only)")
+    return lora_dual_multi(x.contiguous(), idx, w, a_stack, b_stack, float(scale))
 
 
 class _LoraContract(torch.autograd.Function):

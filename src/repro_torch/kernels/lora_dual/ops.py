@@ -3,9 +3,10 @@
     ydot_t = s * ((x@Adot_t + xdot_t@A) @ B + (x@A) @ Bdot_t) + xdot_t@W
 
 for T stacked tangents (``xdots (T,M,K)`` or None, ``adots (T,K,r)``,
-``bdots (T,r,N)`` -> ``(T,M,N)``), and its jvp-contraction epilogue
-``<gy, ydot_t>`` for T tangents with no (T,M,N) output (second half of
-this module).
+``bdots (T,r,N)`` -> ``(T,M,N)``), its jvp-contraction epilogue
+``<gy, ydot_t>`` for T tangents with no (T,M,N) output (second part of
+this module), and the serving engine's multi-adapter primal
+``y[m] = x[m]@W + s(x[m]@A[idx m])@B[idx m]`` (third part).
 
 Replaces the TPU kernel ``repro/kernels/lora_dual/kernel.py::
 lora_dual_mt_kernel`` (body ``_mt_kernel``) in its ``emit_primal=False``
@@ -39,7 +40,7 @@ from repro_torch.kernels import build
 R_MAX = 16          # LoRA rank bound of the kernel's shared-memory tiles
 JT_MAX = 64         # tangents a contraction-epilogue launch
 # kernel launches; the plain versions do not count
-launches = {"lora_dual_mt": 0, "lora_dual_mt_jvps": 0}
+launches = {"lora_dual_mt": 0, "lora_dual_mt_jvps": 0, "lora_dual_multi": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -210,3 +211,106 @@ def lora_dual_mt_jvps(x, w, a, adots, b, bdots, gy, scale=1.0, xdots=None):
     build.check(err, "lora_dual_mt_jvps")
     launches["lora_dual_mt_jvps"] += 1
     return parts.sum(dim=(0, 1))
+
+
+# ---------------------------------------------------------------------------
+# Multi-adapter projection: each row reads its own LoRA page (serving)
+# ---------------------------------------------------------------------------
+#
+# Replaces the TPU kernel ``repro/kernels/lora_dual/kernel.py::
+# lora_dual_multi_kernel`` (body ``_multi_kernel``), which the reference's
+# ``dispatch.lora_proj_multi`` reaches for every adapted projection of the
+# serving engine's batched decode step.
+#
+#     y[m] = x[m] @ W + s * (x[m] @ A[idx[m]]) @ B[idx[m]]
+#
+# The TPU kernel keeps all P resident pages' rank-r partials in VMEM and
+# one-hot selects each row's page in its epilogue; here a row reads its own
+# page by index, so u[m] = x[m] @ A[idx[m]] costs K*r multiply-adds a row and
+# nothing is computed for the other pages.
+#
+# On the H100: at decode M is the engine's batch (4 at llama2-7b), so
+# reading the frozen W (K*N elements) once bounds the kernel by bytes (33.6
+# MB of bf16 at K = N = 4096, about 10 us); its 2*M*K*N operations take a
+# hundredth of that. The CUDA kernel (``csrc/lora_dual_multi.cu``) runs a
+# (N/32, M/8) grid of 512 threads: lanes run along N (neighbouring columns
+# of one W row, coalesced), the block's 16 warps split each 512-wide K chunk,
+# each thread holds fp32 sums for the block's 8 rows of its column, and x's
+# chunk is staged in shared memory (read as a broadcast). In the same K loop
+# the block accumulates u for its rows from their own pages. The epilogue
+# sums the warps' partials in a fixed order (no atomics), adds s*u@B[page]
+# and rounds once to x's dtype. Ragged M/N/K edges are masked, never padded
+# in memory. Tensor cores, TMA and split-K (more blocks than N/32 at small
+# M) are later work.
+
+
+def _row_pages(idx, batch_shape):
+    """Adapter pages broadcast to ``batch_shape`` (idx right-padded with
+    unit axes, as the reference), flattened to (M,)."""
+    idx = idx.reshape(tuple(idx.shape) + (1,) * (len(batch_shape) - idx.dim()))
+    return idx.expand(batch_shape).reshape(-1)
+
+
+def lora_dual_multi_ref(x, idx, w, a_stack, b_stack, scale):
+    """Plain version, the reference dispatch's 'jnp' mirror numerics: x@W in
+    x's dtype, the rank-r term (x32 @ A[idx]) @ B[idx] * s in A's dtype,
+    cast and added."""
+    K, N = w.shape
+    batch = x.shape[:-1]
+    pages = _row_pages(idx, batch).long()
+    x2 = x.reshape(-1, K)
+    y = x2 @ w
+    u = torch.bmm(x2.to(a_stack.dtype)[:, None], a_stack[pages])      # (M, 1, r)
+    lo = torch.bmm(u, b_stack[pages])[:, 0] * scale                   # (M, N)
+    return (y + lo.to(y.dtype)).reshape(batch + (N,))
+
+
+def lora_dual_multi(x, idx, w, a_stack, b_stack, scale=1.0):
+    """x (..., K); idx adapter pages broadcastable to x.shape[:-1]; w (K, N);
+    a_stack (P, K, r); b_stack (P, r, N) -> y (..., N) in x's dtype. Pages
+    must lie in [0, P): on the card a row outside it comes back NaN."""
+    if x.device.type == "cpu":
+        return lora_dual_multi_ref(x, idx, w, a_stack, b_stack, scale)
+    if x.device.type != "cuda":
+        raise ValueError(f"lora_dual_multi: unsupported device {x.device}")
+    K, N = w.shape
+    batch = x.shape[:-1]
+    P, r = a_stack.shape[0], a_stack.shape[-1]
+    pages = _row_pages(idx, batch)
+    for name, t in (("x", x), ("idx", pages), ("w", w), ("a_stack", a_stack),
+                    ("b_stack", b_stack)):
+        if t.device != x.device:
+            raise ValueError(f"lora_dual_multi: {name} on {t.device}, x on {x.device}")
+        if name != "idx" and not t.is_contiguous():
+            raise ValueError(f"lora_dual_multi: {name} is not contiguous")
+    if x.dtype not in _DTYPE_CODE or w.dtype != x.dtype:
+        raise TypeError(f"lora_dual_multi: x and w must share one dtype of "
+                        f"{list(_DTYPE_CODE)}")
+    if a_stack.dtype != torch.float32 or b_stack.dtype != torch.float32:
+        raise TypeError("lora_dual_multi: a_stack and b_stack must be float32")
+    if pages.dtype not in (torch.int32, torch.int64):
+        raise TypeError(f"lora_dual_multi: idx must be an integer tensor, not "
+                        f"{pages.dtype}")
+    if x.shape[-1] != K or a_stack.shape != (P, K, r) or b_stack.shape != (P, r, N):
+        raise ValueError(f"lora_dual_multi: inconsistent shapes x{tuple(x.shape)} "
+                         f"w{tuple(w.shape)} a_stack{tuple(a_stack.shape)} "
+                         f"b_stack{tuple(b_stack.shape)}")
+    if not 1 <= r <= R_MAX or P < 1 or K < 1:
+        raise ValueError(f"lora_dual_multi: needs 1<=r<={R_MAX}, P>=1, K>=1 "
+                         f"(r={r}, P={P}, K={K})")
+    M = pages.numel()
+    y = torch.empty(batch + (N,), dtype=x.dtype, device=x.device)
+    if M == 0 or N == 0:
+        return y
+    pages = pages.to(torch.int32).contiguous()
+    fn = build.load("lora_dual_multi").lora_dual_multi
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 6 + \
+            [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    err = fn(_DTYPE_CODE[x.dtype], x.data_ptr(), pages.data_ptr(), w.data_ptr(),
+             a_stack.data_ptr(), b_stack.data_ptr(), y.data_ptr(), M, K, N, r, P,
+             float(scale), torch.cuda.current_stream(x.device).cuda_stream)
+    build.check(err, "lora_dual_multi")
+    launches["lora_dual_multi"] += 1
+    return y

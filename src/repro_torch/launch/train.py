@@ -37,8 +37,9 @@ from repro_torch.data import make_task
 from repro_torch.data.loader import ClientDataset, stack_client_batches
 from repro_torch.fl import dirichlet_partition, sample_clients
 from repro_torch.kernels import launch_counts
-from repro_torch.models import cls_logits, cls_loss, get_model
-from repro_torch.models.common import accuracy_from_logits
+from repro_torch.kernels.dispatch import forward_ad_region
+from repro_torch.models import cls_logits, get_model
+from repro_torch.models.common import accuracy_from_logits, classification_loss
 from repro_torch.peft import init_peft
 from repro_torch.utils.pytree import tree_map
 
@@ -81,7 +82,16 @@ def personalized_accuracy(cfg, state, clients, x, y, rng, device, steps=5,
                           lr=5e-2, batch_size=8, max_clients=8):
     """Paper's Acc_p: each client finetunes the head on its own shard with
     head-only forward-gradient steps and is evaluated on its held-out
-    samples."""
+    samples.
+
+    Only the head moves (every other unit's mask is 0), so each step runs
+    the model once without tangents, under the estimator's region so its
+    ops are the estimator's primal ops, and differentiates the head-only
+    loss on those hidden states: the same perturbation draws (the head's
+    leaves come first in the tree's order), loss and head update as
+    perturbing the whole tree under the head mask, without the model's
+    zero tangents."""
+    model = get_model(cfg)
     accs = []
     for c in clients[:max_clients]:
         idx = c.indices
@@ -89,20 +99,20 @@ def personalized_accuracy(cfg, state, clients, x, y, rng, device, steps=5,
             continue
         cut = max(2, int(0.8 * len(idx)))
         tr, te = idx[:cut], idx[cut:]
-        peft = state.peft
-        head_mask = {g: tree_map(lambda leaf, g=g: torch.tensor(
-            1.0 if g == "head" else 0.0, device=device), t)
-            for g, t in peft.items()}
+        head = state.peft["head"]
         for s in range(steps):
             take = rng.choice(tr, size=min(batch_size, len(tr)), replace=False)
-            batch = {"tokens": torch.as_tensor(x[take], device=device),
-                     "labels": torch.as_tensor(y[take], device=device)}
-            _, g, _ = forward_gradient(
-                lambda p: cls_loss(cfg, state.base, p, batch), peft,
-                int(take[0]) + s, mask_tree=head_mask)
-            peft = tree_map(lambda p_, g_: p_ - lr * g_, peft, g)
+            tokens = torch.as_tensor(x[take], device=device)
+            labels = torch.as_tensor(y[take], device=device)
+            with torch.no_grad(), forward_ad_region():
+                h, aux = model.forward(cfg, state.base, state.peft, {"tokens": tokens})
+
+            def head_loss(p, h=h, aux=aux, labels=labels):
+                return classification_loss(h, p["head"], labels)[0] + 0.01 * aux
+            _, g, _ = forward_gradient(head_loss, {"head": head}, int(take[0]) + s)
+            head = tree_map(lambda p_, g_: p_ - lr * g_, head, g["head"])
         with torch.no_grad():
-            logits = cls_logits(cfg, state.base, peft,
+            logits = cls_logits(cfg, state.base, dict(state.peft, head=head),
                                 {"tokens": torch.as_tensor(x[te], device=device)})
         accs.append(float(accuracy_from_logits(
             logits, torch.as_tensor(y[te], device=device))))
@@ -222,11 +232,11 @@ def run_training(arch="roberta-large-lora", task="sst2", method="spry",
     return history
 
 
-def _not_ported(flag):
+def _not_ported(flag, entry="train"):
     class _Reject(argparse.Action):
         def __call__(self, parser, namespace, values, option_string=None):
             parser.error(f"{flag} is not ported to repro_torch yet (later "
-                         f"slice); run it with python -m repro.launch.train")
+                         f"slice); run it with python -m repro.launch.{entry}")
     return _Reject
 
 

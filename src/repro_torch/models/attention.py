@@ -1,9 +1,11 @@
-"""GQA attention, train/prefill half. Port of ``repro/models/attention.py``.
+"""GQA attention: the train/prefill half and the dense family's decode.
+Port of ``repro/models/attention.py``.
 
-Outside the estimator (eval, ``cls_logits``) attention is the plain
-chunked ``attend_prefill``, as in the reference. Inside the estimator's
-forward-AD region the mixer goes through ``dispatch.swa_attend``: the flash
-kernel for the primal and the multi-tangent kernel for all K tangents.
+Outside the estimator (eval, ``cls_logits``, serving's prefill and decode)
+attention is plain torch ops, as in the reference (its
+``use_kernel_mixers()`` is false there). Inside the estimator's forward-AD
+region the mixer goes through ``dispatch.swa_attend``: the flash kernel for
+the primal and the multi-tangent kernel for all K tangents.
 """
 from __future__ import annotations
 
@@ -12,7 +14,7 @@ import math
 import torch
 
 from repro_torch.kernels import dispatch
-from repro_torch.models.common import dense_init, maybe_lora, proj, rope
+from repro_torch.models.common import dense_init, maybe_lora, proj, rope, rope_at
 
 NEG_INF = -1e30
 
@@ -122,10 +124,80 @@ def attn_finish(cfg, p, out, peft_layer, lora_scale):
                 lora_scale)
 
 
-def attn_block_prefill(cfg, p, x, peft_layer, lora_scale, *, is_global=True,
-                       rope_cs=None):
+def attn_block_prefill_kv(cfg, p, x, peft_layer, lora_scale, *, is_global=True,
+                          rope_cs=None):
+    """``attn_block_prefill`` that also returns the roped (k, v) rows:
+    exactly what decode would have inserted into the KV cache for these
+    positions (the fused-prefill serve path)."""
     q, k, v = attn_site_qkv(cfg, p, x, peft_layer, lora_scale, rope_cs=rope_cs)
     window = None if is_global else cfg.window
     out = swa_mixer_site(cfg, (q.transpose(1, 2), k.transpose(1, 2),
                                v.transpose(1, 2)), window).transpose(1, 2)
-    return attn_finish(cfg, p, out, peft_layer, lora_scale)
+    return attn_finish(cfg, p, out, peft_layer, lora_scale), k, v
+
+
+def attn_block_prefill(cfg, p, x, peft_layer, lora_scale, *, is_global=True,
+                       rope_cs=None):
+    return attn_block_prefill_kv(cfg, p, x, peft_layer, lora_scale,
+                                 is_global=is_global, rope_cs=rope_cs)[0]
+
+
+def _repeat_kv(t, rep):
+    return t if rep == 1 else torch.repeat_interleave(t, rep, dim=2)
+
+
+def attn_block_decode_nocopy(cfg, p, x, peft_layer, lora_scale, k_cache, v_cache,
+                             pos, *, is_global=True, window_len=None):
+    """One-token decode that does not write the cache: x (B,1,D), caches
+    (B,Sc,KV,hd) -> (out, k_new, v_new). The caller inserts all layers' new
+    rows with one write after the layer loop.
+
+    ``pos`` is an int (every row at one position) or a (B,) tensor (each row
+    at its own). The new token's score is appended after the cache scores;
+    for ring buffers the slot it is about to overwrite is the entry falling
+    out of the window, so that slot is masked out of the cache part.
+    ``window_len`` (a per-layer window, huge for global layers) overrides
+    ``is_global``."""
+    B = x.shape[0]
+    H, hd = cfg.n_heads, cfg.hd
+    rep = H // cfg.n_kv_heads
+    q, k_new, v_new = qkv(cfg, p, x, peft_layer, lora_scale)
+    per_row = isinstance(pos, torch.Tensor)
+    if cfg.rope_theta:
+        pos_arr = pos[:, None] if per_row else torch.full((1, 1), pos,
+                                                          device=x.device)
+        q = rope_at(q, pos_arr, cfg.rope_theta)
+        k_new = rope_at(k_new, pos_arr, cfg.rope_theta)
+    Sc = k_cache.shape[1]
+    scale = 1.0 / math.sqrt(hd)
+    if window_len is not None:
+        window = window_len
+    else:
+        window = None if is_global else cfg.window
+        if window is not None and window >= Sc:
+            window = None   # the ring already bounds the visible set
+
+    vc = _repeat_kv(v_cache, rep)
+    s_cache = torch.einsum("bqhd,bkhd->bhqk", q,
+                           _repeat_kv(k_cache, rep)).float() * scale
+    idx = torch.arange(Sc, device=x.device)
+    if per_row:
+        valid = idx[None, :] < torch.clamp(pos, max=Sc)[:, None]   # past tokens
+        valid = valid & (idx[None, :] != (pos % Sc)[:, None])      # slot overwritten
+        if window is not None:
+            valid = valid & (idx[None, :] > (pos - window)[:, None])
+        valid = valid[:, None, None, :]
+    else:
+        valid = (idx < min(pos, Sc)) & (idx != pos % Sc)
+        if window is not None:
+            valid = valid & (idx > pos - window)
+    s_cache = s_cache.masked_fill(~valid, NEG_INF)
+    s_new = torch.einsum("bqhd,bkhd->bhqk", q, _repeat_kv(k_new, rep)).float() * scale
+    p_all = torch.softmax(torch.cat([s_cache, s_new], dim=-1), dim=-1).to(q.dtype)
+    out = torch.einsum("bhqk,bkhd->bqhd", p_all[..., :Sc], vc)
+    out = out + torch.einsum("bhqk,bkhd->bqhd", p_all[..., Sc:],
+                             _repeat_kv(v_new, rep))
+    out = out.reshape(B, 1, H * hd)
+    out = proj(out, p["wo"], p.get("wo_b"), maybe_lora(peft_layer, "wo"),
+               lora_scale)
+    return out, k_new, v_new

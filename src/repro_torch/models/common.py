@@ -12,7 +12,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.dispatch import lora_proj
+from repro_torch.kernels.dispatch import lora_proj, lora_proj_multi
 
 
 # ---------------------------------------------------------------------------
@@ -78,14 +78,27 @@ def rope_tables(theta, seq, hd, device=None):
     return torch.cos(ang), torch.sin(ang)
 
 
-def rope(x, tables):
-    """x: (B, S, H, hd) rotated by precomputed (cos, sin) tables."""
-    cos, sin = tables
-    cos = cos[None, :, None, :]
-    sin = sin[None, :, None, :]
+def _rotate(x, cos, sin):
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def rope(x, tables):
+    """x: (B, S, H, hd) rotated by precomputed (cos, sin) tables."""
+    cos, sin = tables
+    return _rotate(x, cos[None, :, None, :], sin[None, :, None, :])
+
+
+def rope_at(x, positions, theta):
+    """x: (B, S, H, hd) rotated at explicit integer ``positions`` (B or 1,
+    S): the reference's table-free ``rope`` (decode, each row at its own
+    position)."""
+    hd = x.shape[-1]
+    freqs = theta ** (-torch.arange(0, hd // 2, dtype=torch.float32,
+                                    device=x.device) / (hd // 2))
+    ang = positions.float()[..., None] * freqs                  # (B, S, hd/2)
+    return _rotate(x, torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :])
 
 
 def rope_tables_for(cfg, h):
@@ -108,8 +121,14 @@ def layer_slice(tree, i):
 def proj(x, w, b=None, lora=None, lora_scale=1.0):
     """y = x @ W (+ b) (+ s * (x@A)@B). The LoRA path routes through
     ``kernels/dispatch.lora_proj``, whose forward-mode rule runs the
-    multi-tangent kernel inside the estimator."""
-    if lora is not None:
+    multi-tangent kernel inside the estimator. A multi-adapter entry
+    {"A": (P, din, r), "B": (P, r, dout), "idx": (B,)} (the serving
+    engine's) makes row b read adapter page idx[b] through
+    ``dispatch.lora_proj_multi``."""
+    if lora is not None and "idx" in lora:
+        y = lora_proj_multi(x, lora["idx"], w, lora["A"], lora["B"],
+                            float(lora_scale))
+    elif lora is not None:
         y = lora_proj(x, w, lora["A"], lora["B"], float(lora_scale))
     else:
         y = x @ w

@@ -6,6 +6,11 @@ of ``repro/models/registry.py``.
     h,aux = model.forward(cfg, base, peft, batch)
     loss  = lm_loss(cfg, base, peft, batch) / cls_loss(...)
     split = get_loss_fn(task, split=True)(cfg, base, batch)   # a SplitLoss
+    cache = model.init_cache(cfg, batch, seq_len, device=dev)
+    logits, cache = model.decode_step(cfg, base, peft, cache, token, pos)
+
+Serving is ported for the dense family; the hybrid family's serving
+functions raise ``NotImplementedError`` until its slice.
 """
 from __future__ import annotations
 
@@ -34,6 +39,15 @@ class ModelFns:
     split_post: Optional[Callable] = None
     split_site: Optional[Callable] = None
     mixer_site: Optional[Callable] = None
+    # serving:
+    #   init_cache  (cfg, batch, seq_len, [kv_int8], device=) -> cache
+    #   decode_step (cfg, base, peft, cache, token, pos) -> (logits, cache)
+    #   prefill     (cfg, base, peft, cache, tokens) -> (last logits, cache)
+    # each writes the cache in place and returns it
+    init_cache: Optional[Callable] = None
+    decode_step: Optional[Callable] = None
+    prefill: Optional[Callable] = None
+    supports_kv_int8: bool = False       # init_cache accepts kv_int8=True
 
 
 def _tf_forward(cfg, base, peft, batch, lora_scale=1.0):
@@ -63,17 +77,31 @@ def _hybrid_split_post(cfg, base, y, ctx, peft, batch, lora_scale=1.0):
     return hybrid.split_post(cfg, base, y, ctx, peft, lora_scale=lora_scale)
 
 
+def _hybrid_serving(name):
+    def not_ported(*args, **kwargs):
+        raise NotImplementedError(
+            f"hybrid.{name} is not ported yet (the hybrid-serving slice); "
+            f"run it with python -m repro.launch.serve")
+    return not_ported
+
+
 _FAMILIES = {
     "dense": ModelFns(transformer.init_base, _tf_forward, transformer.unembed,
                       split_forward=_tf_split_forward,
                       split_post=_tf_split_post,
                       split_site=transformer.split_site,
-                      mixer_site=transformer.mixer_site),
+                      mixer_site=transformer.mixer_site,
+                      init_cache=transformer.init_cache,
+                      decode_step=transformer.decode_step,
+                      prefill=transformer.prefill, supports_kv_int8=True),
     "hybrid": ModelFns(hybrid.init_base, _hybrid_forward, hybrid.unembed,
                        split_forward=_hybrid_split_forward,
                        split_post=_hybrid_split_post,
                        split_site=hybrid.split_site,
-                       mixer_site=hybrid.mixer_site),
+                       mixer_site=hybrid.mixer_site,
+                       init_cache=_hybrid_serving("init_cache"),
+                       decode_step=_hybrid_serving("decode_step"),
+                       prefill=_hybrid_serving("prefill")),
 }
 
 

@@ -2,9 +2,11 @@
 
 Port of ``repro/models/transformer.py``: ``init_base``, ``embed_tokens``,
 ``unembed``, the train ``forward`` and its split pieces (``split_site``,
-``mixer_site``, ``split_forward``, ``split_post``). The reference's
+``mixer_site``, ``split_forward``, ``split_post``), and serving's
+``prefill``, ``init_cache`` and ``decode_step``. The reference's
 ``lax.scan`` over stacked layers becomes a plain loop over layer slices of
-the same stacked tensors.
+the same stacked tensors. Where the reference donates the KV cache to its
+jitted prefill and decode, these write the cache in place and return it.
 """
 from __future__ import annotations
 
@@ -120,3 +122,137 @@ def split_post(cfg, base, y, ctx, peft, lora_scale=1.0):
     h = _layer_tail(cfg, h, lp, pl, lora_scale)
     h = apply_norm(cfg, h, base["final_norm"])
     return h, ctx["aux"] / cfg.n_layers
+
+
+# ---------------------------------------------------------------------------
+# Serving: fused prefill, KV cache, decode
+# ---------------------------------------------------------------------------
+
+def _mixed_pattern(cfg) -> bool:
+    flags = [cfg.is_global_layer(i) for i in range(cfg.n_layers)]
+    return any(flags) and not all(flags)
+
+
+def _quantize_kv(x):
+    """x (..., hd) -> (int8, scale (..., 1)): per-vector absmax."""
+    x32 = x.float()
+    amax = x32.abs().amax(dim=-1, keepdim=True)
+    scale = torch.clamp(amax, min=1e-6) / 127.0
+    return torch.clamp(torch.round(x32 / scale), -127, 127).to(torch.int8), scale
+
+
+def _dequantize_kv(q, scale, dtype):
+    return (q.float() * scale.float()).to(dtype)
+
+
+def _write_rows(cache, k, v, index):
+    """cache[name][index] = the new rows (quantized on insert for an int8
+    cache), in place."""
+    if "k_scale" in cache:
+        for name, rows in (("k", k), ("v", v)):
+            q, scale = _quantize_kv(rows)
+            cache[name][index] = q
+            cache[name + "_scale"][index] = scale.to(cache[name + "_scale"].dtype)
+    else:
+        cache["k"][index] = k.to(cache["k"].dtype)
+        cache["v"][index] = v.to(cache["v"].dtype)
+
+
+def prefill(cfg, base, peft, cache, tokens, lora_scale=1.0):
+    """Fused prompt ingestion: one chunked-attention pass over the prompt
+    instead of P ``decode_step`` calls. Returns (last-token logits (B,V)
+    fp32, cache) with the cache holding, in place, exactly the rows the
+    token-by-token decode loop would have written (ring aware: when the
+    prompt is longer than a sliding-window cache, each slot keeps its LAST
+    occupant). Applies no BitFit biases, as ``decode_step``.
+
+    int8-KV caches get their rows quantized on insert, but are not
+    decode-loop equivalent (the loop attends to quantized history while
+    this pass attends to exact K/V): ``launch/serve.can_fuse_prefill``
+    sends them to the token loop."""
+    B, P = tokens.shape
+    h = embed_tokens(cfg, base, tokens)
+    rope_cs = rope_tables_for(cfg, h)
+    ks, vs = [], []
+    for i in range(cfg.n_layers):
+        lp, pl = _slices(base, peft, i)
+        hn = apply_norm(cfg, h, lp["ln1"])
+        a, k, v = attn.attn_block_prefill_kv(cfg, lp["attn"], hn, pl, lora_scale,
+                                             is_global=cfg.is_global_layer(i),
+                                             rope_cs=rope_cs)
+        h = _layer_tail(cfg, h + a, lp, pl, lora_scale)
+        ks.append(k)
+        vs.append(v)
+    h = apply_norm(cfg, h, base["final_norm"])
+    logits = (h[:, -1, :] @ unembed(cfg, base)).float()
+    # slot s <- the LAST prompt position p < P with p % Sc == s (identity
+    # placement while P <= Sc; ring semantics beyond)
+    Sc = cache["k"].shape[2]
+    slots = torch.arange(min(P, Sc), device=tokens.device)
+    last_pos = slots + Sc * ((P - 1 - slots) // Sc)
+    n = len(slots)
+    _write_rows(cache, torch.stack(ks)[:, :, last_pos], torch.stack(vs)[:, :, last_pos],
+                (slice(None), slice(None), slice(0, n)))
+    return logits, cache
+
+
+def cache_len(cfg, seq_len: int) -> int:
+    if cfg.attn_pattern == "swa":
+        return min(cfg.window, seq_len)
+    return seq_len
+
+
+def init_cache(cfg, batch: int, seq_len: int, kv_int8: bool = False, *, device):
+    """KV cache {"k", "v"}: (L, B, Sc, KV, hd) on ``device``. kv_int8=True
+    stores int8 entries and per-(token, head) absmax scales in the model's
+    dtype, halving the cache's bytes."""
+    shape = (cfg.n_layers, batch, cache_len(cfg, seq_len), cfg.n_kv_heads, cfg.hd)
+    if kv_int8:
+        sshape = shape[:-1] + (1,)
+        return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
+                "v": torch.zeros(shape, dtype=torch.int8, device=device),
+                "k_scale": torch.zeros(sshape, dtype=cfg.dtype, device=device),
+                "v_scale": torch.zeros(sshape, dtype=cfg.dtype, device=device)}
+    return {"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
+            "v": torch.zeros(shape, dtype=cfg.dtype, device=device)}
+
+
+def decode_step(cfg, base, peft, cache, token, pos, lora_scale=1.0):
+    """token (B,1) int; pos an int (the whole batch at one position) or a
+    (B,) tensor (continuous batching: each row at its own position, writing
+    its own ring slot). Returns (logits (B,V) fp32, cache).
+
+    The layers read the cache and return only the new token's K/V rows; all
+    layers' rows are inserted with one in-place write after the layer loop.
+    Mixed local:global stacks pass each layer's window length (huge for
+    global layers)."""
+    h = embed_tokens(cfg, base, token)
+    mixed = _mixed_pattern(cfg)
+    quantized = "k_scale" in cache
+    k_news, v_news = [], []
+    for i in range(cfg.n_layers):
+        lp, pl = _slices(base, peft, i)
+        kc, vc = cache["k"][i], cache["v"][i]
+        if quantized:
+            kc = _dequantize_kv(kc, cache["k_scale"][i], cfg.dtype)
+            vc = _dequantize_kv(vc, cache["v_scale"][i], cfg.dtype)
+        hn = apply_norm(cfg, h, lp["ln1"])
+        if mixed:
+            window = {"window_len": 2 ** 30 if cfg.is_global_layer(i) else cfg.window}
+        else:
+            window = {"is_global": bool(cfg.is_global_layer(0))}
+        a, k_new, v_new = attn.attn_block_decode_nocopy(
+            cfg, lp["attn"], hn, pl, lora_scale, kc, vc, pos, **window)
+        h = _layer_tail(cfg, h + a, lp, pl, lora_scale)
+        k_news.append(k_new[:, 0])
+        v_news.append(v_new[:, 0])
+    h = apply_norm(cfg, h, base["final_norm"])
+    logits = (h[:, 0, :] @ unembed(cfg, base)).float()
+    Sc = cache["k"].shape[2]
+    if isinstance(pos, torch.Tensor):
+        rows = torch.arange(token.shape[0], device=token.device)
+        index = (slice(None), rows, pos.long() % Sc)
+    else:
+        index = (slice(None), slice(None), pos % Sc)
+    _write_rows(cache, torch.stack(k_news), torch.stack(v_news), index)
+    return logits, cache

@@ -134,11 +134,13 @@ def _zo_perturbations(s, seed, K):
 
 
 def _reference_choices(s, jperts, prev, K, eps):
-    """Each client's fwdllm candidate, by the reference's own functions."""
+    """Each client's fwdllm candidate, by the reference's own functions (its
+    loss jitted once for all clients, the batch an argument)."""
     choices = []
+    loss_jit = jax.jit(lambda p, b: jreg.cls_loss(s["jc"], s["jbase"], p, b))
     for m in range(M):
         jb = jax.tree.map(lambda x: x[m], s["jbatch"])
-        loss_of = jax.jit(lambda p: jreg.cls_loss(s["jc"], s["jbase"], p, jb))
+        loss_of = lambda p, jb=jb: loss_jit(p, jb)  # noqa: E731
         coss = []
         for i in range(K):
             v = jax.tree.map(lambda x: x[i], jperts[m])
@@ -185,8 +187,10 @@ def test_zeroorder_round_matches_reference(s, method):
 @pytest.mark.parametrize("method,fused", [(m, False) for m in ttrain.METHODS]
                          + [("spry", True)])
 def test_cli_runs_every_method_on_cpu(method, fused, capsys):
+    # 40 clients of ~100 samples: the personalisation phase evaluates each
+    # client's held-out fifth, and this case checks the CLI, not that size
     argv = ["--device", "cpu", "--rounds", "1", "--clients", "2",
-            "--total-clients", "6", "--batch-size", "4", "--k", "2",
+            "--total-clients", "40", "--batch-size", "4", "--k", "2",
             "--method", method] + (["--fused-contraction"] if fused else [])
     ttrain.main(argv)
     out = capsys.readouterr().out

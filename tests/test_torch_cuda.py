@@ -2,9 +2,11 @@
 
 Each kernel is held against its plain PyTorch version on the card (the
 mamba2 kernels also lane by lane: a T=8 launch is eight T=1 launches bit
-for bit), and one reduced estimate per estimator route and family shows
+for bit), one reduced estimate per estimator route and family shows
 one multi-tangent launch per site (standard) or one contraction epilogue
-at the final site (fused) for all K tangents. This file imports no JAX (the machine with the card has none);
+at the final site (fused) for all K tangents, and a reduced serving engine
+makes ``chip_smoke.serve_launches`` multi-adapter launches and the ids of
+the same engine on the CPU. This file imports no JAX (the machine with the card has none);
 run it there with
 
     PYTHONPATH=src python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
@@ -141,7 +143,8 @@ def test_one_launch_per_site_for_k_tangents(dev):
     assert launch_counts() == {"lora_dual_mt": 2 * L, "lora_dual_mt_jvps": 0,
                                "swa_attention": L, "swa_attention_mt": L,
                                "swa_attention_mt_jvps": 0, "mamba2_scan": 0,
-                               "mamba2_scan_mt": 0, "mamba2_scan_mt_jvps": 0}
+                               "mamba2_scan_mt": 0, "mamba2_scan_mt_jvps": 0,
+                               "lora_dual_multi": 0}
 
 
 def _jvps_close(got, want, mag):
@@ -231,7 +234,8 @@ def test_fused_route_one_epilogue_per_estimate(dev):
     assert launch_counts() == {"lora_dual_mt": 2 * L, "lora_dual_mt_jvps": 0,
                                "swa_attention": L, "swa_attention_mt": L - 1,
                                "swa_attention_mt_jvps": 1, "mamba2_scan": 0,
-                               "mamba2_scan_mt": 0, "mamba2_scan_mt_jvps": 0}
+                               "mamba2_scan_mt": 0, "mamba2_scan_mt_jvps": 0,
+                               "lora_dual_multi": 0}
     # the standard route on the same perturbations agrees
     _, _, jvps_std = forward_gradient(lambda p: split(p), peft, 3, k_perturbations=8)
     torch.testing.assert_close(jvps, jvps_std, rtol=1e-4,
@@ -327,3 +331,85 @@ def test_hybrid_launches_per_estimate(dev, final, fused):
     want = _chip_smoke().round_launches(cfg, "fused" if fused else "standard", 1)
     assert torch.isfinite(loss) and torch.isfinite(jvps).all()
     assert launch_counts() == want
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M,K,N,P,r", [
+    (4, 4096, 4096, 4, 1),          # llama2-7b engine decode
+    (256, 1024, 1024, 4, 1),
+    (5, 1000, 333, 3, 4),           # ragged edges, every page hit
+    (9, 16, 40, 2, 16),             # two row blocks, the rank limit
+])
+def test_lora_multi_kernel_matches_plain(dev, dtype, M, K, N, P, r):
+    from repro_torch.kernels.lora_dual import ops
+    g = torch.Generator(device=dev)
+    g.manual_seed(0)
+    rn = lambda *s: torch.randn(s, generator=g, device=dev)  # noqa: E731
+    x = rn(M, 1, K).to(dtype)                       # engine rows (B, 1, K)
+    w = (rn(K, N) / math.sqrt(K)).to(dtype)
+    a, b = rn(P, K, r) / math.sqrt(K), rn(P, r, N)
+    idx = (torch.arange(M, device=dev) % P).to(torch.int32)
+    before = ops.launches["lora_dual_multi"]
+    out = ops.lora_dual_multi(x, idx, w, a, b, 0.5)
+    torch.cuda.synchronize()
+    assert ops.launches["lora_dual_multi"] == before + 1
+    assert out.shape == (M, 1, N) and out.dtype == dtype
+    _close(out, ops.lora_dual_multi_ref(x.float(), idx, w.float(), a, b, 0.5), dtype)
+
+
+def test_lora_multi_wrapper_raises_instead_of_falling_back(dev):
+    from repro_torch.kernels.lora_dual import ops
+    x = torch.randn(4, 16, device=dev)
+    w = torch.randn(16, 8, device=dev)
+    a, b = torch.randn(2, 16, 1, device=dev), torch.randn(2, 1, 8, device=dev)
+    idx = torch.zeros(4, dtype=torch.int32, device=dev)
+    with pytest.raises(TypeError, match="float32"):
+        ops.lora_dual_multi(x, idx, w, a.double(), b)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.lora_dual_multi(x, idx, w.T.contiguous().T, a, b)
+    with pytest.raises(ValueError, match="r<=16"):
+        ops.lora_dual_multi(x, idx, w, torch.randn(2, 16, 17, device=dev),
+                            torch.randn(2, 17, 8, device=dev))
+    # a page outside [0, P) reads nothing and comes back NaN
+    out = ops.lora_dual_multi(x, torch.tensor([0, 1, 2, -1], dtype=torch.int32,
+                                              device=dev), w, a, b)
+    assert torch.isfinite(out[:2]).all() and torch.isnan(out[2:]).all()
+
+
+def test_engine_launches_per_decode_step(dev):
+    """Reduced llama2 (fp32) through the ServingEngine on the card: exactly
+    ``chip_smoke.serve_launches`` multi-adapter launches, the ids of the
+    same engine on the CPU."""
+    import numpy as np
+
+    from repro_torch.configs import get_config, reduce_config
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.adapter_cache import AdapterCache, SyntheticAdapterStore
+    from repro_torch.launch.serving import Request, ServingEngine
+    from repro_torch.models import get_model
+    from repro_torch.utils.pytree import tree_map
+    cfg = reduce_config(get_config("llama2-7b"))
+    base = get_model(cfg).init_base(cfg, torch.Generator().manual_seed(0))
+    store = SyntheticAdapterStore(cfg, seed=0)
+
+    class CardStore:
+        def template(self):
+            return self.load(0)
+
+        def load(self, aid):
+            return tree_map(lambda t: t.to(dev), store.load(aid))
+
+    rng = np.random.default_rng(0)
+    reqs = [Request(f"r{i}", i % 3, rng.integers(0, cfg.vocab, 6).astype(np.int32),
+                    (4, 2, 5, 3)[i]) for i in range(4)]
+    out = {}
+    for where, st, b in (("cpu", store, base),
+                         ("cuda", CardStore(), tree_map(lambda t: t.to(dev), base))):
+        eng = ServingEngine(cfg, b, AdapterCache(st, 2), max_batch=2, cache_len=12)
+        reset_launch_counts()
+        out[where] = eng.run(reqs)
+        counts = launch_counts()
+    torch.cuda.synchronize()
+    assert counts == _chip_smoke().serve_launches(cfg, eng.steps)
+    assert counts["lora_dual_multi"] == 2 * cfg.n_layers * eng.steps > 0
+    assert out["cuda"] == out["cpu"]

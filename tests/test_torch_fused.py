@@ -12,7 +12,10 @@ mirror). Tolerances are the reference's (tests/test_split_forward.py):
   plain loss bitwise (the same ops run);
 - the fused estimate against the reference's fused estimate on all four
   routes (K=1, tangent_batch=1, batched, chunked): loss, jvps and gradient
-  at rel 1e-5, as the port's other estimator tests;
+  at rel 1e-5, as the port's other estimator tests. The reference's
+  estimate is computed once per problem with K=5 perturbations and shared
+  by the routes (``shared_reference``: perturbation i does not depend on
+  K, so a K-case compares with its first K jvps and their combine);
 - inside the port, fused against standard: loss bitwise, jvps within 5e-6
   of the jvps' scale (max |jvp| of the same perturbations at K=4: a single
   jvp can be a near-cancelling sum, so its own size is no scale), gradient
@@ -58,6 +61,7 @@ torch.set_num_threads(1)
 M = 2
 ROUTES = [(1, None), (3, 1), (4, None), (5, 2)]
 ROUTE_IDS = ["k1", "sequential", "batched", "chunked"]
+K_MAX = max(K for K, _ in ROUTES)
 _ref_perturbations = jax.jit(jfg.stacked_perturbations)
 
 
@@ -163,15 +167,35 @@ def _masks(s, client=1, n=3):
                                     tm[client]))
 
 
-def _check_fused(jsplit, jpeft, tsplit, tplain, tpeft, K, tb, jmask=None, tmask=None):
-    """Port fused vs reference fused, and port fused vs port standard."""
+def shared_reference(jloss, jpeft, jmask=None, fused=False, k=K_MAX):
+    """The reference's estimate with ``k`` perturbations (its batched route),
+    computed once and shared by the route cases that compare with it:
+    perturbation i is fold_in(key, i) whatever K, so a K-perturbation case's
+    reference jvps are the first K of these, its loss the same primal, and
+    its gradient the reference's ``_combine`` of those jvps with the first K
+    masked perturbations. ``vs`` are the perturbations for the port."""
     key = jax.random.PRNGKey(7)
-    jloss, jg, jjvps = jax.jit(lambda p: jfg.forward_gradient(
-        jsplit, p, key, K, mask_tree=jmask, tangent_batch=tb,
-        fused_contraction=True))(jpeft)
+    loss, _, jvps = jax.jit(lambda p: jfg.forward_gradient(
+        jloss, p, key, k, mask_tree=jmask, fused_contraction=fused))(jpeft)
     peft32 = jax.tree.map(lambda x: x.astype(jnp.float32), jpeft)
-    vs = _to_t(_ref_perturbations(key, peft32, jnp.arange(max(K, 4))))
-    kw = dict(mask_tree=tmask, perturbations=vs)
+    vs = _ref_perturbations(key, peft32, jnp.arange(k))
+    masked = vs if jmask is None else jax.tree.map(lambda v, m: v * m, vs, jmask)
+    return {"loss": loss, "jvps": jvps, "masked": masked, "vs": _to_t(vs)}
+
+
+def reference_at(ref, K):
+    """(loss, gradient, jvps) of the reference's K-perturbation estimate."""
+    jvps = ref["jvps"][:K]
+    return (ref["loss"], jfg._combine(jvps, jax.tree.map(lambda v: v[:K], ref["masked"]),
+                                      K), jvps)
+
+
+def _check_fused(ref, tsplit, tplain, tpeft, K, tb, tmask=None):
+    """Port fused vs reference fused (``ref``: a ``shared_reference`` of
+    the reference's split loss on the fused route), and port fused vs port
+    standard."""
+    jloss, jg, jjvps = reference_at(ref, K)
+    kw = dict(mask_tree=tmask, perturbations=tree_map(lambda v: v[:max(K, 4)], ref["vs"]))
     tloss, tg, tjvps = tfg.forward_gradient(tsplit, tpeft, 0, K, tangent_batch=tb,
                                             fused_contraction=True, **kw)
     assert tjvps.shape == (K,)
@@ -188,23 +212,31 @@ def _check_fused(jsplit, jpeft, tsplit, tplain, tpeft, K, tb, jmask=None, tmask=
         np.testing.assert_allclose(_np(a), _np(b), rtol=1e-4, atol=2e-5)
 
 
-@pytest.mark.parametrize("K,tb", ROUTES, ids=ROUTE_IDS)
-def test_fused_swa_site_matches_reference(roberta, K, tb):
+@pytest.fixture(scope="module")
+def roberta_fused_ref(roberta):
     s = roberta
-    jb, tb_ = _first(s)
-    jmask, tmask = _masks(s)
-    _check_fused(jreg.get_loss_fn("cls", split=True)(s["jc"], s["jbase"], jb), s["jpeft"],
+    jb, _ = _first(s)
+    return shared_reference(jreg.get_loss_fn("cls", split=True)(s["jc"], s["jbase"], jb),
+                            s["jpeft"], _masks(s)[0], fused=True)
+
+
+@pytest.mark.parametrize("K,tb", ROUTES, ids=ROUTE_IDS)
+def test_fused_swa_site_matches_reference(roberta, roberta_fused_ref, K, tb):
+    s = roberta
+    _, tb_ = _first(s)
+    _check_fused(roberta_fused_ref,
                  treg.get_loss_fn("cls", split=True)(s["tc"], s["tbase"], tb_),
                  lambda p: treg.cls_loss(s["tc"], s["tbase"], p, tb_),
-                 s["tpeft"], K, tb, jmask, tmask)
+                 s["tpeft"], K, tb, _masks(s)[1])
 
 
 def test_fused_swa_site_llama_lm_matches_reference(llama):
     """GQA (KV < H), RoPE, SwiGLU and the LM head on the batched route."""
     s = llama
     jb, tb_ = _first(s)
-    _check_fused(jreg.get_loss_fn("lm", split=True)(s["jc"], s["jbase"], jb), s["jpeft"],
-                 treg.get_loss_fn("lm", split=True)(s["tc"], s["tbase"], tb_),
+    ref = shared_reference(jreg.get_loss_fn("lm", split=True)(s["jc"], s["jbase"], jb),
+                           s["jpeft"], fused=True, k=4)
+    _check_fused(ref, treg.get_loss_fn("lm", split=True)(s["tc"], s["tbase"], tb_),
                  lambda p: treg.lm_loss(s["tc"], s["tbase"], p, tb_),
                  s["tpeft"], 4, None)
 
@@ -240,11 +272,26 @@ def _lora_problem(x_has_tangent):
             {k: torch.from_numpy(v) for k, v in peft.items()})
 
 
+@pytest.fixture(scope="module")
+def lora_fused_refs():
+    """x_has_tangent -> (the reference's shared estimate, port split, port
+    peft), built at first use."""
+    cache = {}
+
+    def get(x_has_tangent):
+        if x_has_tangent not in cache:
+            jsplit, jpeft, tsplit, tpeft = _lora_problem(x_has_tangent)
+            cache[x_has_tangent] = (shared_reference(jsplit, jpeft, fused=True),
+                                    tsplit, tpeft)
+        return cache[x_has_tangent]
+    return get
+
+
 @pytest.mark.parametrize("x_has_tangent", [False, True], ids=["no_xdot", "xdot"])
 @pytest.mark.parametrize("K,tb", ROUTES, ids=ROUTE_IDS)
-def test_fused_lora_site_matches_reference(x_has_tangent, K, tb):
-    jsplit, jpeft, tsplit, tpeft = _lora_problem(x_has_tangent)
-    _check_fused(jsplit, jpeft, tsplit, tsplit, tpeft, K, tb)
+def test_fused_lora_site_matches_reference(lora_fused_refs, x_has_tangent, K, tb):
+    ref, tsplit, tpeft = lora_fused_refs(x_has_tangent)
+    _check_fused(ref, tsplit, tsplit, tpeft, K, tb)
 
 
 def test_fused_route_reverses_lora_projections_in_the_post_head(monkeypatch):

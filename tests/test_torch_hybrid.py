@@ -57,6 +57,8 @@ from repro_torch.peft.lora import default_lora_targets as tdefault_targets
 from repro_torch.peft.lora import target_dims as ttarget_dims
 from repro_torch.utils.pytree import tree_leaves, tree_map, tree_paths
 
+from test_torch_fused import reference_at, shared_reference
+
 torch.set_num_threads(1)
 M = 2
 ARCH = "zamba2-1.2b"
@@ -154,9 +156,10 @@ def test_peft_trees_and_units_equal_reference(variant, request):
         assert ttarget_dims(tc, t) == jtarget_dims(jc, t)
     gen = torch.Generator().manual_seed(0)
     own = init_peft(tc, gen, tcfgs.SpryConfig())
-    jtree = jinit_peft(jc, jax.random.PRNGKey(1), jcfgs.SpryConfig())
+    # the fixture's reference tree is ``init_peft``'s with its B values
+    # redrawn: the same paths and shapes
     want = [(p, tuple(leaf.shape)) for p, leaf in tree_paths(
-        jax.tree.map(np.asarray, jtree))]
+        jax.tree.map(np.asarray, s["jpeft"]))]
     assert [(p, tuple(leaf.shape)) for p, leaf in tree_paths(own)] == want
     assert ("shared", "wq", "A") in [p for p, _ in want]
     ti, ji = tassign.enumerate_units(s["tpeft"]), jassign.enumerate_units(s["jpeft"])
@@ -250,8 +253,18 @@ def _masks(s, client=1):
                                     tm[client]))
 
 
+@pytest.fixture(scope="module")
+def m2_site_ref(m2_final):
+    """The reference's fused estimate of the 'mamba2' split loss, computed
+    once for both route cases (see ``test_torch_fused.shared_reference``)."""
+    s = m2_final
+    jb, _ = _first(s)
+    return shared_reference(jreg.get_loss_fn("cls", split=True)(s["jc"], s["jbase"], jb),
+                            s["jpeft"], _masks(s)[0], fused=True)
+
+
 @pytest.mark.parametrize("K,tb", [(4, None), (5, 2)], ids=["batched", "chunked"])
-def test_mamba2_site_estimate_matches_reference(m2_final, K, tb):
+def test_mamba2_site_estimate_matches_reference(m2_final, m2_site_ref, K, tb):
     """The 'mamba2' split loss (the final site is the recurrence) on the
     fused route against the reference's fused estimate with the same
     perturbations (the standard route is held to the reference by the round
@@ -265,16 +278,12 @@ def test_mamba2_site_estimate_matches_reference(m2_final, K, tb):
     recurrence, can exceed 1e-5 of it.)"""
     s = m2_final
     jb, tb_ = _first(s)
-    jmask, tmask = _masks(s)
+    _, tmask = _masks(s)
     jsplit = jreg.get_loss_fn("cls", split=True)(s["jc"], s["jbase"], jb)
     tsplit = treg.get_loss_fn("cls", split=True)(s["tc"], s["tbase"], tb_)
     assert jsplit.kind == tsplit.kind == "mamba2"
-    key = jax.random.PRNGKey(7)
-    jloss, jg, jjvps = jax.jit(lambda p: jfg.forward_gradient(
-        jsplit, p, key, K, mask_tree=jmask, tangent_batch=tb,
-        fused_contraction=True))(s["jpeft"])
-    peft32 = jax.tree.map(lambda x: x.astype(jnp.float32), s["jpeft"])
-    vs = _to_t(_ref_perturbations(key, peft32, jnp.arange(K)))
+    jloss, jg, jjvps = reference_at(m2_site_ref, K)
+    vs = tree_map(lambda v: v[:K], m2_site_ref["vs"])
     tloss, tg, tjvps = tfg.forward_gradient(tsplit, s["tpeft"], 0, K,
                                             mask_tree=tmask, tangent_batch=tb,
                                             perturbations=vs,
@@ -356,6 +365,7 @@ _ENTRIES = {   # counter name -> (dispatch entry point, index of the T axis)
     "mamba2_scan": ("mamba2_scan", None),
     "mamba2_scan_mt": ("mamba2_scan_mt_tangents", 4),
     "mamba2_scan_mt_jvps": ("mamba2_scan_mt_jvps", 4),
+    "lora_dual_multi": ("lora_dual_multi", None),
 }
 
 
@@ -410,8 +420,8 @@ def test_launches_per_estimate(monkeypatch, request, variant, fused):
         assert want == ({"lora_dual_mt": 87, "swa_attention": 6, "swa_attention_mt": 6,
                          "mamba2_scan": 38, "mamba2_scan_mt": 37,
                          "mamba2_scan_mt_jvps": 1, "swa_attention_mt_jvps": 0,
-                         "lora_dual_mt_jvps": 0} if fused else
+                         "lora_dual_mt_jvps": 0, "lora_dual_multi": 0} if fused else
                         {"lora_dual_mt": 88, "swa_attention": 6, "swa_attention_mt": 6,
                          "mamba2_scan": 38, "mamba2_scan_mt": 38,
                          "mamba2_scan_mt_jvps": 0, "swa_attention_mt_jvps": 0,
-                         "lora_dual_mt_jvps": 0})
+                         "lora_dual_mt_jvps": 0, "lora_dual_multi": 0})

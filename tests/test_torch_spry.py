@@ -4,7 +4,8 @@ package, on reduced roberta with the reference's weights.
 The reference's own perturbations (``repro.core.forward_grad.
 stacked_perturbations`` from its key chain) are injected into the port, so
 like is compared with like: jvps and gradient trees of all four estimator
-routes at rel 1e-5; one ``spry`` and one ``spry_periter`` round with loss
+routes at rel 1e-5 (against one reference estimate of K=5 shared by the
+routes, ``test_torch_fused.shared_reference``); one ``spry`` and one ``spry_periter`` round with loss
 and jvps at rel 1e-5 and the PEFT update at rel 1e-4 (FedYogi's
 normalisation amplifies ulp differences). Inside the port the server's
 rebuild equals the client's estimate bitwise, and every site launches ONE
@@ -35,6 +36,8 @@ from repro_torch.core import spry as tspry
 from repro_torch.kernels import dispatch
 from repro_torch.models import registry as treg
 from repro_torch.utils.pytree import tree_leaves, tree_map
+
+from test_torch_fused import ROUTE_IDS, ROUTES, reference_at, shared_reference
 
 torch.set_num_threads(1)
 M = 3
@@ -88,20 +91,23 @@ def _losses(s, m=0):
             lambda p: treg.cls_loss(s["tc"], s["tbase"], p, tb))
 
 
-@pytest.mark.parametrize("K,tb", [(1, None), (3, 1), (4, None), (5, 2)],
-                         ids=["k1", "sequential", "batched", "chunked"])
-def test_forward_gradient_routes_match_reference(setup, K, tb):
+@pytest.fixture(scope="module")
+def routes_ref(setup):
+    """The reference's estimate, computed once for the four route cases
+    (see ``test_torch_fused.shared_reference``)."""
+    return shared_reference(_losses(setup)[0], setup["jpeft"], _masks(setup)[0])
+
+
+@pytest.mark.parametrize("K,tb", ROUTES, ids=ROUTE_IDS)
+def test_forward_gradient_routes_match_reference(setup, routes_ref, K, tb):
     s = setup
-    jmask, tmask = _masks(s)
-    jloss_fn, tloss_fn = _losses(s)
-    key = jax.random.PRNGKey(7)
-    jloss, jg, jjvps = jax.jit(lambda p: jfg.forward_gradient(
-        jloss_fn, p, key, K, mask_tree=jmask, tangent_batch=tb))(s["jpeft"])
-    peft32 = jax.tree.map(lambda x: x.astype(jnp.float32), s["jpeft"])
-    vs = _to_t(_ref_perturbations(key, peft32, jnp.arange(K)))
+    _, tmask = _masks(s)
+    _, tloss_fn = _losses(s)
+    jloss, jg, jjvps = reference_at(routes_ref, K)
     tloss, tg, tjvps = tfg.forward_gradient(tloss_fn, s["tpeft"], 0, K,
                                             mask_tree=tmask, tangent_batch=tb,
-                                            perturbations=vs)
+                                            perturbations=tree_map(
+                                                lambda v: v[:K], routes_ref["vs"]))
     assert tjvps.shape == (K,)
     assert _rel(tloss, jloss) <= 1e-5
     assert _rel(tjvps, jjvps) <= 1e-5
