@@ -10,9 +10,9 @@ Phases, in order (any failure raises and exits non-zero):
   2. build    nvcc builds every CUDA source of the path for sm_90a, in
               parallel; prints each kernel's registers, shared memory and
               spills (-Xptxas -v)
-  3. kernels  each of the nine kernels against its plain PyTorch version on
+  3. kernels  each of the twelve kernels against its plain PyTorch version on
               the card at the main path's shapes (roberta-large, llama2-7b,
-              zamba2) and one long shape. The multi-adapter projection at
+              zamba2, rwkv6-1.6b) and one long shape. The multi-adapter projection at
               llama2-7b's engine decode (M=4, K=N=4096, P=4, r=1), a
               prefill-sized M=256 with random pages and a ragged case (M=5,
               K=1000, N=333, P=3, r=4, every page hit, with repeats), fp32
@@ -26,7 +26,11 @@ Phases, in order (any failure raises and exits non-zero):
               kernels): zamba2's shapes (B=8, S=32, H=64, hd=N=64), a ragged
               shape and N=100, T in {1, 8, 64}; a T=8 launch must equal eight
               T=1 launches bit for bit (tangents and contraction) and two
-              contraction launches must agree bit for bit. The three
+              contraction launches must agree bit for bit. The wkv6
+              recurrence (fp32 only, as the reference's kernels): rwkv6-1.6b's
+              shapes (B=8, S=32, H=32, hd=64), a ragged shape (S=37, B*H=15,
+              hd=40) and S=1024, T in {1, 8, 64}, with and without a tangent
+              of u, the same bitwise lane and repeat checks. The four
               contraction epilogues return sums of n products, held against
               1e-6 x sum|terms| in every dtype (the kernel reads bf16 exactly
               into the same fp32 sums as fp32; a typical contraction is about
@@ -43,24 +47,29 @@ Phases, in order (any failure raises and exits non-zero):
               round on the CPU (plain versions) with the same weights, batch
               and perturbations, on the standard and on the fused-contraction
               route: roberta, zamba2 with n_layers=3, hybrid_attn_every=2
-              (final site mamba2) and reduced zamba2 (final site attention);
-              loss and jvps within 1e-5 relative; the new PEFT within 1e-5
-              of the CPU round replayed with the card's jvps (aggregation and
-              server step) and end to end within PEFT_RTOL, set per config
-              from its readings (1e-5 roberta, 3e-5 zamba2)
+              (final site mamba2), reduced zamba2 (final site attention) and
+              reduced rwkv6 (final site wkv6); loss and jvps within 1e-5
+              relative; the new PEFT within 1e-5 of the CPU round replayed
+              with the card's jvps (aggregation and server step) and end to
+              end within PEFT_RTOL, set per config from its readings (1e-5
+              roberta, 3e-5 zamba2, 1e-4 rwkv6); rwkv6's jvps within
+              JVPS_RTOL_BY_ARCH (3.5e-5): its plain versions on the card miss
+              1e-5 as well (scripts/parity_plain_on_card.py)
   5. site     the single-projection LoRA estimator (a ``SplitLoss`` of kind
               'lora', through ``forward_gradient``) at roberta-large and
               llama2-7b widths, K=8, with and without an input tangent:
               exactly one LoRA contraction epilogue an estimate
   6. train    ``repro_torch.launch.train.run_training`` at full published
               width and depth: roberta-large-lora on sst2, 4 clients (spry K=1,
-              spry K=8, spry_periter K=8 on the standard route; spry K=8 and
-              spry_periter K=8 on the fused route; fedfgd K=8; 2 rounds each;
+              1 round; spry K=8, spry_periter K=8 on the standard route; spry
+              K=8 and spry_periter K=8 on the fused route; fedfgd K=8; 2
+              rounds each;
               fedavg, fedyogi, fedsgd, fedavgsplit, fedmezo, baffle, fwdllm,
               1 round each), llama2-7b, 2 clients (spry K=4 on both routes
               and fedavg, 1 round each) and zamba2-1.2b, 4 clients (spry K=8
               on the standard route, 2 rounds; spry K=8 and spry_periter K=8
-              on the fused route and fedavg, 1 round each). Every launch
+              on the fused route and fedavg, 1 round each) and rwkv6-1.6b, 4
+              clients (the same four runs as zamba2). Every launch
               counter is zeroed just before and read just after each run; a
               round must make exactly the launches ``round_launches`` derives
               from the config (per estimate one primal and one multi-tangent
@@ -71,7 +80,7 @@ Phases, in order (any failure raises and exits non-zero):
               each run's loss, test accuracy, seconds per round and peak
               device memory of a round (weights included, model init
               excluded), and SPRY's and FedAvg's round peaks side by side for
-              llama2-7b and zamba2.
+              llama2-7b, zamba2 and rwkv6-1.6b.
   7. serve    reduced llama2 (fp32) through the ``ServingEngine`` on the card
               and on the CPU, the same weights, adapters and requests (5
               requests over 3 adapters, max_batch 2, capacity 2: admissions
@@ -119,6 +128,9 @@ REPLACES = {
     "mamba2_scan_mt": "src/repro/kernels/mamba2_scan/kernel.py:222",
     "mamba2_scan_mt_jvps": "src/repro/kernels/mamba2_scan/kernel.py:177",
     "lora_dual_multi": "src/repro/kernels/lora_dual/kernel.py:320",
+    "wkv6_scan": "src/repro/kernels/wkv6_scan/kernel.py:50",
+    "wkv6_scan_mt": "src/repro/kernels/wkv6_scan/kernel.py:223",
+    "wkv6_scan_mt_jvps": "src/repro/kernels/wkv6_scan/kernel.py:181",
 }
 SOURCES = {
     "lora_dual_mt": "src/repro_torch/csrc/lora_dual_mt.cu",
@@ -130,6 +142,9 @@ SOURCES = {
     "mamba2_scan_mt": "src/repro_torch/csrc/mamba2_scan.cu",
     "mamba2_scan_mt_jvps": "src/repro_torch/csrc/mamba2_scan.cu",
     "lora_dual_multi": "src/repro_torch/csrc/lora_dual_multi.cu",
+    "wkv6_scan": "src/repro_torch/csrc/wkv6_scan.cu",
+    "wkv6_scan_mt": "src/repro_torch/csrc/wkv6_scan.cu",
+    "wkv6_scan_mt_jvps": "src/repro_torch/csrc/wkv6_scan.cu",
 }
 
 
@@ -156,6 +171,21 @@ def time_ms(fn, iters=20, warmup=3):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def timed_once(fn):
+    """(fn's result, the ms of that one call on CUDA events): for a plain
+    version slow enough to time in one call, whose result is also the
+    reference a kernel is held against."""
+    import torch
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
 
 
 def bound_ms(flops, nbytes, dtype):
@@ -470,6 +500,119 @@ def mamba2_lanes_and_repeats(B, S, H, hd, N, gen):
         f"equal to T=1 launches (tangents and jvps), jvps repeat bitwise")
 
 
+def wkv6_inputs(B, S, H, hd, T, has_ud, gen):
+    """Recurrence operands at the model's scales: r, k, v ~ N(0, 0.25), the
+    decay w = exp(-exp(0.5 + 0.5 z)) in (0, 1) as rwkv6's w0 = 0.5 gives."""
+    import torch
+    rn = lambda *s: torch.randn(s, generator=gen, device="cuda")  # noqa: E731
+    prim = (rn(B, S, H, hd) * 0.5, rn(B, S, H, hd) * 0.5, rn(B, S, H, hd) * 0.5,
+            torch.exp(-torch.exp(0.5 + 0.5 * rn(B, S, H, hd))), rn(H, hd) * 0.3)
+    tang = (rn(T, B, S, H, hd) * 0.3, rn(T, B, S, H, hd) * 0.3,
+            rn(T, B, S, H, hd) * 0.3, rn(T, B, S, H, hd) * 0.05)
+    uds = rn(T, H, hd) * 0.3 if has_ud else None
+    return prim, tang, uds, rn(B, S, H, hd)
+
+
+def wkv6_cases(B, S, H, hd, T, has_ud, gen):
+    """The three wkv6 kernels on one problem (fp32, their only dtype):
+    primal and tangents against the plain versions (``close``), the
+    contraction against JVPS_RTOL x sum|terms|; every case timed with its
+    bound, plain time (the one call of each plain version that gives the
+    reference: a walk of one launch a token and op, up to a second at
+    S=1024) and yardstick. Returns {kernel: result}."""
+    import torch
+    from repro_torch.kernels.wkv6_scan import ops
+    prim, tang, uds, gy = wkv6_inputs(B, S, H, hd, T, has_ud, gen)
+    shape = f"B={B} S={S} H={H} hd={hd} T={T} ud={has_ud}"
+    out = {}
+    y = ops.wkv6_scan(*prim)
+    yd = ops.wkv6_scan_mt_tangents(*prim, *tang, uds)
+    jv = ops.wkv6_scan_mt_jvps(*prim, *tang, gy, uds)
+    plain_ms = {}
+    (y_ref, _), plain_ms["wkv6_scan"] = timed_once(lambda: ops.wkv6_scan_ref(*prim))
+    (_, yd_ref), plain_ms["wkv6_scan_mt"] = timed_once(
+        lambda: ops.wkv6_scan_mt_ref(*prim, *tang, uds))
+    jv_ref, plain_ms["wkv6_scan_mt_jvps"] = timed_once(
+        lambda: ops.wkv6_scan_mt_jvps_ref(*prim, *tang, gy, uds))
+    mag = (gy[None] * yd_ref).abs().sum(dim=(1, 2, 3, 4))
+    torch.cuda.synchronize()
+    out["wkv6_scan"] = {"max_abs_err": close(f"wkv6_scan {shape}", y, y_ref,
+                                             torch.float32)}
+    out["wkv6_scan_mt"] = {"max_abs_err": close(f"wkv6_scan_mt {shape}", yd, yd_ref,
+                                                torch.float32)}
+    err, rel = close_jvps(f"wkv6_scan_mt_jvps {shape}", jv, jv_ref, mag)
+    out["wkv6_scan_mt_jvps"] = {"max_abs_err": err, "err_over_terms": rel}
+    del yd_ref, yd
+    n = B * S * H * hd                   # elements of one (B,S,H,hd) stream
+    el = n * hd                          # state elements walked
+    # the flops the function needs. Per state element and token: the decay
+    # update S <- w S + k v^T 3, the readout r^T S 2 (the tangent modes emit
+    # no y); per tangent the update Sd <- wd S + w Sd + kd v^T + k vd^T 7
+    # and the readouts rd^T S and r^T Sd 2 each. The bonus term
+    # (r . (u k)) v_j costs O(hd) a token and head, per element of n: the
+    # scalar a = r . (u k) 3 and y += a v 2; in the tangent modes a, the
+    # products r u (and r k with a tangent of u) 1 each, then per tangent
+    # ad = rd . (u k) + (r u) . kd (+ (r k) . ud) 4 (+2) and
+    # yd += ad v + a vd 4. The contraction 2 per output element and tangent.
+    # Bytes: each input read once, each output written once.
+    ud_el = T * H * hd * has_ud
+    tang_fl = T * (11 * el + (8 + 2 * has_ud) * n)
+    prim_fl = 3 * el + (4 + has_ud) * n
+    costs = {"wkv6_scan": (5 * el + 5 * n, 4 * (5 * n + H * hd)),
+             "wkv6_scan_mt": (prim_fl + tang_fl,
+                              4 * (4 * n + H * hd + 5 * T * n + ud_el)),
+             "wkv6_scan_mt_jvps": (prim_fl + tang_fl + 2 * T * n,
+                                   4 * (5 * n + H * hd + 4 * T * n + ud_el + T))}
+    runs = {"wkv6_scan": lambda: ops.wkv6_scan(*prim),
+            "wkv6_scan_mt": lambda: ops.wkv6_scan_mt_tangents(*prim, *tang, uds),
+            "wkv6_scan_mt_jvps": lambda: ops.wkv6_scan_mt_jvps(*prim, *tang, gy, uds)}
+    # no one PyTorch call computes a linear recurrence; the yardstick is the
+    # batched GEMM of its quadratic form, (S x S) decayed scores times v, per
+    # head (and tangent); for the contraction, the multi-tangent kernel
+    # followed by the contraction (the route it replaces)
+    g = torch.randn((B * H, S, S), generator=gen, device="cuda")
+    vb = prim[2].permute(0, 2, 1, 3).reshape(B * H, S, hd).contiguous()
+    gt, vt = g.expand(T, -1, -1, -1), vb.expand(T, -1, -1, -1)
+    yard = {"wkv6_scan": lambda: torch.matmul(g, vb),
+            "wkv6_scan_mt": lambda: torch.matmul(gt, vt),
+            "wkv6_scan_mt_jvps": lambda: torch.einsum(
+                "bshd,tbshd->t", gy, ops.wkv6_scan_mt_tangents(*prim, *tang, uds))}
+    for name, (flops, nbytes) in costs.items():
+        res = out[name]
+        res["bound_ms"], res["bound_by"] = bound_ms(flops, nbytes, torch.float32)
+        res["ms"] = time_ms(runs[name])
+        res["plain_ms"] = plain_ms[name]
+        res["library_ms"] = None
+        res["yardstick_ms"] = time_ms(yard[name])
+        log(f"[kernels] {name} {shape}: " + json.dumps(res))
+    return out
+
+
+def wkv6_lanes_and_repeats(B, S, H, hd, has_ud, gen):
+    """A T=8 launch against eight T=1 launches, bit for bit, for the
+    tangents and the contraction; two contraction launches on the same
+    inputs give the same jvps."""
+    import torch
+    from repro_torch.kernels.wkv6_scan import ops
+    prim, tang, uds, gy = wkv6_inputs(B, S, H, hd, 8, has_ud, gen)
+    yd = ops.wkv6_scan_mt_tangents(*prim, *tang, uds)
+    jv = ops.wkv6_scan_mt_jvps(*prim, *tang, gy, uds)
+    for t in range(8):
+        one = tuple(x[t:t + 1].contiguous() for x in tang)
+        ud1 = None if uds is None else uds[t:t + 1].contiguous()
+        if not torch.equal(ops.wkv6_scan_mt_tangents(*prim, *one, ud1)[0], yd[t]):
+            raise AssertionError(f"wkv6_scan_mt: tangent {t} of a T=8 launch is "
+                                 f"not bitwise its T=1 launch")
+        if not torch.equal(ops.wkv6_scan_mt_jvps(*prim, *one, gy, ud1)[0], jv[t]):
+            raise AssertionError(f"wkv6_scan_mt_jvps: tangent {t} of a T=8 launch "
+                                 f"is not bitwise its T=1 launch")
+    if not torch.equal(ops.wkv6_scan_mt_jvps(*prim, *tang, gy, uds), jv):
+        raise AssertionError("wkv6_scan_mt_jvps: two launches on the same "
+                             "inputs differ")
+    log(f"[kernels] wkv6 B={B} S={S} H={H} hd={hd} ud={has_ud}: T=8 lanes bitwise "
+        f"equal to T=1 launches (tangents and jvps), jvps repeat bitwise")
+
+
 def lora_multi_case(M, K, N, P, r, dtype, gen, timed):
     """The multi-adapter projection: idx covers every page (with repeats when
     M > P), then random pages."""
@@ -506,7 +649,8 @@ def lora_multi_case(M, K, N, P, r, dtype, gen, timed):
 def phase_kernels():
     """Every case; returns the timed main-path case of each kernel
     (roberta-large shapes in bf16, the full-size dtype, T=8; for the
-    multi-adapter projection llama2-7b's engine decode, M=4, in bf16)."""
+    multi-adapter projection llama2-7b's engine decode, M=4, in bf16; for
+    the recurrences zamba2's and rwkv6-1.6b's in fp32, T=8)."""
     import torch
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
@@ -566,6 +710,20 @@ def phase_kernels():
                 main.update(res)
     mamba2_lanes_and_repeats(8, 32, 64, 64, 64, gen)
     mamba2_lanes_and_repeats(3, 37, 5, 24, 20, gen)
+    # the wkv6 recurrence (fp32 only): rwkv6-1.6b's shapes (one client
+    # estimate, B=8, S=32, H=32, hd=64), a ragged shape (odd S, B*H = 15, hd
+    # not a multiple of the 32-column tile) and a long sequence; T in {1, 8,
+    # 64}, with and without a tangent of u (the path passes none)
+    for (B, S, H, hd) in ((8, 32, 32, 64), (3, 37, 5, 40), (1, 1024, 4, 64)):
+        for T in (1, 8, 64):
+            for has_ud in (False, True):
+                res = wkv6_cases(B, S, H, hd, T, has_ud, gen)
+                note("wkv6_scan_mt_jvps", torch.float32, res["wkv6_scan_mt_jvps"])
+                if (B, T, has_ud) == (8, 8, False):
+                    main.update(res)
+    for has_ud in (False, True):
+        wkv6_lanes_and_repeats(8, 32, 32, 64, has_ud, gen)
+        wkv6_lanes_and_repeats(3, 37, 5, 40, has_ud, gen)
     # the multi-adapter projection: llama2-7b's engine decode (M = max_batch
     # 4, K = N = 4096, P = 4 pages, r = 1), a prefill-sized M with random
     # pages, and a ragged case whose rows hit every page with repeats
@@ -588,15 +746,27 @@ def phase_kernels():
 PARITY_RTOL = 1e-5     # card vs CPU, fp32 throughout: loss, jvps, server step
 # card vs CPU end to end, the new PEFT, per config (see parity_round): about
 # twice the largest reading on the H100 (PERF.md, Findings: roberta 5.0e-6,
-# zamba2 1.38e-5)
-PEFT_RTOL = {"roberta-large-lora": 1e-5, "zamba2-1.2b": 3e-5}
+# zamba2 1.38e-5). rwkv6 (scripts/parity_plain_on_card.py, standard / fused
+# route): card vs CPU 4.73e-5 / 4.44e-5, the plain versions on the card
+# 4.80e-5 / 4.76e-5, the kernels against the plain versions on the card
+# 9.7e-6 / 8.7e-6
+PEFT_RTOL = {"roberta-large-lora": 1e-5, "zamba2-1.2b": 3e-5, "rwkv6-1.6b": 1e-4}
+# card vs CPU, the jvps, for a config whose jvps miss PARITY_RTOL with the
+# plain versions on the card as well (scripts/parity_plain_on_card.py): about
+# twice the larger reading. rwkv6, standard route (PERF.md, Findings): jvps
+# 1.63e-5 with the kernels, 1.76e-5 with the plain versions on the card;
+# end-to-end PEFT 4.73e-5 and 4.80e-5. The loss, the replayed PEFT and every
+# other config keep PARITY_RTOL.
+JVPS_RTOL_BY_ARCH = {"rwkv6-1.6b": 3.5e-5}
 
 
-def parity_round(fused, arch="roberta-large-lora", **overrides):
+def parity_round(fused, arch="roberta-large-lora", card_out=None, **overrides):
     """One reduced SPRY round, kernels on the card against plain versions on
     the CPU; ``overrides`` replace fields of the reduced config (zamba2 with
-    ``n_layers=3, hybrid_attn_every=2`` ends in a mamba2 site). Returns the
-    readings, checks nothing.
+    ``n_layers=3, hybrid_attn_every=2`` ends in a mamba2 site). Every
+    config's LoRA B leaves are drawn non-zero (B = 0 at init), so the LoRA
+    path is live. Returns the readings, checks nothing; ``card_out`` (a dict)
+    receives the card round's jvps and PEFT leaves, on the host.
 
     The new PEFT is read in two parts: the CPU round replayed with the
     card's jvps against the card's PEFT (the aggregation and the server
@@ -622,7 +792,8 @@ def parity_round(fused, arch="roberta-large-lora", **overrides):
     gen.manual_seed(0)
     base = get_model(cfg).init_base(cfg, gen)
     peft = init_peft(cfg, gen, sc)
-    for group, t in (("layers", "wq"), ("layers", "in_proj"), ("shared", "wq")):
+    for group, t in (("layers", "wq"), ("layers", "in_proj"), ("shared", "wq"),
+                     ("layers", "wr")):
         if t in peft.get(group, {}):      # B = 0 at init: make the LoRA path live
             peft[group][t]["B"] = torch.randn(peft[group][t]["B"].shape,
                                               generator=gen) * 0.1
@@ -636,6 +807,9 @@ def parity_round(fused, arch="roberta-large-lora", **overrides):
     gpu_state, gpu_met = step(init_state(to_cuda(base), to_cuda(peft)),
                               to_cuda(batch), [[to_cuda(p[0])] for p in perts])
     torch.cuda.synchronize()
+    if card_out is not None:
+        card_out["jvps"] = gpu_met["jvps"].cpu()
+        card_out["peft"] = [x.cpu() for x in tree_leaves(gpu_state.peft)]
     jv_err = float((gpu_met["jvps"].cpu() - cpu_met["jvps"]).abs().max()
                    / cpu_met["jvps"].abs().max())
     def peft_rel(got, want):
@@ -674,14 +848,17 @@ def parity_round(fused, arch="roberta-large-lora", **overrides):
 
 def phase_parity(fused, arch="roberta-large-lora", **overrides):
     """``parity_round``, held to its limits: loss, jvps and the replayed PEFT
-    within PARITY_RTOL, the end-to-end PEFT within the config's PEFT_RTOL."""
+    within PARITY_RTOL (the jvps within the config's JVPS_RTOL_BY_ARCH where
+    it has one), the end-to-end PEFT within the config's PEFT_RTOL."""
     res = parity_round(fused, arch, **overrides)
     route = "fused" if fused else "standard"
     peft_rtol = PEFT_RTOL[arch]
+    jvps_rtol = JVPS_RTOL_BY_ARCH.get(arch, PARITY_RTOL)
     log(f"[parity] reduced {arch} {overrides or ''} (final site {res['final_site']}), "
         f"1 spry round K=4, {route} route, card (kernels) vs cpu (limits "
-        f"{PARITY_RTOL}, end-to-end PEFT {peft_rtol}): " + json.dumps(res))
-    if not (res["jvps_rel_err"] <= PARITY_RTOL
+        f"{PARITY_RTOL}, jvps {jvps_rtol}, end-to-end PEFT {peft_rtol}): "
+        + json.dumps(res))
+    if not (res["jvps_rel_err"] <= jvps_rtol
             and res["peft_rel_err_same_jvps"] <= PARITY_RTOL
             and res["peft_rel_err"] <= peft_rtol
             and abs(res["loss_gpu"] - res["loss_cpu"]) <= PARITY_RTOL * abs(res["loss_cpu"])):
@@ -747,7 +924,8 @@ def phase_site(totals):
 
 KERNELS = ("lora_dual_mt", "swa_attention", "swa_attention_mt",
            "swa_attention_mt_jvps", "lora_dual_mt_jvps", "mamba2_scan",
-           "mamba2_scan_mt", "mamba2_scan_mt_jvps", "lora_dual_multi")
+           "mamba2_scan_mt", "mamba2_scan_mt_jvps", "lora_dual_multi",
+           "wkv6_scan", "wkv6_scan_mt", "wkv6_scan_mt_jvps")
 
 
 def round_launches(cfg, kind, estimates):
@@ -756,8 +934,9 @@ def round_launches(cfg, kind, estimates):
     one multi-tangent LoRA kernel per adapted projection on the standard
     route. The fused route replaces the final site's tangent kernel by ONE
     contraction epilogue; at a mamba2 site the final layer's out_proj sits in
-    the reversed post-head and launches nothing. Reverse mode and the
-    zero-order clients launch no kernel."""
+    the reversed post-head and launches nothing (at a wkv6 site the final
+    layer's adapted wr and wv come before the site, so every LoRA launch
+    stays). Reverse mode and the zero-order clients launch no kernel."""
     want = dict.fromkeys(KERNELS, 0)
     if kind not in ("standard", "fused"):
         return want
@@ -769,6 +948,11 @@ def round_launches(cfg, kind, estimates):
                "swa_attention": sites, "swa_attention_mt": sites,
                "mamba2_scan": L, "mamba2_scan_mt": L}
         final = "swa" if (L - 1) % every == every - 1 else "mamba2"
+    elif cfg.family == "ssm":
+        from repro_torch.peft.lora import default_lora_targets
+        per = {"lora_dual_mt": len(default_lora_targets(cfg)) * L,   # wr, wv
+               "wkv6_scan": L, "wkv6_scan_mt": L}
+        final = "wkv6"
     else:
         per = {"lora_dual_mt": 2 * L,      # wq, wv per layer
                "swa_attention": L, "swa_attention_mt": L}
@@ -777,6 +961,9 @@ def round_launches(cfg, kind, estimates):
         if final == "swa":
             per["swa_attention_mt"] -= 1
             per["swa_attention_mt_jvps"] = 1
+        elif final == "wkv6":
+            per["wkv6_scan_mt"] -= 1
+            per["wkv6_scan_mt_jvps"] = 1
         else:
             per["mamba2_scan_mt"] -= 1
             per["mamba2_scan_mt_jvps"] = 1
@@ -1197,19 +1384,26 @@ def main(argv=None):
             if any(s in line for s in ("Compiling entry", "registers", "spill")):
                 log(f"[build] {name}: {line.strip()}")
 
+    tp = time.time()
     main_cases = phase_kernels() if args.only in (None, "kernels") else {}
+    log(f"[phase] kernels {time.time() - tp:.1f}s")
+    tp = time.time()
     if args.only in (None, "parity"):
         for fused in (False, True):
             phase_parity(fused)
             phase_parity(fused, "zamba2-1.2b", n_layers=3, hybrid_attn_every=2)
             phase_parity(fused, "zamba2-1.2b")      # final site attention
+            phase_parity(fused, "rwkv6-1.6b")       # final site wkv6
+    log(f"[phase] parity {time.time() - tp:.1f}s")
     from repro_torch.kernels import launch_counts
     totals = {k: 0 for k in launch_counts()}
+    tp = time.time()
     if args.only in (None, "train"):
         phase_site(totals)
-        rb, ll, zb = "roberta-large-lora", "llama2-7b", "zamba2-1.2b"
+        rb, ll, zb, rw = ("roberta-large-lora", "llama2-7b", "zamba2-1.2b",
+                          "rwkv6-1.6b")
         results = phase_train(
-            [(rb, "spry", 1, 2, 4, False), (rb, "spry", 8, 2, 4, False),
+            [(rb, "spry", 1, 1, 4, False), (rb, "spry", 8, 2, 4, False),
              (rb, "spry_periter", 8, 2, 4, False),
              (rb, "spry", 8, 2, 4, True), (rb, "spry_periter", 8, 2, 4, True),
              (rb, "fedfgd", 8, 2, 4, False)]
@@ -1219,16 +1413,27 @@ def main(argv=None):
             + [(ll, "spry", 4, 1, 2, False), (ll, "spry", 4, 1, 2, True),
                (ll, "fedavg", 1, 1, 2, False)]
             + [(zb, "spry", 8, 2, 4, False), (zb, "spry", 8, 1, 4, True),
-               (zb, "spry_periter", 8, 1, 4, True), (zb, "fedavg", 1, 1, 4, False)],
+               (zb, "spry_periter", 8, 1, 4, True), (zb, "fedavg", 1, 1, 4, False)]
+            + [(rw, "spry", 8, 2, 4, False), (rw, "spry", 8, 1, 4, True),
+               (rw, "spry_periter", 8, 1, 4, True), (rw, "fedavg", 1, 1, 4, False)],
             totals)
-        for arch, what in ((ll, "2 clients"), (zb, "4 clients")):
+        lora = {f"{r['method']}_{r['route']}": r["round_launches"][0]["lora_dual_mt"]
+                for r in results if r["arch"] == rw and r["route"] != "none"}
+        log(f"[train] {rw} lora_dual_mt launches a round, by route (the final "
+            f"layer's wr and wv sit before the wkv6 site): " + json.dumps(lora))
+        if len(set(lora.values())) != 1:
+            raise AssertionError(f"train {rw}: LoRA launches differ by route {lora}")
+        for arch, what in ((ll, "2 clients"), (zb, "4 clients"), (rw, "4 clients")):
             peak = {f"{r['method']}_{r['route']}": r["round_peak_GiB"]
                     for r in results if r["arch"] == arch}
             log(f"[train] {arch} peak device memory GiB of a round ({what}, batch "
                 f"8 x 32 tokens): " + json.dumps(peak))
+    log(f"[phase] site and train {time.time() - tp:.1f}s")
+    tp = time.time()
     if args.only in (None, "serve"):
         phase_serve_parity()
         phase_serve(totals, smi)
+    log(f"[phase] serve {time.time() - tp:.1f}s")
     if args.only is None:
         missing = [k for k, n in totals.items() if n == 0]
         if missing:

@@ -1,6 +1,6 @@
 """Architecture registry of the port: ``get_config(arch_id)`` / ``--arch``.
-The dense and hybrid families' configs are ported so far, and rwkv6's
-(the serve CLI's default arch; its model family is a later slice)."""
+The dense (roberta-large-lora, llama2-7b), hybrid (zamba2-1.2b) and ssm
+(rwkv6-1.6b) configs are ported so far."""
 from __future__ import annotations
 
 import importlib

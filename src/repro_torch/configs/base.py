@@ -1,7 +1,7 @@
 """Config dataclasses: model architectures and FL settings.
 
-Port of ``repro/configs/base.py`` for the dense and hybrid (zamba2)
-families. ``ModelConfig.dtype`` maps ``param_dtype`` to a torch dtype (the
+Port of ``repro/configs/base.py`` for the dense, hybrid (zamba2) and ssm
+(rwkv6) families. ``ModelConfig.dtype`` maps ``param_dtype`` to a torch dtype (the
 reference maps it to a jnp dtype). ``reduce_config`` derives the CPU
 smoke-test variant (2 layers, d_model=256) exactly as the reference does.
 """
@@ -18,7 +18,7 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
 
 @dataclasses.dataclass(frozen=True)
 class SSMConfig:
-    kind: str                     # 'rwkv6' | 'mamba2' (mamba2 ported)
+    kind: str                     # 'rwkv6' | 'mamba2'
     state_dim: int = 64           # mamba2 N
     head_dim: int = 64
     conv_kernel: int = 4          # mamba2 depthwise conv width
@@ -28,7 +28,7 @@ class SSMConfig:
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     arch_id: str
-    family: str                   # dense | hybrid (ported); ssm (config only)
+    family: str                   # dense | hybrid | ssm
     n_layers: int
     d_model: int
     n_heads: int
@@ -71,6 +71,7 @@ class SpryConfig:
     """Hyperparameters of the paper's algorithm (Alg. 1 + §3)."""
     n_clients_per_round: int = 16        # M
     n_total_clients: int = 100
+    sampling_rate: float = 0.16          # s (read by no in-process path)
     k_perturbations: int = 1             # K
     tangent_batch: int | None = None     # None = all K in one batched pass;
                                          # 1 = sequential; 1<b<K = groups of b
@@ -81,11 +82,17 @@ class SpryConfig:
     server_lr: float = 1e-2              # eta
     server_opt: str = "fedyogi"          # fedyogi | fedadam | fedavg | fedsgd | fedadagrad
     client_opt: str = "sgd"              # sgd | adamw (backprop baselines)
+    comm_mode: str = "per_epoch"         # per_epoch | per_iteration: read only
+                                         # by the reference's runtime engines,
+                                         # not ported; make_round_step raises
+                                         # on per_iteration
     local_iters: int = 1
+    microbatch_size: int | None = None   # grad-accumulation chunk (None = full batch)
     jvp_clip: float | None = None
     lora_rank: int = 1                   # paper default r=1, alpha=1
     lora_alpha: float = 1.0
     lora_targets: Tuple[str, ...] = ("wq", "wv")
+    peft: str = "lora"                   # lora (ported) | ia3 | bitfit | classifier_only
     dirichlet_alpha: float = 0.1
     seed: int = 0
 

@@ -1,6 +1,6 @@
 """rwkv6-1.6b (Finch): attention-free RNN with data-dependent decay.
-[arXiv:2404.05892] As ``repro/configs/rwkv6_1_6b.py``; its model family
-(ssm) is not ported yet, so ``models.get_model`` raises for it."""
+[arXiv:2404.05892] As ``repro/configs/rwkv6_1_6b.py``. Its family (ssm)
+is ported for training; its serving functions raise until their slice."""
 from repro_torch.configs.base import ModelConfig, SSMConfig
 
 CONFIG = ModelConfig(

@@ -9,8 +9,8 @@ routes on both estimator routes, ``SplitLoss`` and ``reconstruct_gradient``):
 K perturbations are stacked on a leading tangent axis. The batched route
 runs ``torch.func.vmap`` over ``torch.func.jvp``: the primal runs once per
 estimate and, through ``kernels/dispatch``, each LoRA projection,
-attention and mamba2 site launches ONE multi-tangent kernel for all K
-tangents.
+attention, mamba2 and wkv6 site launches ONE multi-tangent kernel for all
+K tangents.
 
 Random numbers. Perturbation i of an estimate with integer key ``key``
 comes from a ``torch.Generator`` on the tree's device seeded with
@@ -127,8 +127,9 @@ class SplitLoss:
                 -> dispatch.swa_attend / swa_jvp_contract
         'mamba2' site_args = (xdt, bmat, cmat, decay)
                 -> dispatch.mamba2_mix / mamba2_jvp_contract
+        'wkv6'  site_args = (r, k, v, w, u)
+                -> dispatch.wkv6_mix / wkv6_jvp_contract
 
-    ('wkv6', the rwkv6 family's site, comes with the port of that family.)
     ``ctx`` is any side output of ``pre`` the post-head
     also needs (None if none). Calling the object evaluates the composition,
     so it is a drop-in ``loss_fn``. ``x_has_tangent=False`` (lora only)
@@ -140,11 +141,7 @@ class SplitLoss:
     def __init__(self, pre: Callable, kind: str, post: Callable, *,
                  scale: float = 1.0, window: Optional[int] = None,
                  x_has_tangent: bool = True, site_fn: Optional[Callable] = None):
-        if kind == "wkv6":
-            raise NotImplementedError(
-                "SplitLoss kind 'wkv6' is not ported yet: it comes with the "
-                "rwkv6 (ssm) family's slice of repro_torch")
-        if kind not in ("lora", "swa", "mamba2"):
+        if kind not in ("lora", "swa", "mamba2", "wkv6"):
             raise ValueError(f"unknown site kind {kind!r}")
         self.pre = pre
         self.kind = kind
@@ -161,6 +158,8 @@ class SplitLoss:
             return dispatch.lora_proj(*args, self.scale)
         if self.kind == "mamba2":
             return dispatch.mamba2_mix(*args)
+        if self.kind == "wkv6":
+            return dispatch.wkv6_mix(*args)
         return dispatch.swa_attend(*args, self.window)
 
     def __call__(self, p):
@@ -191,6 +190,8 @@ def _site_contract(loss_fn, gy, site_args, argdots):
         return val + _tree_vdot(zw, wd)
     if loss_fn.kind == "mamba2":
         return dispatch.mamba2_jvp_contract(gy, *site_args, *argdots)
+    if loss_fn.kind == "wkv6":
+        return dispatch.wkv6_jvp_contract(gy, *site_args, *argdots)
     return dispatch.swa_jvp_contract(gy, *site_args, *argdots, loss_fn.window)
 
 

@@ -11,7 +11,8 @@ Keys are integers: ``round_key = fold_in(seed, round)``, ``client key =
 fold_in(round_key, client)``, ``estimate key = fold_in(client key,
 local_iter)`` (see ``forward_grad.fold_in``). Every round function takes
 an optional ``perturbations`` argument, ``perturbations[client][iter]`` a
-stacked tree of K perturbations, so tests can inject the reference's.
+stacked tree of K perturbations (with ``microbatch_size`` set, a list of
+such stacks, one a microbatch), so tests can inject the reference's.
 """
 from __future__ import annotations
 
@@ -80,25 +81,59 @@ def _injected(perturbations, seed_id, it):
     return None if perturbations is None else perturbations[seed_id][it]
 
 
+def _microbatched_estimate(cfg, spry_cfg, task, base, client_batch, peft,
+                           ikey, mask_tree, injected):
+    """Gradient accumulation over ``B // microbatch_size`` microbatches, each
+    with a fresh perturbation from ``fold_in(ikey, i)`` (each estimate is
+    unbiased for its microbatch's gradient, the average for the batch's);
+    gradients and loss are averaged and the first K jvps kept, as the
+    reference's scan. ``injected`` is then a list of stacks, one a
+    microbatch."""
+    mb = spry_cfg.microbatch_size
+    n_mb = client_batch["tokens"].shape[0] // mb
+    g_acc = tree_map(lambda x: torch.zeros(x.shape, device=x.device), peft)
+    loss_acc = torch.zeros((), device=client_batch["tokens"].device)
+    jvps_all = []
+    for i in range(n_mb):
+        one = {k: v[i * mb:(i + 1) * mb] for k, v in client_batch.items()}
+        loss_of = make_task_loss(cfg, spry_cfg, task, base, one)
+        loss, g, jvps = _estimate(loss_of, peft, fold_in(ikey, i), spry_cfg,
+                                  mask_tree, None if injected is None else injected[i])
+        g_acc = tree_map(lambda a, b: a + b / n_mb, g_acc, g)
+        loss_acc = loss_acc + loss / n_mb
+        jvps_all.append(jvps)
+    return loss_acc, g_acc, torch.cat(jvps_all)[:spry_cfg.k_perturbations]
+
+
 def make_client_update_fn(cfg, spry_cfg, task: str = "cls"):
     """Per-epoch client (Alg. 1 lines 6-13): ``local_iters`` steps of
-    forward-gradient SGD on the units of ``mask_row``. Returns
+    forward-gradient SGD on the units of ``mask_row``, each on the whole
+    client batch or, with ``microbatch_size`` below it, accumulated over its
+    microbatches (``_microbatched_estimate``). Returns
     ``client_update(base, peft, round_key, seed_id, mask_row, client_batch,
     perturbations=None) -> (delta, loss_mean, jvps)``."""
     lr_l = spry_cfg.local_lr
+    mb = spry_cfg.microbatch_size
 
     def client_update(base, peft, round_key, seed_id, mask_row, client_batch,
                       perturbations=None):
         index = enumerate_units(peft)
         mask_tree = build_mask_tree(peft, index, mask_row)
         ckey = fold_in(round_key, seed_id)
-        loss_of = make_task_loss(cfg, spry_cfg, task, base, client_batch)
+        whole = mb is None or mb >= client_batch["tokens"].shape[0]
+        loss_of = (make_task_loss(cfg, spry_cfg, task, base, client_batch)
+                   if whole else None)
         peft_c = peft
         losses, jvps_all = [], []
         for it in range(spry_cfg.local_iters):
-            loss, g, jvps = _estimate(loss_of, peft_c, fold_in(ckey, it),
-                                      spry_cfg, mask_tree,
-                                      _injected(perturbations, seed_id, it))
+            ikey, injected = fold_in(ckey, it), _injected(perturbations, seed_id, it)
+            if whole:
+                loss, g, jvps = _estimate(loss_of, peft_c, ikey, spry_cfg,
+                                          mask_tree, injected)
+            else:
+                loss, g, jvps = _microbatched_estimate(
+                    cfg, spry_cfg, task, base, client_batch, peft_c, ikey,
+                    mask_tree, injected)
             peft_c = tree_map(lambda p, gi: p - lr_l * gi, peft_c, g)
             losses.append(loss)
             jvps_all.append(jvps)
@@ -183,7 +218,14 @@ def make_round_step(cfg, spry_cfg, task: str = "cls", split: bool = True):
     """round_step(state, batch, perturbations=None) -> (state, metrics);
     batch leaves lead with the M simulated clients. ``split=False`` turns
     the paper's weight splitting off (the FedFGD ablation: every client
-    perturbs every unit)."""
+    perturbs every unit). Per-epoch rounds only: ``comm_mode`` other than
+    "per_epoch" raises (the per-iteration round is
+    ``make_round_step_per_iteration``)."""
+    if spry_cfg.comm_mode != "per_epoch":
+        raise NotImplementedError(
+            f"comm_mode {spry_cfg.comm_mode!r}: make_round_step runs per-epoch "
+            f"rounds; the per-iteration round is make_round_step_per_iteration, "
+            f"and the runtime engines that read comm_mode are not ported")
     M = spry_cfg.n_clients_per_round
     client_update = make_client_update_fn(cfg, spry_cfg, task)
 

@@ -9,8 +9,11 @@ swa_attention/  causal (sliding-window) GQA flash attention: primal,
 mamba2_scan/    the Mamba2 state recurrence: primal, multi-tangent, and the
                 multi-tangent contraction epilogue (the hybrid family's
                 final site on the fused route)
+wkv6_scan/      the RWKV6 WKV recurrence: primal, multi-tangent, and the
+                multi-tangent contraction epilogue (the ssm family's final
+                site on the fused route)
 dispatch.py     forward-mode rules that route the model's LoRA projections,
-                attention mixers and mamba2 recurrences to those kernels,
+                attention mixers and mamba2 / wkv6 recurrences to those kernels,
                 and the contraction ops of the fused-contraction route
 build.py        nvcc build at first use, ctypes loading
 csrc/           the CUDA sources
@@ -21,8 +24,10 @@ tensors take it) and a launch counter that only a kernel launch moves.
 from repro_torch.kernels.lora_dual import ops as _lora_ops
 from repro_torch.kernels.mamba2_scan import ops as _mamba2_ops
 from repro_torch.kernels.swa_attention import ops as _swa_ops
+from repro_torch.kernels.wkv6_scan import ops as _wkv6_ops
 
-_COUNTERS = (_lora_ops.launches, _swa_ops.launches, _mamba2_ops.launches)
+_COUNTERS = (_lora_ops.launches, _swa_ops.launches, _mamba2_ops.launches,
+             _wkv6_ops.launches)
 
 
 def launch_counts() -> dict:

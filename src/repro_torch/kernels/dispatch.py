@@ -1,9 +1,10 @@
 """Forward-mode rules that route LoRA projections, attention mixers and
-mamba2 recurrences to the multi-tangent kernels, and the cotangent-known
-contraction ops of the fused-contraction route. Port of
+mamba2 / wkv6 recurrences to the multi-tangent kernels, and the
+cotangent-known contraction ops of the fused-contraction route. Port of
 ``repro/kernels/dispatch.py`` (``lora_proj``, ``lora_proj_multi``,
-``swa_attend``, ``mamba2_mix``, ``forward_ad_region``,
-``lora_jvp_contract``, ``swa_jvp_contract``, ``mamba2_jvp_contract``).
+``swa_attend``, ``mamba2_mix``, ``wkv6_mix``, ``forward_ad_region``,
+``lora_jvp_contract``, ``swa_jvp_contract``, ``mamba2_jvp_contract``,
+``wkv6_jvp_contract``).
 
 The reference pairs ``jax.custom_jvp`` with ``custom_vmap``; here each op is
 a ``torch.autograd.Function`` with a ``jvp`` staticmethod, and its tangent
@@ -52,6 +53,11 @@ from repro_torch.kernels.swa_attention.ops import (
     swa_attention,
     swa_attention_mt_jvps,
     swa_attention_mt_tangents,
+)
+from repro_torch.kernels.wkv6_scan.ops import (
+    wkv6_scan,
+    wkv6_scan_mt_jvps,
+    wkv6_scan_mt_tangents,
 )
 
 _fwd_region = contextvars.ContextVar("repro_torch_forward_ad_region", default=False)
@@ -408,3 +414,94 @@ def mamba2_jvp_contract(gy, xdt, bmat, cmat, decay, xd, bd, cd, dd):
     prim = tuple(t.contiguous() for t in (xdt, bmat, cmat, decay))
     tang = (_materialize(t, p) for t, p in zip((xd, bd, cd, dd), prim))
     return _Mamba2Contract.apply(gy.float().contiguous(), *prim, *tang)
+
+
+# ---------------------------------------------------------------------------
+# RWKV6 WKV recurrence (fresh state, the training path)
+# ---------------------------------------------------------------------------
+
+class _Wkv6Tangent(torch.autograd.Function):
+    """ydot of the recurrence for one tangent (forward) or K stacked
+    tangents (vmap -> one T=K ``wkv6_scan_mt_tangents`` call). ``ud`` is
+    None when u carries no tangent (the SPRY path: a frozen base weight)."""
+
+    @staticmethod
+    def forward(r, k, v, w, u, rd, kd, vd, wd, ud):
+        return wkv6_scan_mt_tangents(r, k, v, w, u, _one(rd), _one(kd), _one(vd),
+                                     _one(wd), _one(ud))[0]
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def vmap(info, in_dims, r, k, v, w, u, rd, kd, vd, wd, ud):
+        if any(d is not None for d in in_dims[:5]):
+            _primal_batched("wkv6_mix")
+        n = info.batch_size
+        return wkv6_scan_mt_tangents(
+            r, k, v, w, u, _stack(rd, in_dims[5], n), _stack(kd, in_dims[6], n),
+            _stack(vd, in_dims[7], n), _stack(wd, in_dims[8], n),
+            _stack(ud, in_dims[9], n)), 0
+
+
+class _Wkv6Mix(torch.autograd.Function):
+    @staticmethod
+    def forward(r, k, v, w, u):
+        return wkv6_scan(r, k, v, w, u)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_forward(*inputs)
+
+    @staticmethod
+    def jvp(ctx, rd, kd, vd, wd, ud):
+        prim = tuple(t.contiguous() for t in ctx.saved_tensors)
+        tang = (_materialize(t, p) for t, p in zip((rd, kd, vd, wd), prim))
+        return _Wkv6Tangent.apply(*prim, *tang, ud)
+
+    @staticmethod
+    def vmap(info, in_dims, *args):
+        _primal_batched("wkv6_mix")
+
+
+def wkv6_mix(r, k, v, w, u):
+    """y (B,S,H,hd) of the WKV6 recurrence from a fresh state: r, k, v, w
+    (B,S,H,hd) fp32, u (H,hd). Primal through the scan kernel, tangents
+    through the multi-tangent kernel (a missing r/k/v/w tangent as zeros, a
+    missing u tangent as none)."""
+    return _Wkv6Mix.apply(r, k, v, w, u)
+
+
+class _Wkv6Contract(torch.autograd.Function):
+    """<gy, ydot> of the recurrence for one tangent (forward) or K stacked
+    tangents (vmap -> one T=K ``wkv6_scan_mt_jvps`` call)."""
+
+    @staticmethod
+    def forward(gy, r, k, v, w, u, rd, kd, vd, wd, ud):
+        return wkv6_scan_mt_jvps(r, k, v, w, u, _one(rd), _one(kd), _one(vd),
+                                 _one(wd), gy, _one(ud))[0]
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def vmap(info, in_dims, gy, r, k, v, w, u, rd, kd, vd, wd, ud):
+        if any(d is not None for d in in_dims[:6]):
+            _primal_batched("wkv6_jvp_contract")
+        n = info.batch_size
+        return wkv6_scan_mt_jvps(
+            r, k, v, w, u, _stack(rd, in_dims[6], n), _stack(kd, in_dims[7], n),
+            _stack(vd, in_dims[8], n), _stack(wd, in_dims[9], n), gy,
+            _stack(ud, in_dims[10], n)), 0
+
+
+def wkv6_jvp_contract(gy, r, k, v, w, u, rd, kd, vd, wd, ud=None):
+    """jvp partial <gy, ydot> of a wkv6 site against its known output
+    cotangent gy (B,S,H,hd); K stacked tangents make ONE
+    ``wkv6_scan_mt_jvps`` launch, which writes no (K,B,S,H,hd) output.
+    ``ud=None``: u carries no tangent."""
+    prim = tuple(t.contiguous() for t in (r, k, v, w, u))
+    tang = (_materialize(t, p) for t, p in zip((rd, kd, vd, wd), prim))
+    return _Wkv6Contract.apply(gy.float().contiguous(), *prim, *tang, ud)

@@ -1,7 +1,10 @@
 """FL-simulation training driver of the port (in-process simulator path).
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch roberta-large-lora \
-        --task sst2 --method spry --rounds 100 --clients 8
+        --task sst2 --method spry --rounds 100 --clients 8 --out history.json
+
+``--arch`` takes roberta-large-lora, llama2-7b, zamba2-1.2b or rwkv6-1.6b
+(reduced unless ``--full-size``).
 
 Port of ``repro/launch/train.py``'s in-process path: synthetic task ->
 Dirichlet partition -> client sampling -> round step (SPRY on either
@@ -14,6 +17,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
 import time
 
 import numpy as np
@@ -269,6 +273,9 @@ def build_parser():
                     help="use the full (unreduced) architecture")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu; cuda without a card raises")
+    ap.add_argument("--out", default=None,
+                    help="write the eval history (one entry per eval round) "
+                         "to this JSON file")
     for flag in _NOT_PORTED:
         ap.add_argument(flag, nargs="?", action=_not_ported(flag),
                         help=argparse.SUPPRESS)
@@ -277,7 +284,7 @@ def build_parser():
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    run_training(arch=args.arch, task=args.task, method=args.method,
+    hist = run_training(arch=args.arch, task=args.task, method=args.method,
                  rounds=args.rounds, clients_per_round=args.clients,
                  total_clients=args.total_clients, batch_size=args.batch_size,
                  local_iters=args.local_iters, local_lr=args.lr,
@@ -286,6 +293,9 @@ def main(argv=None):
                  k_perturbations=args.k, jvp_clip=args.jvp_clip,
                  tangent_batch=args.tangent_batch,
                  fused_contraction=args.fused_contraction, device=args.device)
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump(hist, f, indent=1)
 
 
 if __name__ == "__main__":

@@ -1,5 +1,5 @@
-"""Family registry and task losses. Port of the dense and hybrid entries
-of ``repro/models/registry.py``.
+"""Family registry and task losses. Port of the dense, hybrid and ssm
+entries of ``repro/models/registry.py``.
 
     model = get_model(cfg)
     base  = model.init_base(cfg, gen)
@@ -9,8 +9,8 @@ of ``repro/models/registry.py``.
     cache = model.init_cache(cfg, batch, seq_len, device=dev)
     logits, cache = model.decode_step(cfg, base, peft, cache, token, pos)
 
-Serving is ported for the dense family; the hybrid family's serving
-functions raise ``NotImplementedError`` until its slice.
+Serving is ported for the dense family; the hybrid and ssm families'
+serving functions raise ``NotImplementedError`` until their slices.
 """
 from __future__ import annotations
 
@@ -19,7 +19,7 @@ from typing import Callable, Optional
 
 import torch
 
-from repro_torch.models import hybrid, transformer
+from repro_torch.models import hybrid, rwkv_model, transformer
 from repro_torch.models.common import chunked_lm_loss, classification_loss
 
 
@@ -77,10 +77,23 @@ def _hybrid_split_post(cfg, base, y, ctx, peft, batch, lora_scale=1.0):
     return hybrid.split_post(cfg, base, y, ctx, peft, lora_scale=lora_scale)
 
 
-def _hybrid_serving(name):
+def _rwkv_forward(cfg, base, peft, batch, lora_scale=1.0):
+    return rwkv_model.forward(cfg, base, peft, batch["tokens"], lora_scale=lora_scale)
+
+
+def _rwkv_split_forward(cfg, base, peft, batch, lora_scale=1.0):
+    return rwkv_model.split_forward(cfg, base, peft, batch["tokens"],
+                                    lora_scale=lora_scale)
+
+
+def _rwkv_split_post(cfg, base, y, ctx, peft, batch, lora_scale=1.0):
+    return rwkv_model.split_post(cfg, base, y, ctx, peft, lora_scale=lora_scale)
+
+
+def _serving_not_ported(module, name):
     def not_ported(*args, **kwargs):
         raise NotImplementedError(
-            f"hybrid.{name} is not ported yet (the hybrid-serving slice); "
+            f"{module}.{name} is not ported yet (a later serving slice); "
             f"run it with python -m repro.launch.serve")
     return not_ported
 
@@ -99,16 +112,24 @@ _FAMILIES = {
                        split_post=_hybrid_split_post,
                        split_site=hybrid.split_site,
                        mixer_site=hybrid.mixer_site,
-                       init_cache=_hybrid_serving("init_cache"),
-                       decode_step=_hybrid_serving("decode_step"),
-                       prefill=_hybrid_serving("prefill")),
+                       init_cache=_serving_not_ported("hybrid", "init_cache"),
+                       decode_step=_serving_not_ported("hybrid", "decode_step"),
+                       prefill=_serving_not_ported("hybrid", "prefill")),
+    "ssm": ModelFns(rwkv_model.init_base, _rwkv_forward, rwkv_model.unembed,
+                    split_forward=_rwkv_split_forward,
+                    split_post=_rwkv_split_post,
+                    split_site=rwkv_model.split_site,
+                    mixer_site=rwkv_model.mixer_site,
+                    init_cache=_serving_not_ported("rwkv_model", "init_cache"),
+                    decode_step=_serving_not_ported("rwkv_model", "decode_step"),
+                    prefill=_serving_not_ported("rwkv_model", "prefill")),
 }
 
 
 def get_model(cfg) -> ModelFns:
     if cfg.family not in _FAMILIES:
         raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (dense and hybrid only)")
+            f"family {cfg.family!r} is not ported yet (dense, hybrid and ssm only)")
     return _FAMILIES[cfg.family]
 
 

@@ -1,10 +1,21 @@
-"""State-space sequence mixers: the Mamba2 half of ``repro/models/ssm.py``
-(the RWKV6 half comes with the rwkv6 family's slice).
+"""Recurrent sequence mixers: RWKV6 ("Finch") and Mamba2. Port of the
+training half of ``repro/models/ssm.py`` (the recurrences from a fresh
+state; the explicit-state decode paths come with the serving slices).
 
-Outside the estimator (eval, backprop baselines) the recurrence is the
-plain scan, as in the reference. Inside the estimator's forward-AD region,
-from a fresh state, it goes through ``dispatch.mamba2_mix``: the scan
-kernel for the primal and the multi-tangent kernel for all K tangents.
+RWKV6 (data-dependent decay):
+    S_t = diag(w_t) S_{t-1} + k_t v_t^T        (per head, S in R^{hd x hd})
+    y_t = r_t^T (S_{t-1} + (u * k_t) v_t^T)
+with w_t = exp(-exp(w0 + lora(x_t))) in (0,1) elementwise.
+
+Mamba2 (scalar-per-head decay):
+    h_t = exp(-softplus(a) * dt_t) h_{t-1} + dt_t * (x_t outer B_t)
+    y_t = h_t C_t + D * x_t
+
+Outside the estimator (eval, backprop baselines) each recurrence is the
+plain sequential scan, as in the reference. Inside the estimator's
+forward-AD region, from a fresh state, it goes through the dispatched op
+(``dispatch.wkv6_mix`` / ``dispatch.mamba2_mix``): the scan kernel for the
+primal and the multi-tangent kernel for all K tangents.
 """
 from __future__ import annotations
 
@@ -13,8 +24,142 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import dispatch
 from repro_torch.kernels.mamba2_scan.ops import mamba2_scan_ref
+from repro_torch.kernels.wkv6_scan.ops import wkv6_scan_ref
 from repro_torch.models.common import dense_init, maybe_lora, proj
 
+
+# ---------------------------------------------------------------------------
+# RWKV6
+# ---------------------------------------------------------------------------
+
+def rwkv6_params(cfg, gen, layers=None):
+    d = cfg.d_model
+    hd = cfg.ssm.head_dim
+    H = d // hd
+    stack = (layers,) if layers else ()
+    dev = gen.device
+    r_decay = 64  # decay-LoRA rank (Finch's low-rank data-dependent decay)
+    return {
+        # time-mix projections
+        "wr": dense_init(gen, stack + (d, d), dtype=cfg.dtype),
+        "wk": dense_init(gen, stack + (d, d), dtype=cfg.dtype),
+        "wv": dense_init(gen, stack + (d, d), dtype=cfg.dtype),
+        "wg": dense_init(gen, stack + (d, d), dtype=cfg.dtype),
+        "wo": dense_init(gen, stack + (d, d), dtype=cfg.dtype),
+        # data-dependent decay (low-rank)
+        "w_lora_a": dense_init(gen, stack + (d, r_decay), dtype=cfg.dtype),
+        "w_lora_b": dense_init(gen, stack + (r_decay, d), dtype=cfg.dtype) * 0.1,
+        "w0": torch.zeros(stack + (d,), device=dev) + 0.5,
+        # token-shift interpolation factors per projection (r,k,v,g,w)
+        "mu": torch.rand(stack + (5, d), generator=gen, device=dev),
+        # per-head bonus
+        "u": dense_init(gen, stack + (H, hd)),
+        # group norm over heads
+        "ln_w": torch.ones(stack + (d,), device=dev),
+        "ln_b": torch.zeros(stack + (d,), device=dev),
+        # channel-mix
+        "cm_wr": dense_init(gen, stack + (d, d), dtype=cfg.dtype),
+        "cm_wk": dense_init(gen, stack + (d, cfg.d_ff), dtype=cfg.dtype),
+        "cm_wv": dense_init(gen, stack + (cfg.d_ff, d), dtype=cfg.dtype),
+    }
+
+
+def _token_shift(x, prev):
+    """Shift right by one along S; ``prev`` is the carried last token
+    (B,1,D) or zeros for a fresh sequence."""
+    return torch.cat([prev, x[:, :-1]], dim=1)
+
+
+def wkv6_recurrence(r, k, v, w, u, state):
+    """Sequential WKV scan. r,k,v,w: (B,S,H,hd); u: (H,hd); state:
+    (B,H,hd,hd). Returns (y (B,S,H,hd), new state)."""
+    return wkv6_scan_ref(r, k, v, w, u, state)
+
+
+def rwkv6_site_args(cfg, p, x, peft_layer=None, lora_scale=1.0,
+                    shift_prev=None):
+    """Time-mix projections up to the WKV recurrence: the mixer-site
+    operands ((r, k, v, w) (B,S,H,hd) fp32 + u (H,hd)) and the gate stream
+    ``g`` the post-mixer tail needs. Shared by ``rwkv6_time_mix`` and the
+    rwkv split forward (whose declared site is the recurrence)."""
+    B, S, D = x.shape
+    hd = cfg.ssm.head_dim
+    H = D // hd
+    prev = (shift_prev if shift_prev is not None
+            else torch.zeros((B, 1, D), dtype=x.dtype, device=x.device))
+    xs = _token_shift(x, prev)
+    mu = p["mu"]                                             # (5, D)
+
+    def lerp(i):
+        return (x + (xs - x) * mu[i]).to(x.dtype)
+
+    r = proj(lerp(0), p["wr"], lora=maybe_lora(peft_layer, "wr"), lora_scale=lora_scale)
+    k = proj(lerp(1), p["wk"], lora=maybe_lora(peft_layer, "wk"), lora_scale=lora_scale)
+    v = proj(lerp(2), p["wv"], lora=maybe_lora(peft_layer, "wv"), lora_scale=lora_scale)
+    g = proj(lerp(3), p["wg"], lora=maybe_lora(peft_layer, "wg"), lora_scale=lora_scale)
+    # data-dependent decay in fp32, in (0,1)
+    dw = (lerp(4) @ p["w_lora_a"]) @ p["w_lora_b"]
+    w = torch.exp(-torch.exp(p["w0"] + dw.float()))          # (B,S,D)
+
+    def hsplit(t):
+        return t.reshape(B, S, H, hd)
+    return (hsplit(r).float(), hsplit(k).float(), hsplit(v).float(), hsplit(w),
+            p["u"]), g
+
+
+def rwkv6_finish(cfg, p, y, g, out_dtype, peft_layer=None, lora_scale=1.0):
+    """Group norm + gate + output projection on the mixer output y
+    ((B,S,H,hd) fp32): the time-mix tail after the WKV recurrence (the
+    split forward's post side)."""
+    B, S, H, hd = y.shape
+    mean = y.mean(-1, keepdim=True)
+    var = torch.square(y - mean).mean(-1, keepdim=True)
+    y = ((y - mean) * torch.rsqrt(var + 1e-5)).reshape(B, S, H * hd)
+    y = (y * p["ln_w"] + p["ln_b"]).to(out_dtype) * F.silu(g)
+    return proj(y, p["wo"], lora=maybe_lora(peft_layer, "wo"),
+                lora_scale=lora_scale)
+
+
+def wkv6_mixer_site(args):
+    """Fresh-state WKV6 recurrence on the ``rwkv6_site_args`` operands: the
+    dispatched op inside the estimator's forward-AD region, the plain
+    sequential recurrence otherwise. The rwkv split forward declares this
+    call its fused-contraction site."""
+    if dispatch.in_forward_ad_region():
+        return dispatch.wkv6_mix(*args)
+    return wkv6_scan_ref(*args)[0]
+
+
+def rwkv6_time_mix(cfg, p, x, peft_layer=None, lora_scale=1.0, state=None,
+                   shift_prev=None):
+    """x: (B,S,D). state: (B,H,hd,hd) or None (zeros). Returns (out,
+    new_state, last_x); new_state is None on the forward-gradient fast path
+    (fresh state inside the forward-AD region), whose losses never read
+    it."""
+    (r, k, v, w, u), g = rwkv6_site_args(cfg, p, x, peft_layer, lora_scale,
+                                         shift_prev)
+    if state is None and dispatch.in_forward_ad_region():
+        # one primal state walk for all K tangents
+        y = dispatch.wkv6_mix(r, k, v, w, u)
+    else:
+        y, state = wkv6_recurrence(r, k, v, w, u, state)
+    out = rwkv6_finish(cfg, p, y, g, x.dtype, peft_layer, lora_scale)
+    return out, state, x[:, -1:, :]
+
+
+def rwkv6_channel_mix(cfg, p, x, shift_prev=None):
+    B, S, D = x.shape
+    prev = (shift_prev if shift_prev is not None
+            else torch.zeros((B, 1, D), dtype=x.dtype, device=x.device))
+    xs = _token_shift(x, prev)
+    r = torch.sigmoid(x @ p["cm_wr"])
+    k = torch.square(torch.relu(xs @ p["cm_wk"]))
+    return (r * (k @ p["cm_wv"])).to(x.dtype), x[:, -1:, :]
+
+
+# ---------------------------------------------------------------------------
+# Mamba2
+# ---------------------------------------------------------------------------
 
 def softplus(x):
     """``jax.nn.softplus`` = logaddexp(x, 0) = max(x, 0) + log1p(exp(-|x|)),

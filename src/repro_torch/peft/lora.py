@@ -38,10 +38,14 @@ def target_dims(cfg, target: str):
         "wi": (d, cfg.d_ff),
         "wg": (d, cfg.d_ff),
         "wd": (cfg.d_ff, d),
+        # rwkv6
+        "wr": (d, d),
         # mamba2
         "in_proj": (d, 2 * (cfg.ssm.expand * d) if cfg.ssm else 2 * d),
         "out_proj": ((cfg.ssm.expand * d) if cfg.ssm else d, d),
     }
+    if cfg.family == "ssm" and target in ("wk", "wv", "wo"):
+        return (d, d)
     return table[target]
 
 
@@ -54,7 +58,12 @@ def init_peft(cfg, gen, spry_cfg):
     """LoRA pairs (A LeCun-normal, B zero: identity at init) on each target
     of every layer, one unstacked pair set on the hybrid family's shared
     attention block (``wq``, ``wv``), plus the classifier head, drawn from
-    ``gen``."""
+    ``gen``. Only ``spry_cfg.peft == "lora"`` is ported; the reference's
+    ia3, bitfit and classifier_only trees raise here."""
+    if spry_cfg.peft != "lora":
+        raise NotImplementedError(
+            f"peft {spry_cfg.peft!r} is not ported to repro_torch yet (lora "
+            f"only); run it with the JAX package")
     targets = spry_cfg.lora_targets or default_lora_targets(cfg)
     # for ssm/hybrid families, remap the generic defaults
     if cfg.family in ("ssm", "hybrid") and tuple(targets) == ("wq", "wv"):

@@ -52,7 +52,14 @@ from repro_torch.launch import train as ttrain
 from repro_torch.models import registry as treg
 from repro_torch.utils.pytree import tree_leaves
 
-from test_torch_fused import M, _model, _ref_perturbations, _rel, _to_t
+from test_torch_fused import (
+    M,
+    _model,
+    _ref_perturbations,
+    _rel,
+    _to_t,
+    reference_rounds,
+)
 
 torch.set_num_threads(1)
 KAPPA = 2e-6
@@ -85,17 +92,36 @@ def test_backprop_gradient_matches_reference(s):
         assert _rel(b, a) <= 1e-5
 
 
-@pytest.mark.parametrize("method", ["fedavg", "fedyogi", "fedsgd", "fedavgsplit"])
-def test_backprop_round_matches_reference(s, method):
+BACKPROP_METHODS = ("fedavg", "fedyogi", "fedsgd", "fedavgsplit")
+
+
+def _backprop_setup(method):
+    """(SpryConfig kwargs, round-step method, split) of a backprop arm."""
     kw = dict(n_clients_per_round=M, local_lr=5e-2, seed=3,
               server_lr=1.0 if method != "fedyogi" else 1e-2,
               server_opt="fedavg" if method != "fedyogi" else "fedyogi")
-    jsc, tsc = jcfgs.SpryConfig(**kw), tcfgs.SpryConfig(**kw)
-    base_method = "fedavg" if method == "fedavgsplit" else method
-    split = method == "fedavgsplit"
-    jstep = jbp.make_backprop_round_step(s["jc"], jsc, method=base_method, split=split)
+    return kw, "fedavg" if method == "fedavgsplit" else method, method == "fedavgsplit"
+
+
+@pytest.fixture(scope="module")
+def backprop_rounds(s):
+    """The reference's round of each backprop arm, in one jit
+    (``test_torch_fused.reference_rounds``)."""
+    steps = {}
+    for method in BACKPROP_METHODS:
+        kw, base_method, split = _backprop_setup(method)
+        steps[method] = jbp.make_backprop_round_step(
+            s["jc"], jcfgs.SpryConfig(**kw), method=base_method, split=split)
+    return reference_rounds(steps, dict.fromkeys(steps, jspry.init_state(
+        s["jbase"], s["jpeft"])), s["jbatch"])
+
+
+@pytest.mark.parametrize("method", BACKPROP_METHODS)
+def test_backprop_round_matches_reference(s, backprop_rounds, method):
+    kw, base_method, split = _backprop_setup(method)
+    tsc = tcfgs.SpryConfig(**kw)
     tstep = make_backprop_round_step(s["tc"], tsc, method=base_method, split=split)
-    jstate, jmet = jax.jit(jstep)(jspry.init_state(s["jbase"], s["jpeft"]), s["jbatch"])
+    jstate, jmet = backprop_rounds[method]
     tstate, tmet = tstep(tspry.init_state(s["tbase"], s["tpeft"]), s["tbatch"])
     assert _rel(tmet["loss"], jmet["loss"]) <= 1e-5
     assert _delta_rel(jstate.peft, tstate.peft, s["jpeft"]) <= 1e-4
@@ -151,24 +177,44 @@ def _reference_choices(s, jperts, prev, K, eps):
     return choices
 
 
-@pytest.mark.parametrize("method", ["fedmezo", "baffle", "fwdllm"])
-def test_zeroorder_round_matches_reference(s, method):
-    kw = dict(n_clients_per_round=M, local_lr=5e-3, server_lr=1e-2, seed=5)
-    jsc, tsc = jcfgs.SpryConfig(**kw), tcfgs.SpryConfig(**kw)
-    K, eps = min(jzo.ZO_DEFAULTS[method]["k"], 4), jzo.ZO_DEFAULTS[method]["eps"]
-    jperts = _zo_perturbations(s, jsc.seed, K)
+ZO_METHODS = ("fedmezo", "baffle", "fwdllm")
+_ZO_KW = dict(n_clients_per_round=M, local_lr=5e-3, server_lr=1e-2, seed=5)
+
+
+def _zo_k_eps(method):
+    return min(jzo.ZO_DEFAULTS[method]["k"], 4), jzo.ZO_DEFAULTS[method]["eps"]
+
+
+@pytest.fixture(scope="module")
+def zo_reference(s):
+    """The reference's round of each zero-order arm, in one jit
+    (``test_torch_fused.reference_rounds``), with the perturbations and the
+    fwdllm guidance they used: {method: (state0, perturbations, prev,
+    (state, metrics))}."""
+    jsc = jcfgs.SpryConfig(**_ZO_KW)
     # fwdllm's guidance: a non-zero previous gradient, so the cosines differ
     rng = np.random.default_rng(6)
     prev = jax.tree.map(lambda x: jnp.asarray(rng.standard_normal(x.shape),
                                               jnp.float32), s["jpeft"])
-    jstate0 = jzo.ZOState(jspry.init_state(s["jbase"], s["jpeft"]), prev)
+    inner = jspry.init_state(s["jbase"], s["jpeft"])
+    states = {m: jzo.ZOState(inner, prev) if m == "fwdllm" else jzo.init_zo_state(inner)
+              for m in ZO_METHODS}
+    steps = {m: jzo.make_zeroorder_round_step(s["jc"], jsc, method=m, k=_zo_k_eps(m)[0])
+             for m in ZO_METHODS}
+    out = reference_rounds(steps, states, s["jbatch"])
+    return {m: (_zo_perturbations(s, jsc.seed, _zo_k_eps(m)[0]), prev, out[m])
+            for m in ZO_METHODS}
+
+
+@pytest.mark.parametrize("method", ZO_METHODS)
+def test_zeroorder_round_matches_reference(s, zo_reference, method):
+    tsc = tcfgs.SpryConfig(**_ZO_KW)
+    K, eps = _zo_k_eps(method)
+    jperts, prev, (jstate, jmet) = zo_reference[method]
     tstate0 = ZOState(tspry.init_state(s["tbase"], s["tpeft"]), _to_t(prev))
     if method != "fwdllm":
-        jstate0 = jzo.init_zo_state(jstate0.inner)
         tstate0 = init_zo_state(tstate0.inner)
-    jstep = jzo.make_zeroorder_round_step(s["jc"], jsc, method=method, k=K)
     tstep = make_zeroorder_round_step(s["tc"], tsc, method=method, k=K)
-    jstate, jmet = jax.jit(jstep)(jstate0, s["jbatch"])
     tstate, tmet = tstep(tstate0, s["tbatch"], [_to_t(p) for p in jperts])
     if method == "fwdllm":
         assert tmet["choice"].tolist() == _reference_choices(s, jperts, prev, K, eps)

@@ -1,8 +1,8 @@
 """Card-only tests of the port's CUDA kernels (marker ``cuda``).
 
 Each kernel is held against its plain PyTorch version on the card (the
-mamba2 kernels also lane by lane: a T=8 launch is eight T=1 launches bit
-for bit), one reduced estimate per estimator route and family shows
+mamba2 and wkv6 kernels also lane by lane: a T=8 launch is eight T=1
+launches bit for bit), one reduced estimate per estimator route and family shows
 one multi-tangent launch per site (standard) or one contraction epilogue
 at the final site (fused) for all K tangents, and a reduced serving engine
 makes ``chip_smoke.serve_launches`` multi-adapter launches and the ids of
@@ -144,7 +144,8 @@ def test_one_launch_per_site_for_k_tangents(dev):
                                "swa_attention": L, "swa_attention_mt": L,
                                "swa_attention_mt_jvps": 0, "mamba2_scan": 0,
                                "mamba2_scan_mt": 0, "mamba2_scan_mt_jvps": 0,
-                               "lora_dual_multi": 0}
+                               "lora_dual_multi": 0, "wkv6_scan": 0,
+                               "wkv6_scan_mt": 0, "wkv6_scan_mt_jvps": 0}
 
 
 def _jvps_close(got, want, mag):
@@ -235,7 +236,8 @@ def test_fused_route_one_epilogue_per_estimate(dev):
                                "swa_attention": L, "swa_attention_mt": L - 1,
                                "swa_attention_mt_jvps": 1, "mamba2_scan": 0,
                                "mamba2_scan_mt": 0, "mamba2_scan_mt_jvps": 0,
-                               "lora_dual_multi": 0}
+                               "lora_dual_multi": 0, "wkv6_scan": 0,
+                               "wkv6_scan_mt": 0, "wkv6_scan_mt_jvps": 0}
     # the standard route on the same perturbations agrees
     _, _, jvps_std = forward_gradient(lambda p: split(p), peft, 3, k_perturbations=8)
     torch.testing.assert_close(jvps, jvps_std, rtol=1e-4,
@@ -331,6 +333,102 @@ def test_hybrid_launches_per_estimate(dev, final, fused):
     want = _chip_smoke().round_launches(cfg, "fused" if fused else "standard", 1)
     assert torch.isfinite(loss) and torch.isfinite(jvps).all()
     assert launch_counts() == want
+
+
+def _wkv6_inputs(B, S, H, hd, T, has_ud, dev, seed):
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    rn = lambda *s: torch.randn(s, generator=g, device=dev)  # noqa: E731
+    prim = (rn(B, S, H, hd) * 0.5, rn(B, S, H, hd) * 0.5, rn(B, S, H, hd) * 0.5,
+            torch.exp(-torch.exp(0.5 + 0.5 * rn(B, S, H, hd))), rn(H, hd) * 0.3)
+    tang = (rn(T, B, S, H, hd) * 0.3, rn(T, B, S, H, hd) * 0.3,
+            rn(T, B, S, H, hd) * 0.3, rn(T, B, S, H, hd) * 0.05)
+    return prim, tang, (rn(T, H, hd) * 0.3 if has_ud else None), rn(B, S, H, hd)
+
+
+@pytest.mark.parametrize("has_ud", [False, True], ids=["no_ud", "ud"])
+@pytest.mark.parametrize("B,S,H,hd,T", [
+    (8, 32, 32, 64, 8),              # rwkv6-1.6b shapes, one client estimate
+    (3, 37, 5, 40, 3),               # ragged S, B*H, hd not a tile multiple
+    (2, 19, 3, 16, 64),              # hd <= 16, tangents in 8 chunks
+    (1, 5, 1, 1, 1),
+])
+def test_wkv6_kernels_match_plain(dev, B, S, H, hd, T, has_ud):
+    from repro_torch.kernels.wkv6_scan import ops
+    prim, tang, uds, gy = _wkv6_inputs(B, S, H, hd, T, has_ud, dev, 7)
+    before = dict(ops.launches)
+    y = ops.wkv6_scan(*prim)
+    yd = ops.wkv6_scan_mt_tangents(*prim, *tang, uds)
+    jv = ops.wkv6_scan_mt_jvps(*prim, *tang, gy, uds)
+    torch.cuda.synchronize()
+    assert {k: n - before[k] for k, n in ops.launches.items()} == \
+        {"wkv6_scan": 1, "wkv6_scan_mt": 1, "wkv6_scan_mt_jvps": 1}
+    y_ref, yd_ref = ops.wkv6_scan_mt_ref(*prim, *tang, uds)
+    _close(y, y_ref, torch.float32)
+    _close(yd, yd_ref, torch.float32)
+    mag = (gy[None] * yd_ref).abs().sum(dim=(1, 2, 3, 4))
+    _jvps_close(jv, torch.einsum("bshd,tbshd->t", gy, yd_ref), mag)
+
+
+@pytest.mark.parametrize("has_ud", [False, True], ids=["no_ud", "ud"])
+def test_wkv6_lanes_bitwise_and_jvps_repeat(dev, has_ud):
+    """Each tangent of a T=8 launch equals its own T=1 launch bit for bit
+    (tangents and contraction), and two contraction launches on the same
+    inputs give the same jvps (no atomics)."""
+    from repro_torch.kernels.wkv6_scan import ops
+    prim, tang, uds, gy = _wkv6_inputs(3, 37, 5, 40, 8, has_ud, dev, 8)
+    yd = ops.wkv6_scan_mt_tangents(*prim, *tang, uds)
+    jv = ops.wkv6_scan_mt_jvps(*prim, *tang, gy, uds)
+    for t in range(8):
+        one = tuple(x[t:t + 1].contiguous() for x in tang)
+        ud1 = None if uds is None else uds[t:t + 1].contiguous()
+        assert torch.equal(ops.wkv6_scan_mt_tangents(*prim, *one, ud1)[0], yd[t])
+        assert torch.equal(ops.wkv6_scan_mt_jvps(*prim, *one, gy, ud1)[0], jv[t])
+    assert torch.equal(ops.wkv6_scan_mt_jvps(*prim, *tang, gy, uds), jv)
+
+
+def test_wkv6_wrappers_raise_instead_of_falling_back(dev):
+    from repro_torch.kernels.wkv6_scan import ops
+    prim, tang, uds, gy = _wkv6_inputs(1, 4, 2, 8, 2, False, dev, 9)
+    with pytest.raises(ValueError, match="hd <= 64"):
+        wide = torch.zeros(1, 4, 1, 80, device=dev)
+        ops.wkv6_scan(wide, wide, wide, wide, torch.zeros(1, 80, device=dev))
+    with pytest.raises(ValueError, match="do not agree"):
+        ops.wkv6_scan(*prim[:4], prim[4][:1])
+    with pytest.raises(ValueError, match="tangent stacks"):
+        ops.wkv6_scan_mt_tangents(*prim, tang[0][:1], *tang[1:])
+
+
+@pytest.mark.parametrize("fused", [False, True], ids=["standard", "fused"])
+def test_rwkv6_launches_per_estimate(dev, fused):
+    """Reduced rwkv6, one estimate with K=8 on the card: one LoRA launch per
+    adapted projection (wr, wv) and one primal and one multi-tangent wkv6
+    launch per layer, or the final site's ONE contraction epilogue on the
+    fused route; the fused jvps agree with the standard route's."""
+    from repro_torch.configs import SpryConfig, get_config, reduce_config
+    from repro_torch.core import forward_gradient
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import get_loss_fn, get_model
+    from repro_torch.peft import init_peft
+    cfg = dataclasses.replace(reduce_config(get_config("rwkv6-1.6b")), n_classes=2)
+    g = torch.Generator(device=dev)
+    g.manual_seed(0)
+    base = get_model(cfg).init_base(cfg, g)
+    peft = init_peft(cfg, g, SpryConfig())
+    batch = {"tokens": torch.randint(0, cfg.vocab, (2, 32), device=dev),
+             "labels": torch.randint(0, 2, (2,), device=dev)}
+    split = get_loss_fn("cls", split=True)(cfg, base, batch)
+    assert split.kind == "wkv6"
+    reset_launch_counts()
+    loss, _, jvps = forward_gradient(split, peft, 3, k_perturbations=8,
+                                     fused_contraction=fused)
+    torch.cuda.synchronize()
+    want = _chip_smoke().round_launches(cfg, "fused" if fused else "standard", 1)
+    assert torch.isfinite(loss) and torch.isfinite(jvps).all()
+    assert launch_counts() == want
+    _, _, jvps_std = forward_gradient(split, peft, 3, k_perturbations=8)
+    torch.testing.assert_close(jvps, jvps_std, rtol=1e-4,
+                               atol=1e-5 * float(jvps_std.abs().max()))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

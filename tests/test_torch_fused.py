@@ -122,14 +122,18 @@ def _first(s):
 def test_split_pieces_match_reference(arch, request):
     s = request.getfixturevalue(arch)
     jb, tb = _first(s)
-    jargs, jctx = jtf.split_forward(s["jc"], s["jbase"], s["jpeft"], jb["tokens"])
+
+    @jax.jit
+    def ref(p):
+        args, ctx = jtf.split_forward(s["jc"], s["jbase"], p, jb["tokens"])
+        y = jtf.mixer_site(s["jc"], args)
+        return (args, ctx, y) + tuple(jtf.split_post(s["jc"], s["jbase"], y, ctx, p))
+    jargs, jctx, y, jh, jaux = ref(s["jpeft"])
     targs, tctx = ttf.split_forward(s["tc"], s["tbase"], s["tpeft"], tb["tokens"])
     for t, j in zip(targs, jargs):
         assert tuple(t.shape) == j.shape
         assert _rel(t, j) <= 1e-5
     assert _rel(tctx["h"], jctx["h"]) <= 1e-5
-    y = jtf.mixer_site(s["jc"], jargs)
-    jh, jaux = jtf.split_post(s["jc"], s["jbase"], y, jctx, s["jpeft"])
     th, taux = ttf.split_post(s["tc"], s["tbase"], torch.from_numpy(np.array(y)),
                               tctx, s["tpeft"])
     assert _rel(th, jh) <= 1e-5
@@ -181,6 +185,16 @@ def shared_reference(jloss, jpeft, jmask=None, fused=False, k=K_MAX):
     vs = _ref_perturbations(key, peft32, jnp.arange(k))
     masked = vs if jmask is None else jax.tree.map(lambda v, m: v * m, vs, jmask)
     return {"loss": loss, "jvps": jvps, "masked": masked, "vs": _to_t(vs)}
+
+
+def reference_rounds(steps, states, batch):
+    """The reference's round steps ``steps`` ({name: round_step}), each from
+    its state in ``states`` ({name: state}) on one batch, in ONE jit: the
+    rounds of the methods a module compares with are compiled together, and
+    what they share (the clients' estimates) compiles and runs once.
+    Returns {name: (state, metrics)}."""
+    return jax.jit(lambda sts, b: {k: f(sts[k], b) for k, f in steps.items()})(
+        states, batch)
 
 
 def reference_at(ref, K):
@@ -330,10 +344,10 @@ def test_fused_route_reverses_lora_projections_in_the_post_head(monkeypatch):
 
 
 def test_unported_site_kinds_raise():
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        tfg.SplitLoss(lambda p: ((), None), "wkv6", lambda y, c, p: y)
-    # the hybrid family's site kind is ported (tests/test_torch_hybrid.py)
-    assert tfg.SplitLoss(lambda p: ((), None), "mamba2", lambda y, c, p: y).kind == "mamba2"
+    # every site kind of the reference is ported: the hybrid family's
+    # (tests/test_torch_hybrid.py) and the ssm family's (tests/test_torch_rwkv.py)
+    for kind in ("mamba2", "wkv6"):
+        assert tfg.SplitLoss(lambda p: ((), None), kind, lambda y, c, p: y).kind == kind
     with pytest.raises(ValueError, match="unknown site kind"):
         tfg.SplitLoss(lambda p: ((), None), "conv", lambda y, c, p: y)
 
@@ -405,18 +419,29 @@ def _reference_perturbations(s, sc, iters):
         jnp.arange(sc.k_perturbations))) for it in range(iters)] for m in range(M)]
 
 
+_FUSED_ROUND_KW = dict(n_clients_per_round=M, k_perturbations=4, local_lr=5e-3,
+                      server_lr=1e-2, seed=3, fused_contraction=True)
+
+
+@pytest.fixture(scope="module")
+def roberta_fused_rounds(roberta):
+    """The reference's fused ``spry`` and ``spry_periter`` rounds, in one
+    jit (``reference_rounds``)."""
+    s, jsc = roberta, jcfgs.SpryConfig(**_FUSED_ROUND_KW)
+    return reference_rounds(
+        {"spry": jspry.make_round_step(s["jc"], jsc),
+         "spry_periter": jspry.make_round_step_per_iteration(s["jc"], jsc)},
+        dict.fromkeys(("spry", "spry_periter"), jspry.init_state(s["jbase"], s["jpeft"])),
+        s["jbatch"])
+
+
 @pytest.mark.parametrize("method", ["spry", "spry_periter"])
-def test_fused_round_matches_reference(roberta, method):
+def test_fused_round_matches_reference(roberta, roberta_fused_rounds, method):
     s = roberta
-    kw = dict(n_clients_per_round=M, k_perturbations=4, local_lr=5e-3,
-              server_lr=1e-2, seed=3, fused_contraction=True)
-    jsc, tsc = jcfgs.SpryConfig(**kw), tcfgs.SpryConfig(**kw)
-    make_j = (jspry.make_round_step if method == "spry"
-              else jspry.make_round_step_per_iteration)
+    jsc, tsc = jcfgs.SpryConfig(**_FUSED_ROUND_KW), tcfgs.SpryConfig(**_FUSED_ROUND_KW)
     make_t = (tspry.make_round_step if method == "spry"
               else tspry.make_round_step_per_iteration)
-    jstate, jmet = jax.jit(make_j(s["jc"], jsc))(
-        jspry.init_state(s["jbase"], s["jpeft"]), s["jbatch"])
+    jstate, jmet = roberta_fused_rounds[method]
     tstate, tmet = make_t(s["tc"], tsc)(tspry.init_state(s["tbase"], s["tpeft"]),
                                         s["tbatch"], _reference_perturbations(s, jsc, 1))
     assert tspry.estimator_route(tsc) == jspry.estimator_route(jsc) == "fused"

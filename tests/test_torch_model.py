@@ -116,7 +116,7 @@ def test_assignment_equals_reference(model):
 def test_hidden_states_match_reference(model):
     jc, tc, jbase, jpeft, tbase, tpeft = model
     jb, tb = _batch(jc)
-    jh, _ = jtf.forward(jc, jbase, jpeft, jb["tokens"])
+    jh = jax.jit(lambda p: jtf.forward(jc, jbase, p, jb["tokens"])[0])(jpeft)
     th, _ = ttf.forward(tc, tbase, tpeft, tb["tokens"])
     assert th.shape == jh.shape
     assert _rel(th, jh) <= 1e-5
@@ -129,9 +129,10 @@ def test_hidden_states_match_reference(model):
 def test_losses_and_logits_match_reference(model):
     jc, tc, jbase, jpeft, tbase, tpeft = model
     jb, tb = _batch(jc, seed=1)
-    for jfn, tfn in ((jreg.cls_loss, treg.cls_loss), (jreg.lm_loss, treg.lm_loss),
-                     (jreg.cls_logits, treg.cls_logits)):
-        want = jfn(jc, jbase, jpeft, jb)
+    pairs = ((jreg.cls_loss, treg.cls_loss), (jreg.lm_loss, treg.lm_loss),
+             (jreg.cls_logits, treg.cls_logits))
+    wants = jax.jit(lambda p: [jfn(jc, jbase, p, jb) for jfn, _ in pairs])(jpeft)
+    for (jfn, tfn), want in zip(pairs, wants):
         got = tfn(tc, tbase, tpeft, tb)
         assert _rel(got, want) <= 1e-5, jfn.__name__
 

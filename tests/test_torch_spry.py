@@ -37,7 +37,13 @@ from repro_torch.kernels import dispatch
 from repro_torch.models import registry as treg
 from repro_torch.utils.pytree import tree_leaves, tree_map
 
-from test_torch_fused import ROUTE_IDS, ROUTES, reference_at, shared_reference
+from test_torch_fused import (
+    ROUTE_IDS,
+    ROUTES,
+    reference_at,
+    reference_rounds,
+    shared_reference,
+)
 
 torch.set_num_threads(1)
 M = 3
@@ -181,20 +187,32 @@ def _reference_perturbations(s, sc, round_idx, iters):
         jnp.arange(sc.k_perturbations))) for it in range(iters)] for m in range(M)]
 
 
+def _round_kw(method):
+    return dict(n_clients_per_round=M, k_perturbations=4, local_lr=5e-3,
+                server_lr=1e-2, local_iters=2 if method == "spry" else 1, seed=3)
+
+
+@pytest.fixture(scope="module")
+def spry_reference_rounds(setup):
+    """The reference's ``spry`` (2 local iterations) and ``spry_periter``
+    rounds, in one jit (``test_torch_fused.reference_rounds``)."""
+    s = setup
+    return reference_rounds(
+        {"spry": jspry.make_round_step(s["jc"], jcfgs.SpryConfig(**_round_kw("spry"))),
+         "spry_periter": jspry.make_round_step_per_iteration(
+             s["jc"], jcfgs.SpryConfig(**_round_kw("spry_periter")))},
+        dict.fromkeys(("spry", "spry_periter"), jspry.init_state(s["jbase"], s["jpeft"])),
+        s["jbatch"])
+
+
 @pytest.mark.parametrize("method", ["spry", "spry_periter"])
-def test_round_matches_reference(setup, method):
+def test_round_matches_reference(setup, spry_reference_rounds, method):
     s = setup
     iters = 2 if method == "spry" else 1
-    kw = dict(n_clients_per_round=M, k_perturbations=4, local_lr=5e-3,
-              server_lr=1e-2, local_iters=iters, seed=3)
-    jsc, tsc = jcfgs.SpryConfig(**kw), tcfgs.SpryConfig(**kw)
-    if method == "spry":
-        jstep, tstep = jspry.make_round_step(s["jc"], jsc), tspry.make_round_step(s["tc"], tsc)
-    else:
-        jstep = jspry.make_round_step_per_iteration(s["jc"], jsc)
-        tstep = tspry.make_round_step_per_iteration(s["tc"], tsc)
-    jstate, jmet = jax.jit(jstep)(jspry.init_state(s["jbase"], s["jpeft"]),
-                                  s["jbatch"])
+    jsc, tsc = jcfgs.SpryConfig(**_round_kw(method)), tcfgs.SpryConfig(**_round_kw(method))
+    tstep = (tspry.make_round_step(s["tc"], tsc) if method == "spry"
+             else tspry.make_round_step_per_iteration(s["tc"], tsc))
+    jstate, jmet = spry_reference_rounds[method]
     tstate, tmet = tstep(tspry.init_state(s["tbase"], s["tpeft"]), s["tbatch"],
                          _reference_perturbations(s, jsc, 0, iters))
     assert _rel(tmet["loss"], jmet["loss"]) <= 1e-5
@@ -207,3 +225,64 @@ def test_round_matches_reference(setup, method):
         assert _rel(t_delta, j_delta) <= 1e-4
     assert tstate.round_idx == 1
     assert dataclasses.asdict(tsc)["k_perturbations"] == 4
+
+
+def test_spry_config_fields_equal_reference():
+    """Every field of the reference's SpryConfig, in its order and with its
+    default, is the port's."""
+    def fields(cls):
+        return [(f.name, f.default) for f in dataclasses.fields(cls)]
+    assert fields(tcfgs.SpryConfig) == fields(jcfgs.SpryConfig)
+
+
+def test_peft_kinds_other_than_lora_raise(setup):
+    from repro_torch.peft import init_peft
+    for kind in ("ia3", "bitfit", "classifier_only"):
+        with pytest.raises(NotImplementedError, match=kind):
+            init_peft(setup["tc"], torch.Generator().manual_seed(0),
+                      tcfgs.SpryConfig(peft=kind))
+
+
+def test_comm_modes_other_than_per_epoch_raise(setup):
+    """make_round_step runs per-epoch rounds: a config that asks for
+    per-iteration rounds raises instead of silently running per-epoch ones."""
+    with pytest.raises(NotImplementedError, match="per_iteration"):
+        tspry.make_round_step(setup["tc"],
+                              tcfgs.SpryConfig(comm_mode="per_iteration"))
+    tspry.make_round_step_per_iteration(
+        setup["tc"], tcfgs.SpryConfig(comm_mode="per_iteration"))
+
+
+def test_microbatch_client_update_matches_reference(setup):
+    """The client update with ``microbatch_size=2`` at batch 8 (four
+    microbatches, each with its own perturbations from ``fold_in(ikey, i)``,
+    injected from the reference's key chain): the averaged loss, the first
+    microbatch's K jvps and the delta at rel 1e-5."""
+    s = setup
+    K, mb, seed_id = 2, 2, 1
+    kw = dict(n_clients_per_round=M, k_perturbations=K, local_lr=5e-3,
+              microbatch_size=mb, seed=3)
+    jsc, tsc = jcfgs.SpryConfig(**kw), tcfgs.SpryConfig(**kw)
+    rng = np.random.default_rng(5)
+    tokens = rng.integers(0, s["jc"].vocab, (8, 16)).astype(np.int32)
+    labels = rng.integers(0, s["jc"].n_classes, (8,)).astype(np.int32)
+    ji = jassign.enumerate_units(s["jpeft"])
+    row = np.asarray(jassign.assignment_matrix(ji.n_units, M, 0)[seed_id])
+    rk = jax.random.fold_in(jax.random.PRNGKey(3), 0)
+    jdelta, jloss, jjvps = jax.jit(jspry.make_client_update_fn(s["jc"], jsc))(
+        s["jbase"], s["jpeft"], rk, seed_id, jnp.asarray(row),
+        {"tokens": jnp.asarray(tokens), "labels": jnp.asarray(labels)})
+    ikey = jax.random.fold_in(jax.random.fold_in(rk, seed_id), 0)
+    peft32 = jax.tree.map(lambda x: x.astype(jnp.float32), s["jpeft"])
+    perts = {seed_id: [[_to_t(_ref_perturbations(jax.random.fold_in(ikey, i), peft32,
+                                                 jnp.arange(K)))
+                        for i in range(8 // mb)]]}
+    tdelta, tloss, tjvps = tspry.make_client_update_fn(s["tc"], tsc)(
+        s["tbase"], s["tpeft"], 0, seed_id, torch.from_numpy(row),
+        {"tokens": torch.from_numpy(tokens), "labels": torch.from_numpy(labels)},
+        perts)
+    assert tuple(tjvps.shape) == tuple(jjvps.shape) == (1, K)
+    assert _rel(tloss, jloss) <= 1e-5
+    assert _rel(tjvps, jjvps) <= 1e-5
+    for a, b in zip(jax.tree.leaves(jdelta), tree_leaves(tdelta)):
+        assert _rel(b, a) <= 1e-5
