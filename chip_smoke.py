@@ -9,10 +9,18 @@ Phases, in order (any failure raises and exits non-zero):
   1. device   the card's name and power limit (nvidia-smi), torch's name
   2. build    nvcc builds every CUDA source of the path for sm_90a, in
               parallel; prints each kernel's registers, shared memory and
-              spills (-Xptxas -v)
+              spills (-Xptxas -v), and the count of tensor-core instructions
+              in the SASS (cuobjdump -sass) of the two tensor-core kernels:
+              HGMMA in ``lora_mt_tc_kernel``, HMMA in ``swa_tc_kernel``;
+              fails if an instantiation has none
   3. kernels  each of the twelve kernels against its plain PyTorch version on
               the card at the main path's shapes (roberta-large, llama2-7b,
-              zamba2, rwkv6-1.6b) and one long shape. The multi-adapter projection at
+              zamba2, rwkv6-1.6b) and one long shape. ``lora_dual_mt`` and
+              the ``swa_attention`` primal also at their routes' edges (T in
+              {1, 8, 64}, rank 16, M=200 with T=3, K or N off the 8-element
+              rows; S in {1, 17, 32, 2048} with hd in {64, 128}, hd 48 and
+              40), each case held to the route its wrapper must take (the
+              per-route launch counters). The multi-adapter projection at
               llama2-7b's engine decode (M=4, K=N=4096, P=4, r=1), a
               prefill-sized M=256 with random pages and a ragged case (M=5,
               K=1000, N=333, P=3, r=4, every page hit, with repeats), fp32
@@ -41,8 +49,12 @@ Phases, in order (any failure raises and exits non-zero):
               a yardstick (yardstick_ms: the kernel's largest GEMM, for the
               recurrence the batched GEMM of its quadratic form; for the
               contraction epilogues, the multi-tangent kernel followed by
-              the contraction) (CUDA events), and computes each case's bound
-              from its shapes
+              the contraction), and computes each case's bound from its
+              shapes. Times are medians of 3 CUDA-event windows, each of at
+              least 200 calls of anything under 0.1 ms (``time_ms``); a
+              kernel, library call or yardstick is replayed from a CUDA
+              graph (its device time, not the host's launch rate), a plain
+              version runs eagerly
   4. parity   one reduced SPRY round on the card (kernels) against the same
               round on the CPU (plain versions) with the same weights, batch
               and perturbations, on the standard and on the fused-contraction
@@ -76,7 +88,10 @@ Phases, in order (any failure raises and exits non-zero):
               kernel per mixer site and one LoRA kernel per adapted
               projection on the standard route; on the fused route the final
               site's tangent kernel replaced by ONE contraction epilogue), and
-              no kernel at all on the backprop and zero-order rounds. Prints
+              no kernel at all on the backprop and zero-order rounds; every
+              ``lora_dual_mt`` and ``swa_attention`` launch of phases 5 and 6
+              (bf16 at full width) must take a tensor-core route (tc, or
+              store where no input tangent exists), none simt. Prints
               each run's loss, test accuracy, seconds per round and peak
               device memory of a round (weights included, model init
               excluded), and SPRY's and FedAvg's round peaks side by side for
@@ -152,25 +167,63 @@ def log(msg):
     print(msg, flush=True)
 
 
-def time_ms(fn, iters=20, warmup=3):
-    """Mean ms per call over ``iters`` back-to-back calls (CUDA events), after
-    ``warmup`` calls; ``iters`` shrinks (to >= 3) so a slow case stays near
-    0.3 s."""
+_SIDE_STREAM = None
+
+
+def time_ms(fn, graph=True, windows=3):
+    """The median over ``windows`` CUDA-event windows of the ms a call of
+    ``fn`` takes. With ``graph`` (every kernel, plain version, library call
+    and yardstick) n calls are captured once into a CUDA graph and each
+    window replays it, so a call is timed at the device's rate, not at the
+    rate the host launches it, and a kernel and its plain version are timed
+    alike; without (``eager_ms`` of rows 1 and 2: what a call costs on the
+    main path, host work included) the calls run eagerly. A window holds at
+    least 200 calls of anything under 0.1 ms, and about 0.1 s of calls (at
+    least 3) of anything slower. Three warm-up calls, timed on the host,
+    set the count."""
     import torch
-    t0 = time.perf_counter()
-    for _ in range(warmup):
-        fn()
+    global _SIDE_STREAM
+    if _SIDE_STREAM is None:    # one for phase 3: each new stream gets its own cuBLAS workspace
+        _SIDE_STREAM = torch.cuda.Stream()
+    side = _SIDE_STREAM
+    side.wait_stream(torch.cuda.current_stream())
     torch.cuda.synchronize()
-    per_call = (time.perf_counter() - t0) / warmup
-    iters = max(3, min(iters, int(0.3 / max(per_call, 1e-9))))
+    t0 = time.perf_counter()
+    with torch.cuda.stream(side):   # graph capture wants its warm-up off the default stream
+        for _ in range(3):
+            fn()
+    torch.cuda.synchronize()
+    torch.cuda.current_stream().wait_stream(side)
+    est = (time.perf_counter() - t0) / 3
+    calls = (max(200, int(0.1 / est)) if est < 1e-4
+             else max(3, min(200, int(0.1 / est))))
+    if graph:
+        n = min(calls, 100)
+        reps = -(-calls // n)
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            for _ in range(n):
+                fn()
+
+        def run():
+            for _ in range(reps):
+                g.replay()
+        calls = n * reps
+    else:
+        def run():
+            for _ in range(calls):
+                fn()
+    run()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    ms = []
+    for _ in range(windows):
+        start.record()
+        run()
+        end.record()
+        torch.cuda.synchronize()
+        ms.append(start.elapsed_time(end) / calls)
+    return sorted(ms)[windows // 2]
 
 
 def timed_once(fn):
@@ -221,6 +274,17 @@ def close(name, got, want, dtype):
 # phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
+def took_path(name, counter, want, call):
+    """``call()``, which must launch exactly once, by route ``want`` of the
+    per-route ``counter`` (``ops.launches_by_path[kernel]``)."""
+    before = dict(counter)
+    out = call()
+    moved = {p: n - before[p] for p, n in counter.items() if n != before[p]}
+    if moved != {want: 1}:
+        raise AssertionError(f"{name}: launched {moved}, not one call by route {want}")
+    return out
+
+
 def lora_case(M, K, N, r, T, has_xd, dtype, gen, timed):
     import torch
     from repro_torch.kernels.lora_dual import ops
@@ -232,11 +296,14 @@ def lora_case(M, K, N, r, T, has_xd, dtype, gen, timed):
     a, ad = rn(K, r) / math.sqrt(K), rn(T, K, r) / math.sqrt(K)
     b, bd = rn(r, N), rn(T, r, N)
     args = (x, xd, w, a, ad, b, bd, 1.0)
-    out = ops.lora_dual_mt_tangents(*args)
+    name = f"lora_dual_mt M={M} K={K} N={N} r={r} T={T} xd={has_xd} {dtype}"
+    out = took_path(name, ops.launches_by_path["lora_dual_mt"],
+                    ops.lora_mt_path(dtype, K, N, has_xd),
+                    lambda: ops.lora_dual_mt_tangents(*args))
     ref = ops.lora_dual_mt_tangents_ref(*_f32(args))
     torch.cuda.synchronize()
-    name = f"lora_dual_mt M={M} K={K} N={N} r={r} T={T} xd={has_xd} {dtype}"
-    res = {"max_abs_err": close(name, out, ref, dtype)}
+    res = {"path": ops.lora_mt_path(dtype, K, N, has_xd),
+           "max_abs_err": close(name, out, ref, dtype)}
     if timed:
         es = x.element_size()
         flops = (2 * T * M * K * N * has_xd + 2 * M * K * r * (1 + T * (1 + has_xd))
@@ -246,6 +313,10 @@ def lora_case(M, K, N, r, T, has_xd, dtype, gen, timed):
         res["bound_ms"], res["bound_by"] = bound_ms(flops, nbytes, dtype)
         res["ms"] = time_ms(lambda: ops.lora_dual_mt_tangents(*args))
         res["plain_ms"] = time_ms(lambda: ops.lora_dual_mt_tangents_ref(*args))
+        # eager per call, host work included (the main path launches eagerly)
+        res["eager_ms"] = time_ms(lambda: ops.lora_dual_mt_tangents(*args), graph=False)
+        res["plain_eager_ms"] = time_ms(lambda: ops.lora_dual_mt_tangents_ref(*args),
+                                        graph=False)
         # no one PyTorch call computes this function; the batched GEMM
         # xdot_t @ W alone is timed as a yardstick
         res["library_ms"] = None
@@ -367,10 +438,16 @@ def swa_case(B, H, KV, S, hd, window, T, dtype, gen, timed):
         kname = "swa_attention"
     run = lambda: kernel(*args)  # noqa: E731
     plain = lambda: ref_fn(*args)  # noqa: E731
-    out, ref = run(), ref_fn(*_f32(args))
-    torch.cuda.synchronize()
     name = f"{kname} B={B} H={H} KV={KV} S={S} hd={hd} window={window} T={T} {dtype}"
-    res = {"max_abs_err": close(name, out, ref, dtype)}
+    res = {}
+    if T:
+        out = run()
+    else:
+        res["path"] = ops.swa_path(dtype, hd)
+        out = took_path(name, ops.launches_by_path["swa_attention"], res["path"], run)
+    ref = ref_fn(*_f32(args))
+    torch.cuda.synchronize()
+    res["max_abs_err"] = close(name, out, ref, dtype)
     if timed:
         es = q.element_size()
         pairs = B * H * _kept_pairs(S, window)
@@ -381,6 +458,9 @@ def swa_case(B, H, KV, S, hd, window, T, dtype, gen, timed):
         res["bound_ms"], res["bound_by"] = bound_ms(flops, nbytes, dtype)
         res["ms"] = time_ms(run)
         res["plain_ms"] = time_ms(plain)
+        if not T:   # row 2: eager per call, host work included
+            res["eager_ms"] = time_ms(run, graph=False)
+            res["plain_eager_ms"] = time_ms(plain, graph=False)
         kr = k.repeat_interleave(H // KV, dim=1)
         vr = v.repeat_interleave(H // KV, dim=1)
         if T:
@@ -468,7 +548,7 @@ def mamba2_cases(B, S, H, hd, N, T, gen, timed):
             res = out[name]
             res["bound_ms"], res["bound_by"] = bound_ms(flops, nbytes, torch.float32)
             res["ms"] = time_ms(runs[name][0])
-            res["plain_ms"] = time_ms(runs[name][1], iters=3, warmup=1)
+            res["plain_ms"] = time_ms(runs[name][1])
             res["library_ms"] = None
             res["yardstick_ms"] = time_ms(yard[name])
     for name, res in out.items():
@@ -652,9 +732,13 @@ def phase_kernels():
     multi-adapter projection llama2-7b's engine decode, M=4, in bf16; for
     the recurrences zamba2's and rwkv6-1.6b's in fp32, T=8)."""
     import torch
+    global _SIDE_STREAM
+    gc.collect()
+    torch.cuda.synchronize()
+    held_before = torch.cuda.memory_allocated()
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
-    main, worst = {}, {}
+    main, worst, extra = {}, {}, {}
 
     def note(name, dtype, res):         # the largest err / sum|terms| seen
         key = f"{name} {dtype}"
@@ -667,9 +751,11 @@ def phase_kernels():
             for T in (1, 8):
                 for has_xd in (True, False):
                     res = lora_case(8 * 32, K, K, 1, T, has_xd, dtype, gen,
-                                    timed=(bf and T == 8))
+                                    timed=(bf and (T == 8 or has_xd)))
                     if bf and K == 1024 and T == 8 and has_xd:
                         main["lora_dual_mt"] = res
+                    if bf and (T == 8 or has_xd):
+                        extra[f"lora_dual_mt K=N={K} T={T} xd={has_xd}"] = res
                     res = note("lora_dual_mt_jvps", dtype, lora_jvps_case(
                         8 * 32, K, K, 1, T, has_xd, dtype, gen, timed=(bf and T == 8)))
                     if bf and K == 1024 and T == 8 and has_xd:
@@ -680,6 +766,15 @@ def phase_kernels():
                     37, 100, 72, 3, T, has_xd, dtype, gen, timed=False))
         note("lora_dual_mt_jvps", dtype, lora_jvps_case(   # rank, tangent limits
             70, 33, 65, 16, 64, True, dtype, gen, timed=False))
+        # the tangent kernel's routes at their edges: T = 64, rank 16, M = 200
+        # with T = 3 (a 128-row tile straddles two tangents), rank 16 at
+        # llama2-7b widths; K or N off the 8-element alignment (simt in bf16)
+        for M, K, N, r, T in ((256, 1024, 1024, 1, 64), (256, 1024, 1024, 16, 64),
+                              (200, 1024, 1024, 16, 3), (200, 1024, 1024, 1, 3),
+                              (256, 4096, 4096, 16, 8), (37, 100, 72, 3, 3),
+                              (64, 1024, 1020, 2, 2)):
+            for has_xd in (True, False):
+                lora_case(M, K, N, r, T, has_xd, dtype, gen, timed=False)
         shapes = [(8, 16, 32, 64), (8, 32, 32, 128), (1, 16, 2048, 128)]
         for si, (B, H, S, hd) in enumerate(shapes):
             for window in (None, 256):
@@ -692,11 +787,24 @@ def phase_kernels():
                                 main["swa_attention"] = res
                             elif T == 8:
                                 main["swa_attention_mt"] = res
+                        if bf and T == 0 and window is None and KV == H:
+                            extra[f"swa_attention B={B} H={H} S={S} hd={hd}"] = res
                         if T:
                             res = note("swa_attention_mt_jvps", dtype, swa_jvps_case(
                                 B, H, KV, S, hd, window, T, dtype, gen, timed))
                             if bf and si == 0 and window is None and KV == H and T == 8:
                                 main["swa_attention_mt_jvps"] = res
+        # the primal's routes at short and odd S and at S = 2048 with hd = 64
+        # (hd 48 and 40: a 16 multiple off the configs' widths, and simt)
+        for B, H, S, hd in ((2, 8, 1, 64), (2, 8, 1, 128), (2, 8, 17, 64),
+                            (2, 8, 17, 128), (1, 16, 2048, 64), (2, 4, 33, 48),
+                            (2, 4, 33, 40)):
+            for window in (None, 256):
+                for KV in (H, H // 4):
+                    timed = bf and window is None and KV == H and S == 2048
+                    res = swa_case(B, H, KV, S, hd, window, 0, dtype, gen, timed)
+                    if timed:
+                        extra[f"swa_attention B={B} H={H} S={S} hd={hd}"] = res
     # the mamba2 recurrence (fp32 only): zamba2's shapes (one client estimate,
     # B=8, S=32, H=64, hd=N=64), a ragged shape (odd S; hd, N and B*H*hd not
     # multiples of 32 or of a block's 16 rows) and N > 64; T in {1, 8, 64}
@@ -736,6 +844,20 @@ def phase_kernels():
                 main["lora_dual_multi"] = res
     log(f"[kernels] contraction epilogues, largest err / sum|terms| (limit "
         f"{JVPS_RTOL}): " + json.dumps(worst))
+    log("[kernels] redesigned rows 1 and 2, every timed bf16 case: " + json.dumps(extra))
+    # release what the timing holds (the side stream and the cuBLAS
+    # workspaces), so the later phases' memory peaks do not depend on
+    # whether this phase ran
+    torch.cuda.synchronize()
+    _SIDE_STREAM = None
+    torch._C._cuda_clearCublasWorkspaces()
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    log(f"[kernels] device memory allocated before / after the phase: "
+        f"{held_before / 2 ** 30:.3f} / {held / 2 ** 30:.3f} GiB")
+    if held != held_before:
+        raise AssertionError(f"phase 3 left {held - held_before} bytes allocated")
     return main
 
 
@@ -870,7 +992,20 @@ def phase_parity(fused, arch="roberta-large-lora", **overrides):
 # phase 5: the single-projection LoRA estimator (SplitLoss kind 'lora')
 # ---------------------------------------------------------------------------
 
-def phase_site(totals):
+def check_paths(what, paths, path_totals):
+    """Every launch of rows 1 and 2 on the full-width main path is bf16 at
+    aligned widths and must take a tensor-core route (``lora_dual_mt``: tc,
+    or store where no input tangent exists; the ``swa_attention`` primal:
+    tc), never simt. Adds ``paths`` into ``path_totals``."""
+    for k, by in paths.items():
+        if by.get("simt"):
+            raise AssertionError(f"{what}: {by['simt']} {k} launches took the simt "
+                                 f"route: {paths}")
+        for route, n in by.items():
+            path_totals[k][route] += n
+
+
+def phase_site(totals, path_totals):
     """forward_gradient on a LoRA site at full widths, K=8: the fused route
     makes one LoRA contraction epilogue an estimate (plus, with an input
     tangent, the upstream projection's one multi-tangent launch) and agrees
@@ -878,7 +1013,8 @@ def phase_site(totals):
     import torch
     from repro_torch.configs import get_config
     from repro_torch.core import SplitLoss, forward_gradient
-    from repro_torch.kernels import dispatch, launch_counts, reset_launch_counts
+    from repro_torch.kernels import (dispatch, launch_counts, launch_paths,
+                                     reset_launch_counts)
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1)
@@ -900,16 +1036,18 @@ def phase_site(totals):
             reset_launch_counts()
             loss, _, jvps = forward_gradient(split, peft, 7, 8, fused_contraction=True)
             torch.cuda.synchronize()
-            counts = launch_counts()
+            counts, paths = launch_counts(), launch_paths()
             _, _, jvps_std = forward_gradient(split, peft, 7, 8)
             want = {k: 0 for k in counts}
             want.update({"lora_dual_mt_jvps": 1, "lora_dual_mt": int(x_has_tangent)})
             err = float((jvps - jvps_std).abs().max() / jvps_std.abs().max())
             res = {"arch": arch, "x_has_tangent": x_has_tangent, "loss": float(loss),
-                   "jvps_rel_err_vs_standard": err, "launches": counts}
+                   "jvps_rel_err_vs_standard": err, "launches": counts,
+                   "paths": paths}
             log("[site] lora SplitLoss K=8: " + json.dumps(res))
             if counts != want:
                 raise AssertionError(f"site {arch}: launches {counts} != {want}")
+            check_paths(f"site {arch}", paths, path_totals)
             # the standard route rounds each tangent output to bf16 before
             # contracting it; the epilogue contracts in fp32
             if not (math.isfinite(float(loss)) and err <= 2e-2):
@@ -972,10 +1110,10 @@ def round_launches(cfg, kind, estimates):
     return want
 
 
-def phase_train(phases, totals):
+def phase_train(phases, totals, path_totals):
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels import launch_counts, launch_paths, reset_launch_counts
     from repro_torch.launch.train import run_training
 
     results = []
@@ -988,7 +1126,7 @@ def phase_train(phases, totals):
                             fused_contraction=fused, device="cuda",
                             log=lambda s: log("  " + s))
         torch.cuda.synchronize()
-        counts = launch_counts()
+        counts, paths = launch_counts(), launch_paths()
         # the route each round reported; the launch counts below hold the
         # entry point to it, and it must be the route that was asked for
         routes = [h.get("route", "none") for h in hist]
@@ -1004,8 +1142,10 @@ def phase_train(phases, totals):
                "round_s": [h["round_s"] for h in hist],
                "personalized_acc": hist[-1]["personalized_acc"],
                "round_peak_GiB": max(h["round_peak_bytes"] for h in hist) / 2 ** 30,
-               "launches": counts, "round_launches": [h["launches"] for h in hist]}
+               "launches": counts, "paths": paths,
+               "round_launches": [h["launches"] for h in hist]}
         log(f"[train] {arch} {method} K={K} {kind}: " + json.dumps(res))
+        check_paths(f"train {arch} {method}", paths, path_totals)
         if not all(math.isfinite(x) for x in res["loss"]):
             raise AssertionError(f"train {arch} {method}: loss not finite")
         for route, rl in zip(routes, res["round_launches"]):
@@ -1346,6 +1486,37 @@ def log_serve_profile(cfg, engine, fns, P, n=3):
         log(f"[serve]   {ms:8.3f} ms {count:5d}x  {key}")
 
 
+# the tensor-core kernels, by library: (a name fragment of each kernel's
+# instantiations, the SASS instruction that proves tensor-core use)
+TENSOR_CORE_KERNELS = {"lora_dual": ("lora_mt_tc_kernel", "HGMMA"),
+                       "swa_attention": ("swa_tc_kernel", "HMMA")}
+
+
+def log_tensor_core_sass(build):
+    """Count each tensor-core kernel's HGMMA / HMMA instructions in the built
+    library's SASS (``cuobjdump -sass``); fail if an instantiation has none."""
+    import re
+    import shutil
+    exe = shutil.which("cuobjdump") or os.path.join(os.path.dirname(build._nvcc()),
+                                                    "cuobjdump")
+    for lib, (kernel, op) in TENSOR_CORE_KERNELS.items():
+        sass = subprocess.run([exe, "-sass", str(build._target(lib))], capture_output=True,
+                              text=True, timeout=300, check=True).stdout
+        counts, fn = {}, None
+        for line in sass.splitlines():
+            m = re.search(r"Function : (\S+)", line)
+            if m:
+                fn = m.group(1) if kernel in m.group(1) else None
+                if fn:
+                    counts[fn] = 0
+            elif fn and re.search(rf"\b{op}\b", line):
+                counts[fn] += 1
+        short = {re.sub(r"^.*?" + kernel, kernel, f)[:48]: n for f, n in counts.items()}
+        log(f"[build] {lib}: {op} instructions in the SASS of {kernel}: " + json.dumps(short))
+        if not counts or min(counts.values()) == 0:
+            raise AssertionError(f"{lib}: {kernel} has no {op} instruction: {short}")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description="On-card smoke test of repro_torch")
     ap.add_argument("--only", choices=("kernels", "parity", "train", "serve"),
@@ -1383,6 +1554,7 @@ def main(argv=None):
         for line in text.splitlines():
             if any(s in line for s in ("Compiling entry", "registers", "spill")):
                 log(f"[build] {name}: {line.strip()}")
+    log_tensor_core_sass(build)
 
     tp = time.time()
     main_cases = phase_kernels() if args.only in (None, "kernels") else {}
@@ -1395,11 +1567,12 @@ def main(argv=None):
             phase_parity(fused, "zamba2-1.2b")      # final site attention
             phase_parity(fused, "rwkv6-1.6b")       # final site wkv6
     log(f"[phase] parity {time.time() - tp:.1f}s")
-    from repro_torch.kernels import launch_counts
+    from repro_torch.kernels import launch_counts, launch_paths
     totals = {k: 0 for k in launch_counts()}
+    path_totals = {k: dict.fromkeys(by, 0) for k, by in launch_paths().items()}
     tp = time.time()
     if args.only in (None, "train"):
-        phase_site(totals)
+        phase_site(totals, path_totals)
         rb, ll, zb, rw = ("roberta-large-lora", "llama2-7b", "zamba2-1.2b",
                           "rwkv6-1.6b")
         results = phase_train(
@@ -1416,7 +1589,7 @@ def main(argv=None):
                (zb, "spry_periter", 8, 1, 4, True), (zb, "fedavg", 1, 1, 4, False)]
             + [(rw, "spry", 8, 2, 4, False), (rw, "spry", 8, 1, 4, True),
                (rw, "spry_periter", 8, 1, 4, True), (rw, "fedavg", 1, 1, 4, False)],
-            totals)
+            totals, path_totals)
         lora = {f"{r['method']}_{r['route']}": r["round_launches"][0]["lora_dual_mt"]
                 for r in results if r["arch"] == rw and r["route"] != "none"}
         log(f"[train] {rw} lora_dual_mt launches a round, by route (the final "
@@ -1428,6 +1601,8 @@ def main(argv=None):
                     for r in results if r["arch"] == arch}
             log(f"[train] {arch} peak device memory GiB of a round ({what}, batch "
                 f"8 x 32 tokens): " + json.dumps(peak))
+        log("[train] launches of rows 1 and 2 by route over the site and train "
+            "phases (simt must be 0): " + json.dumps(path_totals))
     log(f"[phase] site and train {time.time() - tp:.1f}s")
     tp = time.time()
     if args.only in (None, "serve"):
@@ -1449,6 +1624,8 @@ def main(argv=None):
                         "bound_by": c.get("bound_by"),
                         "library_ms": c.get("library_ms"),
                         "yardstick_ms": c.get("yardstick_ms")})
+        if name in path_totals:
+            kernels[-1]["launches_by_path"] = path_totals[name]
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -13,12 +13,37 @@
 // contraction epilogue reads gy (BH, S, hd) instead of writing od and
 // writes one fp32 partial per (bh, query block, t): parts (BH, QB, T).
 //
-// One warp per query row; lanes split hd (NI = ceil(hd / 32) elements a
-// lane). Keys are walked in chunks of KC = 32 staged in shared memory as
-// fp32: lane j scores key j, the warp reduces max and sum with shuffles.
+// The bf16 primal with hd % 16 == 0 (swa_tc_kernel) runs on tensor cores.
+// It does 4 hd operations a kept (query, key) pair and reads q, k, v once,
+// so it is bound by operations at long S (S = 2048: 17 GFLOP in 16 heads)
+// and by launch latency at the main path's S = 32, where it moves 0.26 MB.
+// A warp owns 16 query rows (the m16n8k16 tile height); a block is one
+// (b, h) and min(4, ceil(S / 16)) warps, so S = 32 takes two full warps and
+// no idle rows, and S = 2048 takes 64-row blocks whose K/V tiles feed four
+// warps. Keys arrive in 64-key tiles by cp.async into a double-buffered
+// shared-memory ring (rows padded by 16 bytes, so ldmatrix rows hit
+// distinct banks) while the previous tile is in the tensor cores. Q stays
+// in registers as mma A fragments; S = Q K^T accumulates in fp32
+// fragments; the keep-gate, scale and online softmax run on those
+// fragments, with row max and sum reduced over the lane quad by shuffles;
+// P is rounded to bf16 (as the reference's p.astype(v.dtype)) and becomes
+// the A fragment of P V in registers, V read transposed by ldmatrix.trans.
+// l is summed from the fp32 p and clamped at 1e-30. The longest causal
+// walks launch first (blockIdx.y reversed), and a warp skips the products
+// of a tile wholly after its rows or wholly before their band.
+//
+// Every other case (fp32, hd not a multiple of 16, and the tangent and
+// contraction modes) is swa_kernel: one warp per query row; lanes split hd
+// (NI = ceil(hd / 32) elements a lane). Keys are walked in chunks of
+// KC = 32 staged in shared memory as fp32: lane j scores key j, the warp
+// reduces max and sum with shuffles.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
+
+#include <type_traits>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -313,6 +338,243 @@ int launch(const void* q, const void* k, const void* v, const void* qd,
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16 primal on tensor cores (hd % 16 == 0). See the note at the top.
+// ---------------------------------------------------------------------------
+
+using bf16 = __nv_bfloat16;
+
+constexpr int TC_BKV = 64;       // keys a shared-memory tile
+constexpr int TC_WARPS = 4;      // most warps (16 query rows each) a block
+
+// warps a block: one per 16 query rows, at most TC_WARPS
+int tc_warps(int S) { return S >= 16 * TC_WARPS ? TC_WARPS : (S + 15) / 16; }
+
+size_t tc_smem_bytes(int hd) {   // K and V, two buffers each, rows padded by 8
+  return (size_t)4 * TC_BKV * (hd + 8) * sizeof(bf16);
+}
+
+__device__ __forceinline__ uint32_t ld_pair(const bf16* p, bool ok) {
+  return ok ? *reinterpret_cast<const uint32_t*>(p) : 0u;
+}
+
+template <int NHD>
+__global__ void __launch_bounds__(32 * TC_WARPS)
+swa_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+              const bf16* __restrict__ v, bf16* __restrict__ out, int S, int H,
+              int G, int window, float scale) {
+  constexpr int HD = 16 * NHD;
+  constexpr int LD = HD + 8;          // padded row: ldmatrix rows hit distinct banks
+  constexpr int CH = HD / 8;          // 16-byte chunks a row
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  bf16* ks = reinterpret_cast<bf16*>(smem_raw);      // 2 x TC_BKV x LD
+  bf16* vs = ks + 2 * TC_BKV * LD;                    // 2 x TC_BKV x LD
+  const int nw = blockDim.x / 32;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int bh = blockIdx.x;
+  // the longest causal walks (the last query blocks) start first
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * 16 * nw;
+  const int qw = q0 + 16 * warp;      // this warp's first row
+  const int kvh = (bh / H) * (H / G) + (bh % H) / G;
+  const bf16* qm = q + (size_t)bh * S * HD;
+  const bf16* km = k + (size_t)kvh * S * HD;
+  const bf16* vm = v + (size_t)kvh * S * HD;
+  const float scale2 = scale * 1.4426950408889634f;    // scores in log2 units
+
+  // Q stays in registers as mma A fragments: rows qw + l/4 (+8), columns
+  // 16 kk + 2 (l % 4) (+8)
+  const int r_lo = qw + (lane >> 2), r_hi = r_lo + 8;
+  const int cq = 2 * (lane & 3);
+  uint32_t qf[NHD][4];
+#pragma unroll
+  for (int kk = 0; kk < NHD; ++kk) {
+    qf[kk][0] = ld_pair(qm + (size_t)r_lo * HD + 16 * kk + cq, r_lo < S);
+    qf[kk][1] = ld_pair(qm + (size_t)r_hi * HD + 16 * kk + cq, r_hi < S);
+    qf[kk][2] = ld_pair(qm + (size_t)r_lo * HD + 16 * kk + 8 + cq, r_lo < S);
+    qf[kk][3] = ld_pair(qm + (size_t)r_hi * HD + 16 * kk + 8 + cq, r_hi < S);
+  }
+  float o[2 * NHD][4];
+#pragma unroll
+  for (int d = 0; d < 2 * NHD; ++d)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[d][e] = 0.f;
+  float m_lo = NEG_INF, m_hi = NEG_INF, l_lo = 0.f, l_hi = 0.f;
+
+  // the block's rows share one band: from the first row's window start,
+  // floored to the key tile, to the last row
+  const int q_last = min(q0 + 16 * nw, S) - 1;
+  int c_first = 0;
+  if (window > 0) c_first = max(0, floor_div(q0 - (window - 1), TC_BKV)) * TC_BKV;
+  const int n_tiles = (q_last - c_first) / TC_BKV + 1;
+
+  auto load = [&](int c0, int buf) {
+    bf16* kd = ks + buf * TC_BKV * LD;
+    bf16* vd = vs + buf * TC_BKV * LD;
+    for (int i = threadIdx.x; i < TC_BKV * CH; i += blockDim.x) {
+      const int kr = i / CH, c = i % CH;
+      const int pos = c0 + kr;
+      const bool ok = pos < S;
+      hopper::cp_async16(kd + kr * LD + 8 * c, ok ? km + (size_t)pos * HD + 8 * c : km, ok);
+      hopper::cp_async16(vd + kr * LD + 8 * c, ok ? vm + (size_t)pos * HD + 8 * c : vm, ok);
+    }
+  };
+
+  load(c_first, 0);
+  hopper::cp_async_commit();
+  for (int it = 0; it < n_tiles; ++it) {
+    const int c0 = c_first + it * TC_BKV;
+    if (it + 1 < n_tiles) load(c0 + TC_BKV, (it + 1) & 1);
+    hopper::cp_async_commit();
+    hopper::cp_async_wait<1>();
+    __syncthreads();
+    const bf16* kt = ks + (it & 1) * TC_BKV * LD;
+    const bf16* vt = vs + (it & 1) * TC_BKV * LD;
+    // a tile wholly after this warp's rows or wholly before their band
+    // changes nothing (p = 0, alpha = 1): skip its products
+    const bool live = qw < S && c0 <= qw + 15 &&
+                      (window <= 0 || c0 + TC_BKV - 1 > qw - window);
+    if (live) {
+      const int mi = lane >> 3;       // the 8x8 matrix this lane addresses
+      float s[TC_BKV / 8][4];
+#pragma unroll
+      for (int j = 0; j < TC_BKV / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+      // S = Q K^T: K rows are keys with hd contiguous, the col-major B
+#pragma unroll
+      for (int j2 = 0; j2 < TC_BKV / 16; ++j2) {
+#pragma unroll
+        for (int kk = 0; kk < NHD; ++kk) {
+          uint32_t b0, b1, b2, b3;
+          hopper::ldsm_x4(b0, b1, b2, b3,
+                          kt + (16 * j2 + 8 * (mi >> 1) + (lane & 7)) * LD + 16 * kk + 8 * (mi & 1));
+          hopper::mma_bf16(s[2 * j2], qf[kk], b0, b1);
+          hopper::mma_bf16(s[2 * j2 + 1], qf[kk], b2, b3);
+        }
+      }
+      // keep-gate, scale and the online softmax; a row's values sit in the
+      // lane quad l / 4, so max and sum reduce over lanes xor 1 and 2.
+      // Scores are kept in log2 units (scale * log2 e folded in), so every
+      // exponential is one exp2. A tile whose keys every row of the warp
+      // keeps (below the diagonal, inside the band, before S) skips the gate.
+      float al_lo, al_hi, sum_lo = 0.f, sum_hi = 0.f;
+      auto softmax = [&](auto gated) {
+        constexpr bool GATE = decltype(gated)::value;
+        uint32_t keep = 0;
+        float mx_lo = NEG_INF, mx_hi = NEG_INF;
+#pragma unroll
+        for (int j = 0; j < TC_BKV / 8; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            if constexpr (GATE) {
+              const int qp = e < 2 ? r_lo : r_hi;
+              const int kp = c0 + 8 * j + cq + (e & 1);
+              const bool kb = qp < S && kp <= qp && kp < S && (window <= 0 || kp > qp - window);
+              keep |= (uint32_t)kb << (4 * j + e);
+              s[j][e] = kb ? s[j][e] * scale2 : NEG_INF;
+            } else {
+              s[j][e] *= scale2;
+            }
+          }
+          mx_lo = fmaxf(mx_lo, fmaxf(s[j][0], s[j][1]));
+          mx_hi = fmaxf(mx_hi, fmaxf(s[j][2], s[j][3]));
+        }
+#pragma unroll
+        for (int o_ = 1; o_ <= 2; o_ <<= 1) {
+          mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, o_));
+          mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, o_));
+        }
+        const float mn_lo = fmaxf(m_lo, mx_lo), mn_hi = fmaxf(m_hi, mx_hi);
+        al_lo = exp2f(m_lo - mn_lo);
+        al_hi = exp2f(m_hi - mn_hi);
+#pragma unroll
+        for (int j = 0; j < TC_BKV / 8; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float pe = exp2f(s[j][e] - (e < 2 ? mn_lo : mn_hi));
+            // explicit keep-gating: exp(NEG_INF - NEG_INF) would be 1, not 0
+            if constexpr (GATE) s[j][e] = (keep >> (4 * j + e)) & 1u ? pe : 0.f;
+            else s[j][e] = pe;
+          }
+          sum_lo += s[j][0] + s[j][1];
+          sum_hi += s[j][2] + s[j][3];
+        }
+        m_lo = mn_lo;
+        m_hi = mn_hi;
+      };
+      const bool interior = c0 + TC_BKV - 1 <= qw && c0 + TC_BKV - 1 < S &&
+                            (window <= 0 || c0 + window > qw + 15);
+      if (interior) softmax(std::false_type{});
+      else softmax(std::true_type{});
+#pragma unroll
+      for (int o_ = 1; o_ <= 2; o_ <<= 1) {
+        sum_lo += __shfl_xor_sync(0xffffffffu, sum_lo, o_);
+        sum_hi += __shfl_xor_sync(0xffffffffu, sum_hi, o_);
+      }
+      l_lo = l_lo * al_lo + sum_lo;      // l from the fp32 p
+      l_hi = l_hi * al_hi + sum_hi;
+#pragma unroll
+      for (int d = 0; d < 2 * NHD; ++d) {
+        o[d][0] *= al_lo;
+        o[d][1] *= al_lo;
+        o[d][2] *= al_hi;
+        o[d][3] *= al_hi;
+      }
+      // O += P V with P rounded to bf16 (the reference's p.astype(v.dtype)):
+      // the score fragments of keys 16 j .. 16 j + 15 are the A fragment;
+      // V rows are keys with hd contiguous, read transposed into the B
+#pragma unroll
+      for (int j = 0; j < TC_BKV / 16; ++j) {
+        const uint32_t pa[4] = {hopper::pack_bf16(s[2 * j][0], s[2 * j][1]),
+                                hopper::pack_bf16(s[2 * j][2], s[2 * j][3]),
+                                hopper::pack_bf16(s[2 * j + 1][0], s[2 * j + 1][1]),
+                                hopper::pack_bf16(s[2 * j + 1][2], s[2 * j + 1][3])};
+#pragma unroll
+        for (int d2 = 0; d2 < NHD; ++d2) {
+          uint32_t b0, b1, b2, b3;
+          hopper::ldsm_x4_trans(b0, b1, b2, b3,
+                                vt + (16 * j + 8 * (mi & 1) + (lane & 7)) * LD + 16 * d2 + 8 * (mi >> 1));
+          hopper::mma_bf16(o[2 * d2], pa, b0, b1);
+          hopper::mma_bf16(o[2 * d2 + 1], pa, b2, b3);
+        }
+      }
+    }
+    __syncthreads();                  // buffer it & 1 is refilled at it + 2
+  }
+  hopper::cp_async_wait<0>();
+
+  const float lc_lo = fmaxf(l_lo, 1e-30f), lc_hi = fmaxf(l_hi, 1e-30f);
+  bf16* om = out + (size_t)bh * S * HD;
+#pragma unroll
+  for (int d = 0; d < 2 * NHD; ++d) {
+    const int col = 8 * d + cq;
+    if (r_lo < S)
+      *reinterpret_cast<uint32_t*>(om + (size_t)r_lo * HD + col) =
+          hopper::pack_bf16(o[d][0] / lc_lo, o[d][1] / lc_lo);
+    if (r_hi < S)
+      *reinterpret_cast<uint32_t*>(om + (size_t)r_hi * HD + col) =
+          hopper::pack_bf16(o[d][2] / lc_hi, o[d][3] / lc_hi);
+  }
+}
+
+template <int NHD>
+int launch_tc_nhd(const void* q, const void* k, const void* v, void* out, int BH,
+                  int S, int H, int G, int window, float scale, cudaStream_t stream) {
+  const size_t smem = tc_smem_bytes(16 * NHD);
+  static bool attr_set = false;
+  if (!attr_set && smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        swa_tc_kernel<NHD>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    attr_set = true;
+  }
+  const int nw = tc_warps(S);
+  const dim3 grid(BH, (S + 16 * nw - 1) / (16 * nw));
+  swa_tc_kernel<NHD><<<grid, 32 * nw, smem, stream>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)out, S, H, G, window, scale);
+  return (int)cudaGetLastError();
+}
+
 bool bad_args(int BH, int S, int hd, int H, int G, int T) {
   return BH < 1 || S < 1 || hd < 1 || hd > HD_MAX || H < 1 || G < 1 ||
          H % G != 0 || BH % H != 0 || T < 1 || T > T_MAX ||
@@ -372,4 +634,26 @@ extern "C" int swa_attention_mt_jvps(int dtype, const void* q, const void* k,
   if (dtype == 1)
     return launch<__nv_bfloat16, JVPS>(q, k, v, qd, kd, vd, gy, parts, BH, S, hd, H, G, T, window, scale, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// bf16, hd % 16 == 0, 16-byte aligned: the tensor-core primal. window <= 0
+// means full causal.
+extern "C" int swa_attention_fwd_tc(const void* q, const void* k, const void* v,
+                                    void* out, int BH, int S, int hd, int H, int G,
+                                    int window, float scale, void* stream) {
+  if (bad_args(BH, S, hd, H, G, 1) || hd % 16 != 0 ||
+      ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)out) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (hd / 16) {
+    case 1: return launch_tc_nhd<1>(q, k, v, out, BH, S, H, G, window, scale, s);
+    case 2: return launch_tc_nhd<2>(q, k, v, out, BH, S, H, G, window, scale, s);
+    case 3: return launch_tc_nhd<3>(q, k, v, out, BH, S, H, G, window, scale, s);
+    case 4: return launch_tc_nhd<4>(q, k, v, out, BH, S, H, G, window, scale, s);
+    case 5: return launch_tc_nhd<5>(q, k, v, out, BH, S, H, G, window, scale, s);
+    case 6: return launch_tc_nhd<6>(q, k, v, out, BH, S, H, G, window, scale, s);
+    case 7: return launch_tc_nhd<7>(q, k, v, out, BH, S, H, G, window, scale, s);
+    case 8: return launch_tc_nhd<8>(q, k, v, out, BH, S, H, G, window, scale, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

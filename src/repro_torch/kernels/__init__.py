@@ -19,7 +19,9 @@ build.py        nvcc build at first use, ctypes loading
 csrc/           the CUDA sources
 
 Each kernel module keeps a plain PyTorch version beside its wrapper (CPU
-tensors take it) and a launch counter that only a kernel launch moves.
+tensors take it) and a launch counter that only a kernel launch moves; the
+two wrappers with more than one kernel route (``lora_dual_mt`` and the
+``swa_attention`` primal) also count their calls by route.
 """
 from repro_torch.kernels.lora_dual import ops as _lora_ops
 from repro_torch.kernels.mamba2_scan import ops as _mamba2_ops
@@ -28,6 +30,7 @@ from repro_torch.kernels.wkv6_scan import ops as _wkv6_ops
 
 _COUNTERS = (_lora_ops.launches, _swa_ops.launches, _mamba2_ops.launches,
              _wkv6_ops.launches)
+_PATH_COUNTERS = (_lora_ops.launches_by_path, _swa_ops.launches_by_path)
 
 
 def launch_counts() -> dict:
@@ -35,7 +38,18 @@ def launch_counts() -> dict:
     return {k: v for c in _COUNTERS for k, v in c.items()}
 
 
+def launch_paths() -> dict:
+    """{kernel name: {route: launches since the last reset}} for the kernels
+    with more than one route."""
+    return {k: dict(v) for c in _PATH_COUNTERS for k, v in c.items()}
+
+
 def reset_launch_counts() -> None:
+    """Zero every launch counter, the per-route ones included."""
     for c in _COUNTERS:
         for k in c:
             c[k] = 0
+    for c in _PATH_COUNTERS:
+        for paths in c.values():
+            for p in paths:
+                paths[p] = 0

@@ -2,16 +2,19 @@
 
 Each ``.cu`` source is compiled by its own ``nvcc`` process (all started
 together) into a shared library with a plain C interface for ``sm_90a``,
-then loaded with ``ctypes``. Libraries are cached by source hash in
-``<repo>/build/kernels`` (listed in ``.gitignore``), so a fresh checkout
-builds everything on its first call and nothing afterwards. Nothing here
-runs at import time: the CPU-only test environment has no ``nvcc``.
+then loaded with ``ctypes``. Libraries are cached by a hash of the source,
+every header it includes with quotes (``csrc/hopper.cuh``) and the flags,
+in ``<repo>/build/kernels`` (listed in ``.gitignore``), so a fresh checkout
+builds everything on its first call and nothing afterwards, and an edited
+header rebuilds every source that includes it. Nothing here runs at import
+time: the CPU-only test environment has no ``nvcc``.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -36,10 +39,30 @@ def _nvcc() -> str:
     return found
 
 
+_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.M)
+
+
+def _inputs(path: Path, seen=None) -> list:
+    """``path`` and, depth first, every file it includes with quotes
+    (resolved beside the including file, as nvcc does), each once."""
+    seen = [] if seen is None else seen
+    path = path.resolve()
+    if path in seen:
+        return seen
+    seen.append(path)
+    for name in _INCLUDE.findall(path.read_bytes()):
+        inc = path.parent / name.decode()
+        if inc.exists():
+            _inputs(inc, seen)
+    return seen
+
+
 def _target(name: str) -> Path:
-    digest = hashlib.sha1((CSRC / SOURCES[name]).read_bytes()
-                          + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"{name}-{digest}.so"
+    h = hashlib.sha1()
+    for path in _inputs(CSRC / SOURCES[name]):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:12]}.so"
 
 
 def build(names=None) -> dict:

@@ -13,18 +13,37 @@ lora_dual_mt_kernel`` (body ``_mt_kernel``) in its ``emit_primal=False``
 route (``ops.lora_dual_mt_tangents``), the one ``kernels/dispatch.py``
 takes for every LoRA projection inside the estimator.
 
-On the H100: with an input tangent the T GEMMs xdot_t@W (2·T·M·K·N
-operations) bound the kernel by operations at the main path's shapes; with
-none (the first layer) only rank-r work is left and writing the (T,M,N)
-output bounds it by bytes. The CUDA kernel (``csrc/lora_dual_mt.cu``) is
-one launch over a (N/64, M/64, T) grid: each block accumulates one
-tangent's 64x64 output tile in registers (fp32, plain SIMT FMAs) and the
-block's rank-r pieces x@A and x@Adot_t + xdot_t@A in shared memory during
-the same K loop, then adds the rank-r finish in the epilogue. x, xdot and
-W may be fp32 or bf16 (converted on load); the LoRA factors are fp32; the
-output is rounded once to x's dtype. Ragged M/N/K edges are masked in the
-kernel, never padded in device memory. Tensor-core use (wgmma) and reading
-W once for all T tangents are later work.
+On the H100 (``csrc/lora_dual_mt.cu``, whose header holds the full note):
+with an input tangent the T GEMMs xdot_t@W (2·T·M·K·N operations) bound
+the call by operations at the main path's T·M >= 1024 and by the bytes of
+W and xdot at T=1; with none (the first perturbed unit) only rank-r work is
+left and writing the (T,M,N) output bounds it by bytes. Three routes, one
+rule (``lora_mt_path``):
+
+- ``tc`` (bf16 with an input tangent, K and N multiples of 8, every
+  operand, the fp32 LoRA factors too, on a 16-byte boundary): the T
+  tangents are one GEMM of T·M rows on bf16 ``wgmma`` with fp32
+  accumulators; a producer warp keeps the TMA unit
+  filling a ring of 128-byte-swizzled tiles through mbarriers, and the two
+  blocks of a cluster share each W tile by TMA multicast; blocks sharing a
+  strip of W run side by side, so W is read from device memory about once
+  a call, not once a tangent. A pre-pass kernel in the same call forms
+  u = x@A and udot_t = x@Adot_t + xdot_t@A in fp32 (fixed summation
+  order); the GEMM's epilogue adds s·(udot_t@B + u@Bdot_t) to the fp32
+  accumulator and rounds once.
+- ``store`` (bf16, no input tangent, the same alignment): the same
+  pre-pass, then a store-bound kernel that never reads W, stages its B and
+  Bdot_t columns once a block and writes 16-byte vectors.
+- ``simt`` (fp32, or off that alignment): one launch over a
+  (N/64, M/64, T) grid of plain fp32 FMAs on 64x64 tiles with the rank-r
+  pieces accumulated in shared memory in the same K loop. fp32 stays on it
+  because TF32 tensor cores keep about three digits and the reduced fp32
+  configs are held to the CPU at 1e-5.
+
+LoRA factors are fp32; the output is rounded once to x's dtype. Ragged
+M/N/K edges are masked in the kernels, never padded in device memory.
+``launches_by_path`` counts each call by the route it took; ``launches``
+counts calls, one a call whatever the route.
 
 CPU tensors take the plain version below; CUDA tensors launch the kernel
 or raise.
@@ -41,6 +60,8 @@ R_MAX = 16          # LoRA rank bound of the kernel's shared-memory tiles
 JT_MAX = 64         # tangents a contraction-epilogue launch
 # kernel launches; the plain versions do not count
 launches = {"lora_dual_mt": 0, "lora_dual_mt_jvps": 0, "lora_dual_multi": 0}
+# lora_dual_mt_tangents calls by route (``lora_mt_path``); sums to launches
+launches_by_path = {"lora_dual_mt": {"tc": 0, "store": 0, "simt": 0}}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -63,12 +84,29 @@ def lora_dual_mt_tangents_ref(x, xdots, w, a, adots, b, bdots, scale):
     return yd.reshape((T,) + x.shape[:-1] + (w.shape[1],))
 
 
+def lora_mt_path(dtype, K, N, has_xd, aligned=True):
+    """The kernel a CUDA ``lora_dual_mt_tangents`` call takes: 'tc' (bf16,
+    an input tangent, K and N multiples of 8 and every operand starting on
+    16 bytes (``aligned``): the TMA unit copies 16-byte-strided rows of x,
+    xdots and w, and the pre-pass and epilogue load the fp32 factors in
+    float4 and float2 vectors),
+    'store' (the same without an input tangent) or 'simt' (fp32, or off
+    that alignment)."""
+    if dtype != torch.bfloat16 or K % 8 or N % 8 or not aligned:
+        return "simt"
+    return "tc" if has_xd else "store"
+
+
 def _fn(symbol):
     fn = getattr(build.load("lora_dual"), symbol)
     if fn.argtypes is None:
-        n_ptr = 8 if symbol == "lora_dual_mt_tangents" else 9
-        fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * n_ptr + \
-            [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
+        if symbol == "lora_dual_mt_tangents_bf16":
+            fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + \
+                [ctypes.c_float, ctypes.c_void_p]
+        else:
+            n_ptr = 8 if symbol == "lora_dual_mt_tangents" else 9
+            fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * n_ptr + \
+                [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -124,16 +162,28 @@ def lora_dual_mt_tangents(x, xdots, w, a, adots, b, bdots, scale=1.0):
     K, N = w.shape
     T, r = adots.shape[0], a.shape[1]
     M = x.numel() // K
+    path = lora_mt_path(x.dtype, K, N, xdots is not None,
+                        all(t.data_ptr() % 16 == 0
+                            for t in (x, xdots, w, a, adots, b, bdots) if t is not None))
     out = torch.empty((T,) + x.shape[:-1] + (N,), dtype=x.dtype, device=x.device)
     if M == 0 or N == 0:
         return out
-    err = _fn("lora_dual_mt_tangents")(_DTYPE_CODE[x.dtype], x.data_ptr(),
-             None if xdots is None else xdots.data_ptr(), w.data_ptr(),
-             a.data_ptr(), adots.data_ptr(), b.data_ptr(), bdots.data_ptr(),
-             out.data_ptr(), M, K, N, r, T, float(scale),
-             torch.cuda.current_stream(x.device).cuda_stream)
+    xd_ptr = None if xdots is None else xdots.data_ptr()
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if path == "simt":
+        err = _fn("lora_dual_mt_tangents")(
+            _DTYPE_CODE[x.dtype], x.data_ptr(), xd_ptr, w.data_ptr(), a.data_ptr(),
+            adots.data_ptr(), b.data_ptr(), bdots.data_ptr(), out.data_ptr(),
+            M, K, N, r, T, float(scale), stream)
+    else:       # u (M, r) and udot (T, M, r) of the rank-r pre-pass, fp32
+        scratch = torch.empty((T + 1) * M * r, dtype=torch.float32, device=x.device)
+        err = _fn("lora_dual_mt_tangents_bf16")(
+            x.data_ptr(), xd_ptr, w.data_ptr(), a.data_ptr(), adots.data_ptr(),
+            b.data_ptr(), bdots.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+            M, K, N, r, T, float(scale), stream)
     build.check(err, "lora_dual_mt_tangents")
     launches["lora_dual_mt"] += 1
+    launches_by_path["lora_dual_mt"][path] += 1
     return out
 
 

@@ -13,24 +13,37 @@ K tangents of every attention. Per tangent the walk carries
 
 and finishes ``outd = acc_d / l - (mu_d / l) * out``.
 
-On the H100 the primal is bound by operations at long S and by launch and
-latency at the main path's S=32; the tangent walk does 2 + 2 products per
-tangent per (query, key) pair on top of the primal's 2, so it is bound by
-operations, and by the bytes of its (T, B*H, S, hd) output at short S.
-The CUDA kernel (``csrc/swa_attention.cu``) gives each query row to one
-warp (lanes split hd, so the primal accumulator lives in registers) and
-walks 32-key chunks of the causal band staged in shared memory as fp32;
-lane j scores key j, the warp reduces max and sum with shuffles. The T
-tangent accumulators (T x hd per row) do not fit in registers for T up to
-64, so they live in the warp's slice of shared memory (the launch halves
-the warps a block until it fits), and each chunk's kd_t/vd_t tiles are
-staged one tangent at a time. No (S, S) or (T, S, S)
-tensor is ever written. The reference's numerics are kept: the explicit
-keep-gate on p (exp(NEG_INF - NEG_INF) would be 1), the clamp of l at
-1e-30, the band start ``(q_start - (window - 1)) // chunk`` with
-out-of-range keys masked, and the GQA map ``h // (H / KV)``. S and hd
-edges are masked in the kernel; hd <= 128. Tensor cores, TMA and
-multi-row tiles are later work.
+On the H100 the primal does 4·hd operations a kept (query, key) pair and
+reads q, k and v once: it is bound by operations at long S and by launch
+latency at the main path's S=32. In bf16 with hd a multiple of 16 (64 and
+128 cover every config; ``swa_path``) it runs on tensor cores
+(``csrc/swa_attention.cu``, ``swa_tc_kernel``, whose header holds the
+full note): a warp owns 16 query rows (the height of mma.sync.m16n8k16),
+a block is one (b, h) with min(4, ceil(S/16)) warps, so S=32 takes two
+full warps and S=2048 64-row blocks whose key tiles feed four warps. 64-key
+K/V tiles arrive by cp.async in a double-buffered shared-memory ring;
+Q stays in registers; S = Q·K^T and P·V run on the tensor cores with fp32
+accumulators, the online softmax on the score fragments (row max and sum
+over the lane quad by shuffles), P rounded to bf16 before P·V as the
+reference does, l summed from the fp32 p. ``launches_by_path`` counts
+each primal call by the route it took.
+
+The tangent walk does 2 + 2 products per tangent per (query, key) pair on
+top of the primal's 2, so it is bound by operations, and by the bytes of
+its (T, B*H, S, hd) output at short S. The fp32 primal, hd off the 16
+multiple, and the tangent and contraction modes run ``swa_kernel``: each
+query row to one warp (lanes split hd, so the primal accumulator lives in
+registers), walking 32-key chunks of the causal band staged in shared
+memory as fp32; lane j scores key j, the warp reduces max and sum with
+shuffles. The T tangent accumulators (T x hd per row) do not fit in
+registers for T up to 64, so they live in the warp's slice of shared
+memory (the launch halves the warps a block until it fits), and each
+chunk's kd_t/vd_t tiles are staged one tangent at a time. No (S, S) or
+(T, S, S) tensor is ever written. Both kernels keep the reference's
+numerics: the explicit keep-gate on p (exp(NEG_INF - NEG_INF) would be
+1), the clamp of l at 1e-30, the band start ``(q_start - (window - 1)) //
+tile`` with out-of-range keys masked, and the GQA map ``h // (H / KV)``.
+S and hd edges are masked in the kernels; hd <= 128.
 
 CPU tensors take the plain versions below; CUDA tensors launch a kernel
 or raise.
@@ -48,6 +61,8 @@ from repro_torch.kernels import build
 T_MAX = 64          # tangents a launch (the kernel's shared-memory plan)
 HD_MAX = 128
 launches = {"swa_attention": 0, "swa_attention_mt": 0, "swa_attention_mt_jvps": 0}
+# swa_attention (primal) calls by route (``swa_path``); sums to its launches
+launches_by_path = {"swa_attention": {"tc": 0, "simt": 0}}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -81,15 +96,25 @@ def swa_attention_mt_tangents_ref(q, k, v, qds, kds, vds, window=None):
     return torch.func.vmap(one)(qds, kds, vds)
 
 
+def swa_path(dtype, hd, aligned=True):
+    """The kernel a CUDA ``swa_attention`` (primal) call takes: 'tc' (bf16
+    with hd a multiple of 16, the depth of one mma step, and q, k, v on
+    16-byte boundaries (``aligned``) for the 16-byte copies of key and value
+    rows) or 'simt'."""
+    return "tc" if dtype == torch.bfloat16 and hd % 16 == 0 and aligned else "simt"
+
+
 _ARGS = {"swa_attention_fwd": (4, 6), "swa_attention_mt_tangents": (7, 7),
-         "swa_attention_mt_jvps": (8, 7)}     # (pointers, ints) after dtype
+         "swa_attention_mt_jvps": (8, 7),      # (pointers, ints) after dtype
+         "swa_attention_fwd_tc": (4, 6)}       # no dtype: bf16 only
 
 
 def _fn(symbol):
     fn = getattr(build.load("swa_attention"), symbol)
     if fn.argtypes is None:
         n_ptr, n_int = _ARGS[symbol]
-        fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * n_ptr + \
+        lead = [] if symbol == "swa_attention_fwd_tc" else [ctypes.c_int]
+        fn.argtypes = lead + [ctypes.c_void_p] * n_ptr + \
             [ctypes.c_int] * n_int + [ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
@@ -137,13 +162,17 @@ def swa_attention(q, k, v, window=None):
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
-    err = _fn("swa_attention_fwd")(
-        _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        out.data_ptr(), B * H, S, hd, H, H // k.shape[1],
-        -1 if window is None else int(window), 1.0 / math.sqrt(hd),
-        torch.cuda.current_stream(q.device).cuda_stream)
+    path = swa_path(q.dtype, hd, all(t.data_ptr() % 16 == 0 for t in (q, k, v)))
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B * H, S, hd,
+            H, H // k.shape[1], -1 if window is None else int(window),
+            1.0 / math.sqrt(hd), torch.cuda.current_stream(q.device).cuda_stream)
+    if path == "tc":
+        err = _fn("swa_attention_fwd_tc")(*args)
+    else:
+        err = _fn("swa_attention_fwd")(_DTYPE_CODE[q.dtype], *args)
     build.check(err, "swa_attention")
     launches["swa_attention"] += 1
+    launches_by_path["swa_attention"][path] += 1
     return out
 
 

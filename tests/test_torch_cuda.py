@@ -76,10 +76,49 @@ def test_lora_kernel_matches_plain(dev, dtype, M, K, N, r, T, has_xd):
     args = (x, xd, w, rn(K, r) / math.sqrt(K), rn(T, K, r) / math.sqrt(K),
             rn(r, N), rn(T, r, N), 0.5)
     before = ops.launches["lora_dual_mt"]
-    out = ops.lora_dual_mt_tangents(*args)
+    out = _one_launch_by(ops.launches_by_path["lora_dual_mt"],
+                         ops.lora_mt_path(dtype, K, N, has_xd),
+                         lambda: ops.lora_dual_mt_tangents(*args))
     torch.cuda.synchronize()
     assert ops.launches["lora_dual_mt"] == before + 1
     _close(out, ops.lora_dual_mt_tangents_ref(*_f32(args)), dtype)
+
+
+def _one_launch_by(counter, route, call):
+    """``call()``, which must count exactly one launch, on ``route`` of the
+    per-route ``counter``."""
+    before = dict(counter)
+    out = call()
+    assert {p: n - before[p] for p, n in counter.items() if n != before[p]} == {route: 1}
+    return out
+
+
+LORA_ROUTE_CASES = (
+    [(256, K, K, r, T, xd) for K in (1024, 4096) for r in (1, 16) for T in (1, 8, 64)
+     for xd in (True, False)]
+    + [(200, K, K, r, 3, xd) for K in (1024, 4096) for r in (1, 16)    # tiles straddle
+       for xd in (True, False)])                                      # two tangents
+
+
+@pytest.mark.parametrize("M,K,N,r,T,has_xd", LORA_ROUTE_CASES)
+def test_lora_bf16_routes_match_plain(dev, M, K, N, r, T, has_xd):
+    """The bf16 routes at the main path's widths and their edges: tensor-core
+    GEMM with an input tangent, the store kernel without, both held to the
+    plain version at the bf16 tolerance."""
+    from repro_torch.kernels.lora_dual import ops
+    g = torch.Generator(device=dev)
+    g.manual_seed(3)
+    rn = lambda *s: torch.randn(s, generator=g, device=dev)  # noqa: E731
+    x = rn(M, K).bfloat16()
+    xd = rn(T, M, K).bfloat16() if has_xd else None
+    w = (rn(K, N) / math.sqrt(K)).bfloat16()
+    args = (x, xd, w, rn(K, r) / math.sqrt(K), rn(T, K, r) / math.sqrt(K),
+            rn(r, N), rn(T, r, N), 0.5)
+    out = _one_launch_by(ops.launches_by_path["lora_dual_mt"],
+                         "tc" if has_xd else "store",
+                         lambda: ops.lora_dual_mt_tangents(*args))
+    torch.cuda.synchronize()
+    _close(out, ops.lora_dual_mt_tangents_ref(*_f32(args)), torch.bfloat16)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -97,12 +136,68 @@ def test_swa_kernels_match_plain(dev, dtype, B, H, KV, S, hd, window, T):
     rn = lambda *s: torch.randn(s, generator=g, device=dev).to(dtype)  # noqa: E731
     q, k, v = rn(B, H, S, hd), rn(B, KV, S, hd), rn(B, KV, S, hd)
     qd, kd, vd = rn(T, B, H, S, hd), rn(T, B, KV, S, hd), rn(T, B, KV, S, hd)
-    out = ops.swa_attention(q, k, v, window)
+    out = _one_launch_by(ops.launches_by_path["swa_attention"], ops.swa_path(dtype, hd),
+                         lambda: ops.swa_attention(q, k, v, window))
     outd = ops.swa_attention_mt_tangents(q, k, v, qd, kd, vd, window)
     torch.cuda.synchronize()
     _close(out, ops.swa_attention_ref(*_f32((q, k, v)), window), dtype)
     _close(outd, ops.swa_attention_mt_tangents_ref(*_f32((q, k, v, qd, kd, vd)),
                                                    window), dtype)
+
+
+@pytest.mark.parametrize("window", [None, 256])
+@pytest.mark.parametrize("kv_div", [1, 4], ids=["KV=H", "KV=H/4"])
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("S", [1, 17, 32, 2048])
+def test_swa_primal_tensor_core_route_matches_plain(dev, S, hd, kv_div, window):
+    """The bf16 primal on tensor cores from one query row to a long
+    sequence, full and banded, MHA and GQA."""
+    from repro_torch.kernels.swa_attention import ops
+    g = torch.Generator(device=dev)
+    g.manual_seed(4)
+    B, H = (1, 8) if S == 2048 else (2, 8)
+    KV = H // kv_div
+    rn = lambda *s: torch.randn(s, generator=g, device=dev).bfloat16()  # noqa: E731
+    q, k, v = rn(B, H, S, hd), rn(B, KV, S, hd), rn(B, KV, S, hd)
+    out = _one_launch_by(ops.launches_by_path["swa_attention"], "tc",
+                         lambda: ops.swa_attention(q, k, v, window))
+    torch.cuda.synchronize()
+    _close(out, ops.swa_attention_ref(*_f32((q, k, v)), window), torch.bfloat16)
+
+
+def test_unaligned_bf16_operands_take_the_simt_route(dev):
+    """A view that starts off a 16-byte boundary cannot feed the TMA or
+    cp.async copies, nor the vector loads of the fp32 LoRA factors: the
+    wrappers take the plain-FMA kernels, which hold. Shifted once x and
+    xdots, once adots alone."""
+    from repro_torch.kernels.lora_dual import ops as lops
+    from repro_torch.kernels.swa_attention import ops as sops
+    g = torch.Generator(device=dev)
+    g.manual_seed(5)
+
+    def rn(*shape, shift=False, scale=1.0, dtype=torch.float32):
+        """contiguous; with ``shift`` one element past an aligned start"""
+        n = math.prod(shape)
+        t = (torch.randn(n + 1, generator=g, device=dev) * scale).to(dtype)
+        return t[int(shift):n + int(shift)].view(shape)
+    M, K, N, T = 64, 256, 128, 4
+    sk = 1 / math.sqrt(K)
+    for shift_x, shift_adots in ((True, False), (False, True)):
+        bf = torch.bfloat16
+        args = (rn(M, K, shift=shift_x, dtype=bf), rn(T, M, K, shift=shift_x, dtype=bf),
+                rn(K, N, scale=sk, dtype=bf), rn(K, 1, scale=sk),
+                rn(T, K, 1, shift=shift_adots, scale=sk), rn(1, N), rn(T, 1, N), 0.5)
+        assert (args[0].data_ptr() % 16 != 0) == shift_x
+        assert (args[4].data_ptr() % 16 != 0) == shift_adots
+        out = _one_launch_by(lops.launches_by_path["lora_dual_mt"], "simt",
+                             lambda: lops.lora_dual_mt_tangents(*args))
+        torch.cuda.synchronize()
+        _close(out, lops.lora_dual_mt_tangents_ref(*_f32(args)), torch.bfloat16)
+    q, k, v = (rn(1, 4, 40, 64, shift=True, dtype=torch.bfloat16) for _ in range(3))
+    att = _one_launch_by(sops.launches_by_path["swa_attention"], "simt",
+                         lambda: sops.swa_attention(q, k, v))
+    torch.cuda.synchronize()
+    _close(att, sops.swa_attention_ref(*_f32((q, k, v))), torch.bfloat16)
 
 
 def test_wrappers_raise_instead_of_falling_back(dev):

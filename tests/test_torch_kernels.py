@@ -13,6 +13,7 @@ kernels themselves are held against these plain versions on the card
 (tests/test_torch_cuda.py, chip_smoke.py).
 """
 import functools
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -558,3 +559,126 @@ def test_mamba2_wrappers_check_and_never_take_the_plain_version(monkeypatch):
         m2_ops.mamba2_scan_mt_jvps(t, t, t, t, t, t, t, t, t)
     assert m2_ops.launches == {"mamba2_scan": 0, "mamba2_scan_mt": 0,
                                "mamba2_scan_mt_jvps": 0}
+
+
+# ---------------------------------------------------------------------------
+# kernel routes: which kernel a CUDA call takes (decided on the host, so it
+# is tested here without a card)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype,K,N,has_xd,aligned,want", [
+    (torch.bfloat16, 1024, 1024, True, True, "tc"),       # roberta-large
+    (torch.bfloat16, 1024, 1024, False, True, "store"),   # no input tangent
+    (torch.bfloat16, 4096, 4096, True, True, "tc"),       # llama2-7b
+    (torch.bfloat16, 2048, 8192, True, True, "tc"),       # zamba2 in_proj
+    (torch.bfloat16, 8, 8, False, True, "store"),         # the smallest aligned widths
+    (torch.bfloat16, 1004, 1024, True, True, "simt"),     # K off the 8-element rows
+    (torch.bfloat16, 1024, 1020, False, True, "simt"),    # N off them
+    (torch.bfloat16, 100, 72, True, True, "simt"),
+    (torch.bfloat16, 1024, 1024, True, False, "simt"),    # an operand off 16 bytes
+    (torch.bfloat16, 1024, 1024, False, False, "simt"),
+    (torch.float32, 1024, 1024, True, True, "simt"),      # fp32 stays exact fp32
+    (torch.float32, 1024, 1024, False, True, "simt"),
+    (torch.float16, 1024, 1024, True, True, "simt"),
+])
+def test_lora_mt_path_rule(dtype, K, N, has_xd, aligned, want):
+    assert lora_ops.lora_mt_path(dtype, K, N, has_xd, aligned) == want
+
+
+@pytest.mark.parametrize("dtype,hd,aligned,want", [
+    (torch.bfloat16, 64, True, "tc"), (torch.bfloat16, 128, True, "tc"),
+    (torch.bfloat16, 16, True, "tc"), (torch.bfloat16, 48, True, "tc"),
+    (torch.bfloat16, 64, False, "simt"),       # a view off the 16-byte copies
+    (torch.bfloat16, 40, True, "simt"), (torch.bfloat16, 72, True, "simt"),
+    (torch.bfloat16, 8, True, "simt"), (torch.float32, 64, True, "simt"),
+    (torch.float32, 128, True, "simt"), (torch.float16, 64, True, "simt"),
+])
+def test_swa_path_rule(dtype, hd, aligned, want):
+    assert swa_ops.swa_path(dtype, hd, aligned) == want
+
+
+@pytest.mark.parametrize("arch", ["roberta-large-lora", "llama2-7b", "zamba2-1.2b",
+                                  "rwkv6-1.6b"])
+def test_full_width_main_path_takes_the_tensor_core_routes(arch):
+    """At full published width (bf16) every LoRA target and attention head
+    width of the training path is aligned for the tensor-core kernels."""
+    from repro_torch.configs import SpryConfig, get_config
+    from repro_torch.peft.lora import default_lora_targets, target_dims
+    cfg = get_config(arch)
+    targets = list(default_lora_targets(cfg))
+    if cfg.family == "hybrid":
+        targets += list(SpryConfig().lora_targets)      # the shared attention's
+    for t in targets:
+        K, N = target_dims(cfg, t)
+        assert lora_ops.lora_mt_path(torch.bfloat16, K, N, True) == "tc", (t, K, N)
+        assert lora_ops.lora_mt_path(torch.bfloat16, K, N, False) == "store", (t, K, N)
+    if cfg.family in ("dense", "hybrid"):
+        assert swa_ops.swa_path(torch.bfloat16, cfg.hd) == "tc"
+
+
+def test_route_counters_reset_with_the_launch_counters():
+    from repro_torch.kernels import launch_counts, launch_paths, reset_launch_counts
+    lora_ops.launches_by_path["lora_dual_mt"]["tc"] += 2
+    swa_ops.launches_by_path["swa_attention"]["simt"] += 1
+    try:
+        assert launch_paths()["lora_dual_mt"]["tc"] >= 2
+        assert set(launch_paths()) == {"lora_dual_mt", "swa_attention"}
+        assert set(launch_paths()["lora_dual_mt"]) == {"tc", "store", "simt"}
+    finally:
+        reset_launch_counts()
+    assert all(n == 0 for by in launch_paths().values() for n in by.values())
+    assert set(launch_counts()) >= {"lora_dual_mt", "swa_attention"}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_tensors_never_take_the_plain_version_on_any_route(monkeypatch, dtype):
+    """As above, on each route: a stand-in CUDA tensor of either dtype
+    raises without reaching a plain version or moving a counter."""
+    def plain_reached(*a, **k):
+        pytest.fail("a CUDA tensor reached the plain version")
+    monkeypatch.setattr(lora_ops, "lora_dual_mt_tangents_ref", plain_reached)
+    monkeypatch.setattr(swa_ops, "swa_attention_ref", plain_reached)
+    monkeypatch.setattr(lora_ops, "_check", lambda *a, **k: None)
+    monkeypatch.setattr(swa_ops, "_check", lambda *a, **k: None)
+
+    class OnCuda:
+        """Stands in for a CUDA tensor (this torch has no CUDA)."""
+        device = torch.device("cuda")
+        shape = (1, 2, 4, 64)
+
+        def __init__(self, dt):
+            self.dtype = dt
+
+        def numel(self):
+            return 512
+    t = OnCuda(dtype)
+    z = torch.zeros(64, 64, dtype=dtype)
+    from repro_torch.kernels import launch_paths
+    before = launch_paths()
+    for xd in (None, z[None]):
+        with pytest.raises(Exception):    # no CUDA in this torch
+            lora_ops.lora_dual_mt_tangents(t, xd, z, z[:, :1].float(),
+                                           z[None, :, :1].float(), z[:1].float(),
+                                           z[None, :1].float())
+    with pytest.raises(Exception):
+        swa_ops.swa_attention(t, t, t, None)
+    assert launch_paths() == before
+
+
+def test_build_hash_covers_included_headers(monkeypatch, tmp_path):
+    """A library is cached by its source and every header the source
+    includes with quotes: editing a header changes the target."""
+    from repro_torch.kernels import build
+    (tmp_path / "a.cuh").write_text('#pragma once\n#include "b.cuh"\n')
+    (tmp_path / "b.cuh").write_text("// b, v1\n")
+    (tmp_path / "k.cu").write_text('#include <cuda_runtime.h>\n#include "a.cuh"\n')
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    monkeypatch.setattr(build, "SOURCES", {"k": "k.cu"})
+    assert [p.name for p in build._inputs(tmp_path / "k.cu")] == ["k.cu", "a.cuh", "b.cuh"]
+    first = build._target("k")
+    assert build._target("k") == first
+    (tmp_path / "b.cuh").write_text("// b, v2\n")
+    assert build._target("k") != first
+    csrc = Path(build.__file__).resolve().parents[1] / "csrc"
+    for src in ("lora_dual_mt.cu", "swa_attention.cu"):
+        assert [p.name for p in build._inputs(csrc / src)] == [src, "hopper.cuh"]
