@@ -10,9 +10,10 @@ Phases, in order (any failure raises and exits non-zero):
   2. build    nvcc builds every CUDA source of the path for sm_90a, in
               parallel; prints each kernel's registers, shared memory and
               spills (-Xptxas -v), and the count of tensor-core instructions
-              in the SASS (cuobjdump -sass) of the two tensor-core kernels:
-              HGMMA in ``lora_mt_tc_kernel``, HMMA in ``swa_tc_kernel``;
-              fails if an instantiation has none
+              in the SASS (cuobjdump -sass) of the three tensor-core kernels:
+              HGMMA in ``lora_mt_tc_kernel``, HMMA in ``swa_tc_kernel``,
+              DMMA (fp64) in ``mamba2_ssd_kernel``; fails if an
+              instantiation has none
   3. kernels  each of the twelve kernels against its plain PyTorch version on
               the card at the main path's shapes (roberta-large, llama2-7b,
               zamba2, rwkv6-1.6b) and one long shape. ``lora_dual_mt`` and
@@ -31,10 +32,14 @@ Phases, in order (any failure raises and exits non-zero):
               and bf16 (the kernel's bf16 output against the plain version
               run in fp32 on the same bf16-valued inputs, rtol = atol =
               2e-2). The mamba2 recurrence (fp32 only, as the reference's
-              kernels): zamba2's shapes (B=8, S=32, H=64, hd=N=64), a ragged
-              shape and N=100, T in {1, 8, 64}; a T=8 launch must equal eight
-              T=1 launches bit for bit (tangents and contraction) and two
-              contraction launches must agree bit for bit. The wkv6
+              kernels): zamba2's shapes (B=8, S=32, H=64, hd=N=64), S=33
+              (one token past a 32-token chunk), a ragged shape, N=100 and
+              three chunks (S=70, hd=40), T in {1, 8, 64}, and zamba2's
+              widths at S=1024 (B=1, T in {1, 8}); a T=8 launch must equal
+              eight T=1 launches bit for bit (tangents and contraction, at
+              one chunk and across chunks) and two contraction launches
+              must agree bit for bit. Rows 10 and 11 also print
+              ``eager_ms``, as rows 1 and 2 do. The wkv6
               recurrence (fp32 only, as the reference's kernels): rwkv6-1.6b's
               shapes (B=8, S=32, H=32, hd=64), a ragged shape (S=37, B*H=15,
               hd=40) and S=1024, T in {1, 8, 64}, with and without a tangent
@@ -154,7 +159,7 @@ SOURCES = {
     "swa_attention_mt_jvps": "src/repro_torch/csrc/swa_attention.cu",
     "lora_dual_mt_jvps": "src/repro_torch/csrc/lora_dual_mt.cu",
     "mamba2_scan": "src/repro_torch/csrc/mamba2_scan.cu",
-    "mamba2_scan_mt": "src/repro_torch/csrc/mamba2_scan.cu",
+    "mamba2_scan_mt": "src/repro_torch/csrc/mamba2_ssd.cu",
     "mamba2_scan_mt_jvps": "src/repro_torch/csrc/mamba2_scan.cu",
     "lora_dual_multi": "src/repro_torch/csrc/lora_dual_multi.cu",
     "wkv6_scan": "src/repro_torch/csrc/wkv6_scan.cu",
@@ -176,7 +181,7 @@ def time_ms(fn, graph=True, windows=3):
     and yardstick) n calls are captured once into a CUDA graph and each
     window replays it, so a call is timed at the device's rate, not at the
     rate the host launches it, and a kernel and its plain version are timed
-    alike; without (``eager_ms`` of rows 1 and 2: what a call costs on the
+    alike; without (``eager_ms`` of rows 1, 2, 10 and 11: what a call costs on the
     main path, host work included) the calls run eagerly. A window holds at
     least 200 calls of anything under 0.1 ms, and about 0.1 s of calls (at
     least 3) of anything slower. Three warm-up calls, timed on the host,
@@ -491,17 +496,61 @@ def mamba2_inputs(B, S, H, hd, N, T, gen):
     return prim, tang, rn(B, S, H, hd)
 
 
-def mamba2_cases(B, S, H, hd, N, T, gen, timed):
+def mamba2_flops(B, S, H, hd, N, T):
+    """fp32 operations of the primal, the tangent pass and the contraction:
+    for each, the lesser of the recurrent form's count and the chunked
+    (state-space-dual) form's, so a chunked kernel is never held to the
+    recurrent form's work."""
+    el = B * S * H * hd * N              # state elements walked a token
+    contract = 2 * T * B * S * H * hd
+    # recurrent: the state update h <- d h + x B^T 3 flops an element, the
+    # readout y = h C 2 (the primal only); a tangent's update 7, its two
+    # readouts 4
+    rec_p, rec_t = 5 * el, 3 * el + 11 * T * el
+    # chunked, per chunk of q <= 32 tokens and its lower triangles of
+    # p = q (q + 1) / 2 entries: G = C B^T 2 N p a batch row; L o G 2 p a
+    # head (L by running products) and y = (L o G) x 2 hd p. After the
+    # first chunk the readout Lc C h^T, 2 q N hd + 2 q hd a head; before
+    # the last the update h <- Lc h + x^T diag(L) B, 2 q hd N + 2 hd N. A
+    # tangent: Gd = Cd B^T + C Bd^T 4 N p a batch row; Ld and
+    # Ld o G + L o Gd 6 p, yd 4 hd p a head; its readout and its update
+    # three products each (hd, h Cd, h Lcd; xd, Ld, Bd), 2 q hd N apiece
+    ch_p = ch_state = ch_t = 0
+    for s0 in range(0, S, 32):
+        q = min(32, S - s0)
+        p = q * (q + 1) // 2
+        readout, update = s0 > 0, s0 + q < S
+        state = (2 * N * p * B + 2 * p * B * H
+                 + update * (2 * q * hd * N + 2 * hd * N) * B * H)
+        ch_state += state
+        ch_p += state + (2 * hd * p + readout * (2 * q * N * hd + 2 * q * hd)) * B * H
+        head = 6 * p + 4 * hd * p + (readout + update) * 6 * q * hd * N
+        ch_t += 4 * N * p * B + head * B * H
+    return {"mamba2_scan": min(rec_p, ch_p),
+            "mamba2_scan_mt": min(rec_t, ch_state + T * ch_t),
+            "mamba2_scan_mt_jvps": min(rec_t, ch_state + T * ch_t) + contract}
+
+
+def mamba2_cases(B, S, H, hd, N, T, gen, timed, plain_once=False):
     """The three mamba2 kernels on one problem (fp32, their only dtype):
     primal and tangents against the plain versions (``close``), the
-    contraction against JVPS_RTOL x sum|terms|. Returns {kernel: result}."""
+    contraction against JVPS_RTOL x sum|terms|. ``plain_once``: the plain
+    versions' times are the one call of each that gives the reference (a
+    walk of one launch a token and op) instead of graph replays. Returns
+    {kernel: result}."""
     import torch
     from repro_torch.kernels.mamba2_scan import ops
     prim, tang, gy = mamba2_inputs(B, S, H, hd, N, T, gen)
     shape = f"B={B} S={S} H={H} hd={hd} N={N}"
     out = {}
     y = ops.mamba2_scan(*prim)
-    y_ref, yd_ref = ops.mamba2_scan_mt_ref(*prim, *tang)
+    plain_ms = {}
+    if plain_once:
+        y_ref, plain_ms["mamba2_scan"] = timed_once(lambda: ops.mamba2_scan_ref(*prim)[0])
+        (_, yd_ref), plain_ms["mamba2_scan_mt"] = timed_once(
+            lambda: ops.mamba2_scan_mt_ref(*prim, *tang))
+    else:
+        y_ref, yd_ref = ops.mamba2_scan_mt_ref(*prim, *tang)
     yd = ops.mamba2_scan_mt_tangents(*prim, *tang)
     jv = ops.mamba2_scan_mt_jvps(*prim, *tang, gy)
     jv_ref = torch.einsum("bshd,tbshd->t", gy, yd_ref)
@@ -515,15 +564,15 @@ def mamba2_cases(B, S, H, hd, N, T, gen, timed):
     out["mamba2_scan_mt_jvps"] = {"max_abs_err": err, "err_over_terms": rel}
     del yd_ref
     if timed:
-        el = B * S * H * hd * N            # state elements walked a token
+        # bound = max(bytes / 3.35 TB/s, flops / 67 TFLOP/s): each input read
+        # once, each output written once; flops from ``mamba2_flops``
         prim_bytes = 4 * (2 * B * S * H * hd + 2 * B * S * N + B * S * H)
         tang_bytes = 4 * T * (2 * B * S * H * hd + 2 * B * S * N + B * S * H)
-        # the primal walk: 3 flops an element for the state update, 2 for
-        # the readout y = h C, which the tangent modes do not emit
-        costs = {"mamba2_scan": (5 * el, prim_bytes),
-                 "mamba2_scan_mt": (3 * el + 11 * T * el,
+        flops = mamba2_flops(B, S, H, hd, N, T)
+        costs = {"mamba2_scan": (flops["mamba2_scan"], prim_bytes),
+                 "mamba2_scan_mt": (flops["mamba2_scan_mt"],
                                     prim_bytes - 4 * B * S * H * hd + tang_bytes),
-                 "mamba2_scan_mt_jvps": (3 * el + 11 * T * el + 2 * T * B * S * H * hd,
+                 "mamba2_scan_mt_jvps": (flops["mamba2_scan_mt_jvps"],
                                          prim_bytes + tang_bytes
                                          - 4 * T * B * S * H * hd + 4 * T)}
         runs = {"mamba2_scan": (lambda: ops.mamba2_scan(*prim),
@@ -533,6 +582,8 @@ def mamba2_cases(B, S, H, hd, N, T, gen, timed):
                 "mamba2_scan_mt_jvps": (
                     lambda: ops.mamba2_scan_mt_jvps(*prim, *tang, gy),
                     lambda: ops.mamba2_scan_mt_jvps_ref(*prim, *tang, gy))}
+        if plain_once:
+            plain_ms["mamba2_scan_mt_jvps"] = timed_once(runs["mamba2_scan_mt_jvps"][1])[1]
         # no one PyTorch call computes a linear recurrence; the yardstick is
         # the batched GEMM of its quadratic (SSD) form, (S x S) scores times
         # x, per head (and tangent); for the contraction, the multi-tangent
@@ -548,9 +599,11 @@ def mamba2_cases(B, S, H, hd, N, T, gen, timed):
             res = out[name]
             res["bound_ms"], res["bound_by"] = bound_ms(flops, nbytes, torch.float32)
             res["ms"] = time_ms(runs[name][0])
-            res["plain_ms"] = time_ms(runs[name][1])
+            res["plain_ms"] = plain_ms.get(name) or time_ms(runs[name][1])
             res["library_ms"] = None
             res["yardstick_ms"] = time_ms(yard[name])
+            if name != "mamba2_scan_mt_jvps":   # rows 10 and 11 called eagerly
+                res["eager_ms"] = time_ms(runs[name][0], graph=False)
     for name, res in out.items():
         log(f"[kernels] {name} {shape} T={T}: " + json.dumps(res))
     return out
@@ -806,18 +859,25 @@ def phase_kernels():
                     if timed:
                         extra[f"swa_attention B={B} H={H} S={S} hd={hd}"] = res
     # the mamba2 recurrence (fp32 only): zamba2's shapes (one client estimate,
-    # B=8, S=32, H=64, hd=N=64), a ragged shape (odd S; hd, N and B*H*hd not
-    # multiples of 32 or of a block's 16 rows) and N > 64; T in {1, 8, 64}
-    for (B, S, H, hd, N) in ((8, 32, 64, 64, 64), (3, 37, 5, 24, 20),
-                             (2, 19, 3, 40, 100)):
+    # B=8, S=32, H=64, hd=N=64, one 32-token chunk), one token past the chunk
+    # (S=33), a ragged shape (odd S; hd, N and B*H*hd not multiples of 32 or
+    # of 16) and N > 64, three chunks with hd=40 (the chunk carry); T in
+    # {1, 8, 64}. Then zamba2's widths at S=1024 (32 chunks), T in {1, 8}
+    for (B, S, H, hd, N) in ((8, 32, 64, 64, 64), (2, 33, 64, 64, 64),
+                             (3, 37, 5, 24, 20), (2, 19, 3, 40, 100),
+                             (2, 70, 3, 40, 64)):
         for T in (1, 8, 64):
             timed = (B, T) == (8, 8)
             res = mamba2_cases(B, S, H, hd, N, T, gen, timed)
             note("mamba2_scan_mt_jvps", torch.float32, res["mamba2_scan_mt_jvps"])
             if timed:
                 main.update(res)
+    for T in (1, 8):
+        res = mamba2_cases(1, 1024, 64, 64, 64, T, gen, timed=True, plain_once=True)
+        note("mamba2_scan_mt_jvps", torch.float32, res["mamba2_scan_mt_jvps"])
     mamba2_lanes_and_repeats(8, 32, 64, 64, 64, gen)
     mamba2_lanes_and_repeats(3, 37, 5, 24, 20, gen)
+    mamba2_lanes_and_repeats(2, 70, 3, 40, 64, gen)
     # the wkv6 recurrence (fp32 only): rwkv6-1.6b's shapes (one client
     # estimate, B=8, S=32, H=32, hd=64), a ragged shape (odd S, B*H = 15, hd
     # not a multiple of the 32-column tile) and a long sequence; T in {1, 8,
@@ -1487,13 +1547,15 @@ def log_serve_profile(cfg, engine, fns, P, n=3):
 
 
 # the tensor-core kernels, by library: (a name fragment of each kernel's
-# instantiations, the SASS instruction that proves tensor-core use)
+# instantiations, the SASS instruction that proves tensor-core use; DMMA:
+# the fp64 tensor cores)
 TENSOR_CORE_KERNELS = {"lora_dual": ("lora_mt_tc_kernel", "HGMMA"),
-                       "swa_attention": ("swa_tc_kernel", "HMMA")}
+                       "swa_attention": ("swa_tc_kernel", "HMMA"),
+                       "mamba2_ssd": ("mamba2_ssd_kernel", "DMMA")}
 
 
 def log_tensor_core_sass(build):
-    """Count each tensor-core kernel's HGMMA / HMMA instructions in the built
+    """Count each tensor-core kernel's HGMMA / HMMA / DMMA instructions in the built
     library's SASS (``cuobjdump -sass``); fail if an instantiation has none."""
     import re
     import shutil

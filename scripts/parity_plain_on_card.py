@@ -6,11 +6,16 @@
 Runs ``chip_smoke.parity_round`` on one reduced config (default: zamba2
 with ``n_layers=3, hybrid_attn_every=2``, final site mamba2; rwkv6-1.6b's
 final site is wkv6), on the standard and on the fused-contraction route,
-twice on the card each: once through the kernels, once with the dispatch
-layer's kernel entry points replaced by their plain versions. Prints the
-card's name and power limit, each round's readings against the CPU round,
-and the kernel round against the plain-version round on the card (jvps and
-new PEFT, largest relative error), one JSON line a route. It checks
+three times on the card each: once through the kernels, once with the
+dispatch layer's kernel entry points replaced by their plain versions, and
+once through the kernels but with the mamba2 primal computed exactly (the
+plain recurrence in fp64, rounded once to fp32). Prints the card's name and
+power limit, each round's readings against the CPU round, and the kernel
+round against the plain-version round on the card (jvps and new PEFT,
+largest relative error), one JSON line a route. The exact primal shows what
+the CPU reference's own rounding of the mamba2 state, at every token, does
+to the readings: a primal that does not repeat it reads further from the
+CPU round however exact it is. It checks
 nothing and is no part of the port: the port itself never swaps a kernel
 for its plain version on a CUDA tensor. Needs one CUDA card.
 """
@@ -57,6 +62,22 @@ def _plain_dispatch():
     return saved
 
 
+def _exact_mamba2_primal():
+    """Replaces the dispatch layer's mamba2 primal, on CUDA tensors, by the
+    plain recurrence in fp64 rounded once to fp32; returns the original."""
+    from repro_torch.kernels import dispatch
+    from repro_torch.kernels.mamba2_scan import ops as mo
+    real = dispatch.mamba2_scan
+
+    def exact(xdt, bm, cm, dec):
+        if xdt.device.type != "cuda":
+            return real(xdt, bm, cm, dec)
+        return mo.mamba2_scan_ref(xdt.double(), bm.double(), cm.double(),
+                                  dec.double())[0].float()
+    dispatch.mamba2_scan = exact
+    return real
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description="card-vs-CPU round, kernels and "
                                              "plain versions on the card")
@@ -88,6 +109,11 @@ def main(argv=None):
         finally:
             for k, fn in saved.items():
                 setattr(dispatch, k, fn)
+        real = _exact_mamba2_primal()
+        try:
+            out["exact_mamba2_primal"] = cs.parity_round(fused, args.arch, **cfg)
+        finally:
+            dispatch.mamba2_scan = real
         out["kernels_vs_plain_on_card"] = {
             "jvps_rel_err": float((kern["jvps"] - plain["jvps"]).abs().max()
                                   / plain["jvps"].abs().max()),

@@ -1,44 +1,50 @@
 """Mamba2 state recurrence from a fresh state: primal, T stacked jvp
-tangents in one walk, and the same walk contracted against an output
+tangents in one pass, and the same tangents contracted against an output
 cotangent (the jvp-contraction epilogue).
 
     h_s = d_s h_{s-1} + xdt_s B_s^T     (per head, h in R^{hd x N})
     y_s = h_s C_s
 
-``xdt`` is the dt-premultiplied input xh * dt. Per tangent the walk
-carries hd_s = dd_s h_{s-1} + d_s hd_{s-1} + xdtd_s B_s^T + xdt_s Bd_s^T and
-emits yd_s = hd_s C_s + h_s Cd_s.
+``xdt`` is the dt-premultiplied input xh * dt. Per tangent the recurrence
+carries hd_s = dd_s h_{s-1} + d_s hd_{s-1} + xdtd_s B_s^T + xdt_s Bd_s^T
+and emits yd_s = hd_s C_s + h_s Cd_s.
 
 Replaces three TPU kernels of ``repro/kernels/mamba2_scan/kernel.py``:
-``mamba2_scan_kernel`` (every mamba2 layer's primal inside the estimator),
-``mamba2_scan_mt_kernel`` in its ``emit_primal=False`` route (all K
-tangents of every mamba2 layer) and ``mamba2_scan_mt_jvps_kernel`` (the
-hybrid family's final site on the fused route). Layouts are the
-reference's public ones: xdt (B,S,H,hd), B/C (B,S,N), decay (B,S,H), and
-tangents with a leading T. Every operand is fp32 (the reference's
-``ops._layout`` casts them all), so the kernels take and give fp32 only.
+``mamba2_scan_kernel`` (every mamba2 layer's primal inside the estimator)
+and ``mamba2_scan_mt_jvps_kernel`` (the hybrid family's final site on the
+fused route), both in ``csrc/mamba2_scan.cu``, and ``mamba2_scan_mt_kernel``
+in its ``emit_primal=False`` route (all K tangents of every mamba2 layer) in
+``csrc/mamba2_ssd.cu``. Layouts are the reference's public ones: xdt
+(B,S,H,hd), B/C (B,S,N), decay (B,S,H), and tangents with a leading T.
+Every operand is fp32 (the reference's ``ops._layout`` casts them all), so
+the kernels take and give fp32 only.
 
-On the H100 the work is bound by operations: per (b*h, token) the primal
-does 5 hd N flops (3 for the state update, 2 for the readout, which the
-tangent modes skip) and each tangent 11 hd N, so at the main path's
-hd = N = 64, T = 8 the tangent modes do about 0.37 MFLOP of fp32 that no
-tensor core takes (a rank-1 update and a mat-vec per token); the tangent
-output (T x the input) is the largest byte count. The TPU kernel keeps one
-(hd, N) state per (b*h) row and T tangent states in VMEM, 144 KiB at T=8,
-more than a block's shared memory beside anything else. The CUDA kernel
-(``csrc/mamba2_scan.cu``) splits the state by rows instead: row i of h
-depends on x_s[i] alone, so one warp owns a row, its lanes hold the row's
-N columns, and the primal and TC tangent rows stay in registers (2 (TC+1)
-floats a lane at N = 64); y_s[i] is one warp reduction. A block takes 16
-rows of one batch row and stages each 8-token chunk of B/C (and Bd/Cd),
-shared by every head of the batch row, once in shared memory with its
-rows' x, d, xd, dd, gy; outputs leave through shared memory as coalesced
-rows. Tangents go in chunks of TC <= 8 over grid.z, each chunk redoing the
-primal walk rather than spilling. The contraction writes one fp32 partial
-per (tangent, block) in a fixed order and a second small kernel sums them
-in a fixed order: no atomics, the same jvps on every run, and every lane
-runs the same instruction sequence for any T (explicit fma intrinsics),
-so a T=8 launch equals eight T=1 launches bit for bit. N <= 128.
+The tangents use the chunked state-space-dual form (``mamba2_chunked_ref``
+below is its plain version): inside a chunk of 32 tokens y = (L o C B^T) x
+with L[s, s'] the product of the decays in (s', s], built as running
+products; a tangent is y' = (Ld o G + L o Gd) x + (L o G) xd with Ld by
+the product rule, and the (hd, N) state carries from chunk to chunk. At
+zamba2's shapes that form needs 0.58 GFLOP for T = 8 against 6.1 in the
+recurrent one, all of it matrix products, which run on the fp64 tensor
+cores (fp32 operands exact in fp64, sums rounded to nearest; 3xTF32 on the
+tf32 units rounds its sums toward zero and missed the card-vs-CPU limits).
+What is left bounds the pass by bytes: its 73 MB are mostly the T tangent
+inputs and outputs. So a block serves several heads of one batch row,
+computes G = C B^T once and each Gd once for all of them (in fp64: they
+serve every output of the row), keeps L and Ld in shared memory, stages x,
+B, C once and double-buffers each tangent's xd, Bd, Cd and dd with
+asynchronous copies, and writes yd as coalesced rows.
+
+The primal keeps the recurrence, one thread a state row with its N columns
+in registers, in the reference's order of fp32 operations: the estimator's
+card-vs-CPU parity follows the primal's rounding, and the reference rounds
+the state at every token (a primal exact in fp64 misses the zamba2 limit:
+``scripts/parity_plain_on_card.py``, PERF.md). The contraction epilogue keeps
+the recurrent kernel of the first port: one warp a state row, a
+fixed-order partial per (tangent, block) and a second small kernel that
+sums them, no atomics. In every kernel a tangent runs the same instruction
+sequence for any T, so a T=8 launch equals eight T=1 launches bit for bit.
+N <= 128.
 
 CPU tensors take the plain versions below; CUDA tensors launch a kernel
 or raise.
@@ -82,6 +88,70 @@ def mamba2_scan_mt_ref(xdt, bmat, cmat, decay, xdtds, bds, cds, decayds):
     return y, torch.func.vmap(one)(xdtds, bds, cds, decayds)
 
 
+def mamba2_chunked_ref(xdt, bmat, cmat, decay, xdtds=None, bds=None, cds=None,
+                       decayds=None, chunk=32):
+    """Plain version of the chunked state-space-dual form the multi-tangent
+    CUDA kernel computes, for the tests: y, or (y, ydots) with tangents. Per chunk of
+    ``chunk`` tokens, G = C B^T; L[s, s'] = d_s L[s-1, s'] with L[s', s'] = 1
+    (running products); Ld[s, s'] = d_s Ld[s-1, s'] + dd_s L[s-1, s'] with
+    Ld[s', s'] = 0; y = (L o G) x + Lc C h^T with Lc_s = d_0 .. d_s, and the
+    state h (B,H,hd,N) and its tangents carried to the next chunk."""
+    B, S, H, hd = xdt.shape
+    N = bmat.shape[-1]
+    tang = xdtds is not None
+    T = xdtds.shape[0] if tang else 0
+    h = xdt.new_zeros((B, H, hd, N))
+    hdt = xdt.new_zeros((T, B, H, hd, N))
+    ys, yds = [], []
+    for s0 in range(0, S, chunk):
+        q = min(chunk, S - s0)
+        x, bm, cm = xdt[:, s0:s0 + q], bmat[:, s0:s0 + q], cmat[:, s0:s0 + q]
+        d = decay[:, s0:s0 + q].transpose(1, 2)                  # (B,H,q)
+        G = torch.einsum("bsn,bun->bsu", cm, bm)[:, None]        # (B,1,q,q)
+        if tang:
+            xd, bd, cd = (xdtds[:, :, s0:s0 + q], bds[:, :, s0:s0 + q],
+                          cds[:, :, s0:s0 + q])
+            dd = decayds[:, :, s0:s0 + q].transpose(2, 3)        # (T,B,H,q)
+            Gd = (torch.einsum("zbsn,bun->zbsu", cd, bm)
+                  + torch.einsum("bsn,zbun->zbsu", cm, bd))[:, :, None]
+        eye = torch.eye(q, dtype=xdt.dtype, device=xdt.device)
+        row, drow = xdt.new_zeros((B, H, q)), xdt.new_zeros((T, B, H, q))
+        lc, lcd = xdt.new_ones((B, H)), xdt.new_zeros((T, B, H))
+        L, Ld, Lc, Lcd = [], [], [], []
+        for s in range(q):                                       # running products
+            if tang:
+                drow = d[..., s, None] * drow + dd[..., s, None] * row
+                drow = drow * (1 - eye[s])
+                lcd = d[..., s] * lcd + dd[..., s] * lc
+                Ld.append(drow)
+                Lcd.append(lcd)
+            row = d[..., s, None] * row * (1 - eye[s]) + eye[s]
+            lc = d[..., s] * lc
+            L.append(row)
+            Lc.append(lc)
+        L, Lc = torch.stack(L, -2), torch.stack(Lc, -1)          # (B,H,q,q), (B,H,q)
+        M = L * G
+        y = (torch.einsum("bhsu,buhi->bshi", M, x)
+             + torch.einsum("bhs,bhin,bsn->bshi", Lc, h, cm))
+        if tang:
+            Ld, Lcd = torch.stack(Ld, -2), torch.stack(Lcd, -1)
+            yd = (torch.einsum("zbhsu,buhi->zbshi", Ld * G + L * Gd, x)
+                  + torch.einsum("bhsu,zbuhi->zbshi", M, xd)
+                  + torch.einsum("zbhs,bhin,bsn->zbshi", Lcd, h, cm)
+                  + torch.einsum("bhs,bhin,zbsn->zbshi", Lc, h, cd)
+                  + torch.einsum("bhs,zbhin,bsn->zbshi", Lc, hdt, cm))
+            yds.append(yd)
+            hdt = (Lcd[..., -1, None, None] * h + Lc[..., -1, None, None] * hdt
+                   + torch.einsum("bhu,zbuhi,bun->zbhin", L[..., -1, :], xd, bm)
+                   + torch.einsum("zbhu,buhi,bun->zbhin", Ld[..., -1, :], x, bm)
+                   + torch.einsum("bhu,buhi,zbun->zbhin", L[..., -1, :], x, bd))
+        h = (Lc[..., -1, None, None] * h
+             + torch.einsum("bhu,buhi,bun->bhin", L[..., -1, :], x, bm))
+        ys.append(y)
+    y = torch.cat(ys, dim=1)
+    return (y, torch.cat(yds, dim=2)) if tang else y
+
+
 def mamba2_scan_mt_jvps_ref(xdt, bmat, cmat, decay, xdtds, bds, cds, decayds,
                             gy):
     """Plain version (port of ``ref.mamba2_scan_mt_jvps_ref``): materializes
@@ -90,14 +160,16 @@ def mamba2_scan_mt_jvps_ref(xdt, bmat, cmat, decay, xdtds, bds, cds, decayds,
     return torch.einsum("bshd,tbshd->t", gy.float(), yds.float())
 
 
-_ARGS = {"mamba2_scan_fwd": (5, 5), "mamba2_scan_mt_tangents": (9, 6),
-         "mamba2_scan_mt_jvps": (11, 6)}        # (pointers, ints), then the stream
+# (library, pointers, ints), then the stream
+_ARGS = {"mamba2_scan_fwd": ("mamba2_scan", 5, 5),
+         "mamba2_scan_mt_tangents": ("mamba2_ssd", 9, 6),
+         "mamba2_scan_mt_jvps": ("mamba2_scan", 11, 6)}
 
 
 def _fn(symbol):
-    fn = getattr(build.load("mamba2_scan"), symbol)
+    lib, n_ptr, n_int = _ARGS[symbol]
+    fn = getattr(build.load(lib), symbol)
     if fn.argtypes is None:
-        n_ptr, n_int = _ARGS[symbol]
         fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
@@ -168,9 +240,9 @@ def mamba2_scan(xdt, bmat, cmat, decay):
 
 def mamba2_scan_mt_tangents(xdt, bmat, cmat, decay, xdtds, bds, cds, decayds):
     """Tangent-only multi-tangent pass: xdtds (T,B,S,H,hd); bds, cds
-    (T,B,S,N); decayds (T,B,S,H) -> ydots (T,B,S,H,hd). The primal walk runs
-    inside the kernel (the tangent recurrence needs h) but y is not
-    written."""
+    (T,B,S,N); decayds (T,B,S,H) -> ydots (T,B,S,H,hd). The primal's
+    pieces (L, G, the carried state) are formed inside the kernel but y is
+    not written."""
     if xdt.device.type == "cpu":
         return mamba2_scan_mt_ref(xdt, bmat, cmat, decay, xdtds, bds, cds,
                                   decayds)[1]

@@ -353,8 +353,11 @@ def _m2_inputs(B, S, H, hd, N, T, dev, seed):
 @pytest.mark.parametrize("B,S,H,hd,N,T", [
     (8, 32, 64, 64, 64, 8),          # zamba2 shapes, one client estimate
     (3, 37, 5, 24, 20, 3),           # ragged S, hd, N and rows a block
-    (2, 19, 3, 40, 100, 64),         # N > 64, tangents in 8 chunks
+    (2, 19, 3, 40, 100, 64),         # N > 64, 64 tangents
     (1, 5, 1, 1, 1, 1),
+    (2, 70, 3, 40, 64, 8),           # three 32-token chunks: the state carry
+    (2, 32, 4, 64, 64, 4),           # one whole chunk
+    (2, 33, 4, 64, 64, 4),           # one token past it
 ])
 def test_mamba2_kernels_match_plain(dev, B, S, H, hd, N, T):
     from repro_torch.kernels.mamba2_scan import ops

@@ -5,7 +5,8 @@ on the CPU. The plain versions are held against the JAX oracles
 (``lora_dual_mt_ref``, ``swa_attention_gqa_ref``, ``swa_attention_mt_ref``,
 ``lora_dual_mt_jvps_ref``, ``swa_attention_mt_jvps_ref``,
 ``mamba2_scan_ref``, ``mamba2_scan_mt_ref``, ``mamba2_scan_mt_jvps_ref``, and
-the reference's ``lora_dual_mt_jvps(impl='reassoc')``) at fp32 rel 1e-5, and
+the reference's ``lora_dual_mt_jvps(impl='reassoc')``) at fp32 rel 1e-5, as is
+the chunked form the mamba2 kernels compute (``mamba2_chunked_ref``), and
 one small case of each against the Pallas kernels in interpret mode, as
 tests/test_kernels.py, tests/test_jvps_epilogue.py and
 tests/test_mamba2_mt.py run them. The CUDA
@@ -440,6 +441,28 @@ def test_mamba2_plain_matches_jax_ref(B, S, H, hd, N, T):
     assert _rel(got_d, want_d) <= RTOL
 
 
+# the chunked form at one chunk (M2_CASES) and over several: a chunk and a
+# token, two whole chunks, five chunks with a ragged last one
+M2_CHUNKED_CASES = [c + (32,) for c in M2_CASES] + [
+    (2, 9, 3, 8, 6, 2, 8),
+    (1, 16, 2, 12, 5, 3, 8),
+    (2, 37, 2, 8, 16, 2, 8),
+]
+
+
+@pytest.mark.parametrize("B,S,H,hd,N,T,chunk", M2_CHUNKED_CASES)
+def test_mamba2_chunked_form_matches_jax_ref(B, S, H, hd, N, T, chunk):
+    """The chunked state-space-dual form the CUDA kernels compute (G = C B^T,
+    L and Ld by running products, the state carried from chunk to chunk)
+    against the JAX oracles' recurrence, primal and tangents."""
+    prim, tang, _ = _m2_inputs(35, B, S, H, hd, N, T)
+    want_y, want_d = jax_m2_mt_ref(*map(jnp.asarray, prim + tang))
+    got_y, got_d = m2_ops.mamba2_chunked_ref(*map(_t, prim + tang), chunk=chunk)
+    assert got_y.shape == (B, S, H, hd) and got_d.shape == (T, B, S, H, hd)
+    assert _rel(got_y, want_y) <= RTOL and _rel(got_d, want_d) <= RTOL
+    assert _rel(m2_ops.mamba2_chunked_ref(*map(_t, prim), chunk=chunk), want_y) <= RTOL
+
+
 @pytest.mark.parametrize("B,S,H,hd,N,T", M2_CASES)
 def test_mamba2_mt_jvps_plain_matches_jax_ref(B, S, H, hd, N, T):
     prim, tang, gy = _m2_inputs(31, B, S, H, hd, N, T)
@@ -680,5 +703,5 @@ def test_build_hash_covers_included_headers(monkeypatch, tmp_path):
     (tmp_path / "b.cuh").write_text("// b, v2\n")
     assert build._target("k") != first
     csrc = Path(build.__file__).resolve().parents[1] / "csrc"
-    for src in ("lora_dual_mt.cu", "swa_attention.cu"):
+    for src in ("lora_dual_mt.cu", "swa_attention.cu", "mamba2_ssd.cu"):
         assert [p.name for p in build._inputs(csrc / src)] == [src, "hopper.cuh"]
