@@ -10,22 +10,30 @@ Phases, in order (any failure raises and exits non-zero):
   2. build    nvcc builds every CUDA source of the path for sm_90a, in
               parallel; prints each kernel's registers, shared memory and
               spills (-Xptxas -v), and the count of tensor-core instructions
-              in the SASS (cuobjdump -sass) of the three tensor-core kernels:
-              HGMMA in ``lora_mt_tc_kernel``, HMMA in ``swa_tc_kernel``,
-              DMMA (fp64) in ``mamba2_ssd_kernel``; fails if an
-              instantiation has none
+              in the SASS (cuobjdump -sass) of the four tensor-core kernels:
+              HGMMA in ``lora_mt_tc_kernel``, HMMA in ``swa_tc_kernel`` and
+              ``swa_tc_mt_kernel``, DMMA (fp64) in ``mamba2_ssd_kernel``;
+              fails if an instantiation has none
   3. kernels  each of the twelve kernels against its plain PyTorch version on
               the card at the main path's shapes (roberta-large, llama2-7b,
               zamba2, rwkv6-1.6b) and one long shape. ``lora_dual_mt`` and
               the ``swa_attention`` primal also at their routes' edges (T in
               {1, 8, 64}, rank 16, M=200 with T=3, K or N off the 8-element
               rows; S in {1, 17, 32, 2048} with hd in {64, 128}, hd 48 and
-              40), each case held to the route its wrapper must take (the
-              per-route launch counters). The multi-adapter projection at
-              llama2-7b's engine decode (M=4, K=N=4096, P=4, r=1), a
-              prefill-sized M=256 with random pages and a ragged case (M=5,
-              K=1000, N=333, P=3, r=4, every page hit, with repeats), fp32
-              and bf16 at the tolerances below. LoRA and attention: T in {1, 8},
+              40); every case of rows 1, 2, 3 and 6 held to the route its
+              wrapper must take (the per-route launch counters), the bf16
+              tangents on the tensor-core route also against the tiled plain
+              walk in their own roundings (``close_tiled``). The
+              multi-adapter projection at llama2-7b's engine decode (M=4,
+              K=N=4096, P=4, r=1), a prefill-sized M=256 with random pages, a
+              ragged case (M=5, K=1000, N=333, P=3, r=4, every page hit, with
+              repeats) and the stream route's edges (M=1; M=16, r=16; K=1000,
+              N=136), fp32 and bf16 at the tolerances below, two launches on
+              the same inputs bitwise equal, timed warm and, where W is a
+              quarter of the L2 or more, cold (``cold_ms``,
+              ``plain_cold_ms``, ``yardstick_cold_ms``: each call reads the
+              next of enough copies of W to pass 120 MB). LoRA and
+              attention: T in {1, 8},
               with and without an input tangent (and odd M/N/K for the LoRA
               contraction), window in {None, 256}, KV in {H, H/4}; fp32
               (rtol 1e-4, atol 1e-5 x max|plain|: sums run in another order)
@@ -94,9 +102,10 @@ Phases, in order (any failure raises and exits non-zero):
               projection on the standard route; on the fused route the final
               site's tangent kernel replaced by ONE contraction epilogue), and
               no kernel at all on the backprop and zero-order rounds; every
-              ``lora_dual_mt`` and ``swa_attention`` launch of phases 5 and 6
-              (bf16 at full width) must take a tensor-core route (tc, or
-              store where no input tangent exists), none simt. Prints
+              ``lora_dual_mt`` and ``swa_attention`` (primal and tangent)
+              launch of phases 5 and 6 (bf16 at full width) must take a
+              tensor-core route (tc, or store where no input tangent
+              exists), none simt. Prints
               each run's loss, test accuracy, seconds per round and peak
               device memory of a round (weights included, model init
               excluded), and SPRY's and FedAvg's round peaks side by side for
@@ -109,7 +118,8 @@ Phases, in order (any failure raises and exits non-zero):
               Then llama2-7b at full width and depth in bf16 through
               ``launch/serve.py``: ``run_engine`` (8 requests on 6 adapters,
               max_batch 4, capacity 4, P=16, 32 new tokens) must make exactly
-              ``serve_launches`` (2 L multi-adapter launches a decode step),
+              ``serve_launches`` (2 L multi-adapter launches a decode step,
+              every one on the stream route),
               each request's first decode-step logits held against its own
               B=1 greedy run (the plain single-adapter primal) at the bf16
               tolerance, the count of id sequences equal to greedy's printed;
@@ -279,6 +289,24 @@ def close(name, got, want, dtype):
 # phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
+# the tensor-core tangent kernel against the plain tiled walk in its own
+# roundings (``ops.swa_attention_mt_tiled_ref``: the same 64-key tiles, p
+# rounded to bf16): one bf16 ulp of each value (rtol 2**-7) and 1e-3 of the
+# largest, for a rounding of p that falls the other way
+TILED_RTOL, TILED_ATOL = 2 ** -7, 1e-3
+
+
+def close_tiled(name, got, want):
+    import torch
+    got, want = got.float(), want.float()
+    atol = TILED_ATOL * float(want.abs().max())
+    err = float((got - want).abs().max())
+    if not torch.allclose(got, want, rtol=TILED_RTOL, atol=atol):
+        raise AssertionError(f"{name}: kernel vs tiled plain max |err| {err:.3e} beyond "
+                             f"rtol {TILED_RTOL} atol {atol:.3e}")
+    return err
+
+
 def took_path(name, counter, want, call):
     """``call()``, which must launch exactly once, by route ``want`` of the
     per-route ``counter`` (``ops.launches_by_path[kernel]``)."""
@@ -444,15 +472,14 @@ def swa_case(B, H, KV, S, hd, window, T, dtype, gen, timed):
     run = lambda: kernel(*args)  # noqa: E731
     plain = lambda: ref_fn(*args)  # noqa: E731
     name = f"{kname} B={B} H={H} KV={KV} S={S} hd={hd} window={window} T={T} {dtype}"
-    res = {}
-    if T:
-        out = run()
-    else:
-        res["path"] = ops.swa_path(dtype, hd)
-        out = took_path(name, ops.launches_by_path["swa_attention"], res["path"], run)
+    res = {"path": ops.swa_path(dtype, hd)}
+    out = took_path(name, ops.launches_by_path[kname], res["path"], run)
     ref = ref_fn(*_f32(args))
     torch.cuda.synchronize()
     res["max_abs_err"] = close(name, out, ref, dtype)
+    if T and res["path"] == "tc":
+        res["max_abs_err_tiled"] = close_tiled(
+            name, out, ops.swa_attention_mt_tiled_ref(*args))
     if timed:
         es = q.element_size()
         pairs = B * H * _kept_pairs(S, window)
@@ -746,9 +773,19 @@ def wkv6_lanes_and_repeats(B, S, H, hd, has_ud, gen):
         f"equal to T=1 launches (tangents and jvps), jvps repeat bitwise")
 
 
+L2_ROTATE_BYTES = 120e6     # over twice the H100's 50 MB L2
+
+
 def lora_multi_case(M, K, N, P, r, dtype, gen, timed):
     """The multi-adapter projection: idx covers every page (with repeats when
-    M > P), then random pages."""
+    M > P), then random pages. On the route its rule gives; two launches on
+    the same inputs are bitwise equal. Timed warm (one W, which the L2 may
+    hold across graph replays) and, where W is a quarter of the L2 or more,
+    cold: each call reads the next of enough copies of W to pass
+    L2_ROTATE_BYTES, as the engine's decode step finds each projection's W
+    (64 of them among 12.5 GiB of weights)."""
+    import itertools
+
     import torch
     from repro_torch.kernels.lora_dual import ops
     rn = lambda *s: torch.randn(s, generator=gen, device="cuda")  # noqa: E731
@@ -758,11 +795,16 @@ def lora_multi_case(M, K, N, P, r, dtype, gen, timed):
     head = torch.arange(min(P, M), device="cuda")
     idx = torch.cat([head, torch.randint(0, P, (M - len(head),), generator=gen,
                                          device="cuda")]).to(torch.int32)
-    out = ops.lora_dual_multi(x, idx, w, a, b, 0.5)
+    name = f"lora_dual_multi M={M} K={K} N={N} P={P} r={r} {dtype}"
+    path = ops.lora_multi_path(dtype, M, K, N)
+    out = took_path(name, ops.launches_by_path["lora_dual_multi"], path,
+                    lambda: ops.lora_dual_multi(x, idx, w, a, b, 0.5))
+    again = ops.lora_dual_multi(x, idx, w, a, b, 0.5)
     ref = ops.lora_dual_multi_ref(x.float(), idx, w.float(), a, b, 0.5)
     torch.cuda.synchronize()
-    name = f"lora_dual_multi M={M} K={K} N={N} P={P} r={r} {dtype}"
-    res = {"max_abs_err": close(name, out, ref, dtype)}
+    if not torch.equal(out, again):
+        raise AssertionError(f"{name}: two launches on the same inputs differ")
+    res = {"path": path, "max_abs_err": close(name, out, ref, dtype), "repeat_bitwise": True}
     if timed:
         es = x.element_size()
         used = int(idx.unique().numel())        # pages this batch reads
@@ -775,6 +817,17 @@ def lora_multi_case(M, K, N, P, r, dtype, gen, timed):
         # x @ W alone is timed as a yardstick
         res["library_ms"] = None
         res["yardstick_ms"] = time_ms(lambda: torch.matmul(x, w))
+        w_bytes = w.numel() * es
+        if 4 * w_bytes >= 50e6:
+            ws = [w] + [w.clone() for _ in range(math.ceil(L2_ROTATE_BYTES / w_bytes) - 1)]
+            cold = {"cold_ms": lambda wi: ops.lora_dual_multi(x, idx, wi, a, b, 0.5),
+                    "plain_cold_ms": lambda wi: ops.lora_dual_multi_ref(x, idx, wi, a, b, 0.5),
+                    "yardstick_cold_ms": lambda wi: torch.matmul(x, wi)}
+            for key, fn in cold.items():
+                it = itertools.cycle(ws)
+                res[key] = time_ms(lambda fn=fn, it=it: fn(next(it)))
+            res["w_copies"] = len(ws)
+            del ws
     log(f"[kernels] {name}: " + json.dumps(res))
     return res
 
@@ -842,6 +895,8 @@ def phase_kernels():
                                 main["swa_attention_mt"] = res
                         if bf and T == 0 and window is None and KV == H:
                             extra[f"swa_attention B={B} H={H} S={S} hd={hd}"] = res
+                        if bf and T == 8 and window is None and KV == H:
+                            extra[f"swa_attention_mt B={B} H={H} S={S} hd={hd} T=8"] = res
                         if T:
                             res = note("swa_attention_mt_jvps", dtype, swa_jvps_case(
                                 B, H, KV, S, hd, window, T, dtype, gen, timed))
@@ -902,9 +957,14 @@ def phase_kernels():
             res = lora_multi_case(M, K, N, P, r, dtype, gen, timed=True)
             if bf and M == 4:
                 main["lora_dual_multi"] = res
+        # the stream route's edges: one row, 16 rows with rank 16, K off the
+        # 8 slices, N a multiple of 8 but not of the 128-column strip
+        for M, K, N, P, r in ((1, 4096, 4096, 1, 1), (16, 4096, 4096, 6, 16),
+                              (7, 1000, 136, 3, 2)):
+            lora_multi_case(M, K, N, P, r, dtype, gen, timed=False)
     log(f"[kernels] contraction epilogues, largest err / sum|terms| (limit "
         f"{JVPS_RTOL}): " + json.dumps(worst))
-    log("[kernels] redesigned rows 1 and 2, every timed bf16 case: " + json.dumps(extra))
+    log("[kernels] redesigned rows 1, 2 and 3, every timed bf16 case: " + json.dumps(extra))
     # release what the timing holds (the side stream and the cuBLAS
     # workspaces), so the later phases' memory peaks do not depend on
     # whether this phase ran
@@ -1053,10 +1113,11 @@ def phase_parity(fused, arch="roberta-large-lora", **overrides):
 # ---------------------------------------------------------------------------
 
 def check_paths(what, paths, path_totals):
-    """Every launch of rows 1 and 2 on the full-width main path is bf16 at
-    aligned widths and must take a tensor-core route (``lora_dual_mt``: tc,
-    or store where no input tangent exists; the ``swa_attention`` primal:
-    tc), never simt. Adds ``paths`` into ``path_totals``."""
+    """Every launch of rows 1, 2 and 3 on the full-width training path is
+    bf16 at aligned widths and must take a tensor-core route
+    (``lora_dual_mt``: tc, or store where no input tangent exists; the
+    ``swa_attention`` primal and tangents: tc), never simt (training
+    launches no row 6). Adds ``paths`` into ``path_totals``."""
     for k, by in paths.items():
         if by.get("simt"):
             raise AssertionError(f"{what}: {by['simt']} {k} launches took the simt "
@@ -1358,10 +1419,12 @@ def _run_engine_recorded(cfg, P, steps, plain=False):
     """``serve.run_engine`` (8 requests on 6 adapters, max_batch 4, capacity
     4) with each request's first decode-step logits recorded; ``plain`` swaps
     the multi-adapter kernel for its plain version. Returns (outputs,
-    engine, step log, launch counts, peak GiB, the first kernel call's
-    inputs). The peak is the serving run's (see ``recording_engine``)."""
+    engine, step log, launch counts, launches by route, peak GiB, the first
+    kernel call's inputs). The peak is the serving run's (see
+    ``recording_engine``)."""
     import torch
-    from repro_torch.kernels import dispatch, launch_counts, reset_launch_counts
+    from repro_torch.kernels import (dispatch, launch_counts, launch_paths,
+                                     reset_launch_counts)
     from repro_torch.kernels.lora_dual import ops
     from repro_torch.launch import serve, serving
 
@@ -1382,14 +1445,15 @@ def _run_engine_recorded(cfg, P, steps, plain=False):
     finally:
         serving.ServingEngine, dispatch.lora_dual_multi = orig
     torch.cuda.synchronize()
-    return (outputs, engine, step_log, launch_counts(),
+    return (outputs, engine, step_log, launch_counts(), launch_paths(),
             torch.cuda.max_memory_allocated() / 2 ** 30, first_call)
 
 
-def phase_serve(totals, smi):
+def phase_serve(totals, path_totals, smi):
     """llama2-7b at full width and depth in bf16 through the serve entry
     points. ``run_engine`` (8 requests on 6 adapters, max_batch 4, capacity
-    4, P=16, 32 new tokens) must make exactly ``serve_launches``; the first
+    4, P=16, 32 new tokens) must make exactly ``serve_launches``, every one
+    on the stream route (``lora_multi_path``); the first
     launch's own inputs are held against the plain version at the bf16
     tolerance. The same engine with the plain version launches nothing. Each
     request's first decode-step logits, from both engines, are held against
@@ -1407,7 +1471,7 @@ def phase_serve(totals, smi):
 
     cfg = get_config("llama2-7b")
     P, steps = 16, 32
-    outputs, engine, log_steps, counts, engine_peak, call = _run_engine_recorded(
+    outputs, engine, log_steps, counts, paths, engine_peak, call = _run_engine_recorded(
         cfg, P, steps)
     want = serve_launches(cfg, engine.steps)
     n_tok = sum(len(v) for v in outputs.values())
@@ -1421,10 +1485,16 @@ def phase_serve(totals, smi):
            / sum(x["s"] for x in log_steps),
            "mean_decode_step_ms": 1e3 * sum(x["s"] for x in log_steps) / len(log_steps),
            "adapter_cache": engine.adapters.stats(), "peak_GiB": engine_peak,
-           "in_situ_kernel_max_abs_err": in_situ, "launches": counts, "card": smi}
+           "in_situ_kernel_max_abs_err": in_situ, "launches": counts,
+           "lora_dual_multi_by_route": paths["lora_dual_multi"], "card": smi}
     log("[serve] llama2-7b engine: " + json.dumps(res))
     if counts != want or len(log_steps) != engine.steps:
         raise AssertionError(f"serve engine: launches {counts} != {want}")
+    if paths["lora_dual_multi"] != {"stream": want["lora_dual_multi"], "simt": 0}:
+        raise AssertionError(f"serve engine: decode launches by route "
+                             f"{paths['lora_dual_multi']}, not all stream")
+    for route, n in paths["lora_dual_multi"].items():
+        path_totals["lora_dual_multi"][route] += n
     if engine.adapters.stats()["evictions"] < 1:
         raise AssertionError("serve engine: no adapter page was evicted")
     for k, n in counts.items():
@@ -1436,8 +1506,8 @@ def phase_serve(totals, smi):
     del engine, call
     gc.collect()                  # the engines' decode closures form cycles
 
-    p_out, p_engine, p_log, p_counts, _, _ = _run_engine_recorded(cfg, P, steps,
-                                                                 plain=True)
+    p_out, p_engine, p_log, p_counts, _, _, _ = _run_engine_recorded(cfg, P, steps,
+                                                                    plain=True)
     p_ms = 1e3 * sum(x["s"] for x in p_log) / len(p_log)
     del p_engine
     gc.collect()
@@ -1546,12 +1616,13 @@ def log_serve_profile(cfg, engine, fns, P, n=3):
         log(f"[serve]   {ms:8.3f} ms {count:5d}x  {key}")
 
 
-# the tensor-core kernels, by library: (a name fragment of each kernel's
+# the tensor-core kernels: (library, a name fragment of each kernel's
 # instantiations, the SASS instruction that proves tensor-core use; DMMA:
 # the fp64 tensor cores)
-TENSOR_CORE_KERNELS = {"lora_dual": ("lora_mt_tc_kernel", "HGMMA"),
-                       "swa_attention": ("swa_tc_kernel", "HMMA"),
-                       "mamba2_ssd": ("mamba2_ssd_kernel", "DMMA")}
+TENSOR_CORE_KERNELS = (("lora_dual", "lora_mt_tc_kernel", "HGMMA"),
+                       ("swa_attention", "swa_tc_kernel", "HMMA"),
+                       ("swa_attention", "swa_tc_mt_kernel", "HMMA"),
+                       ("mamba2_ssd", "mamba2_ssd_kernel", "DMMA"))
 
 
 def log_tensor_core_sass(build):
@@ -1561,7 +1632,7 @@ def log_tensor_core_sass(build):
     import shutil
     exe = shutil.which("cuobjdump") or os.path.join(os.path.dirname(build._nvcc()),
                                                     "cuobjdump")
-    for lib, (kernel, op) in TENSOR_CORE_KERNELS.items():
+    for lib, kernel, op in TENSOR_CORE_KERNELS:
         sass = subprocess.run([exe, "-sass", str(build._target(lib))], capture_output=True,
                               text=True, timeout=300, check=True).stdout
         counts, fn = {}, None
@@ -1663,13 +1734,13 @@ def main(argv=None):
                     for r in results if r["arch"] == arch}
             log(f"[train] {arch} peak device memory GiB of a round ({what}, batch "
                 f"8 x 32 tokens): " + json.dumps(peak))
-        log("[train] launches of rows 1 and 2 by route over the site and train "
+        log("[train] launches of rows 1, 2 and 3 by route over the site and train "
             "phases (simt must be 0): " + json.dumps(path_totals))
     log(f"[phase] site and train {time.time() - tp:.1f}s")
     tp = time.time()
     if args.only in (None, "serve"):
         phase_serve_parity()
-        phase_serve(totals, smi)
+        phase_serve(totals, path_totals, smi)
     log(f"[phase] serve {time.time() - tp:.1f}s")
     if args.only is None:
         missing = [k for k, n in totals.items() if n == 0]
@@ -1686,6 +1757,8 @@ def main(argv=None):
                         "bound_by": c.get("bound_by"),
                         "library_ms": c.get("library_ms"),
                         "yardstick_ms": c.get("yardstick_ms")})
+        kernels[-1].update({k: c[k] for k in ("cold_ms", "plain_cold_ms",
+                                              "yardstick_cold_ms") if k in c})
         if name in path_totals:
             kernels[-1]["launches_by_path"] = path_totals[name]
     print(smi, flush=True)

@@ -3,7 +3,8 @@
 // ldmatrix fragment loads, the bf16 mma.sync.m16n8k16 tensor-core product,
 // the fences and descriptors of warpgroup products (wgmma) over
 // 128-byte-swizzled shared-memory tiles, and the tensor-memory-accelerator
-// (TMA) loads, mbarriers and thread-block-cluster operations that feed them.
+// (TMA) loads, mbarriers and thread-block-cluster operations that feed them
+// (barriers, ranks and reads of another block's shared memory).
 #pragma once
 
 #include <cuda.h>
@@ -155,6 +156,25 @@ __device__ __forceinline__ uint32_t cluster_rank() {
   uint32_t r;
   asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
   return r;
+}
+
+// store v at ``p``'s shared-memory offset in cluster block ``cta``
+// (distributed shared memory; this block included). A later cluster
+// barrier makes it visible there.
+__device__ __forceinline__ void st_cluster_f32(void* p, uint32_t cta, float v) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(remote) : "r"(smem_u32(p)), "r"(cta));
+  asm volatile("st.shared::cluster.f32 [%0], %1;\n" ::"r"(remote), "f"(v) : "memory");
+}
+
+// the two halves of a cluster barrier, for work between them: every block
+// of the cluster arrives (relaxed: orders nothing), then waits for all
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
 }
 
 // every thread of every block of the cluster

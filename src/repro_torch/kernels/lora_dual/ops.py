@@ -60,8 +60,12 @@ R_MAX = 16          # LoRA rank bound of the kernel's shared-memory tiles
 JT_MAX = 64         # tangents a contraction-epilogue launch
 # kernel launches; the plain versions do not count
 launches = {"lora_dual_mt": 0, "lora_dual_mt_jvps": 0, "lora_dual_multi": 0}
-# lora_dual_mt_tangents calls by route (``lora_mt_path``); sums to launches
-launches_by_path = {"lora_dual_mt": {"tc": 0, "store": 0, "simt": 0}}
+# calls by route (``lora_mt_path``, ``lora_multi_path``); each sums to its
+# launches
+launches_by_path = {"lora_dual_mt": {"tc": 0, "store": 0, "simt": 0},
+                    "lora_dual_multi": {"stream": 0, "simt": 0}}
+STREAM_M_MAX = 16       # rows of the multi-adapter stream route (fp32 sums a thread)
+STREAM_K_MAX = 8192     # its K: a block stages its K / 8 slice of x in shared memory
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -281,17 +285,39 @@ def lora_dual_mt_jvps(x, w, a, adots, b, bdots, gy, scale=1.0, xdots=None):
 #
 # On the H100: at decode M is the engine's batch (4 at llama2-7b), so
 # reading the frozen W (K*N elements) once bounds the kernel by bytes (33.6
-# MB of bf16 at K = N = 4096, about 10 us); its 2*M*K*N operations take a
-# hundredth of that. The CUDA kernel (``csrc/lora_dual_multi.cu``) runs a
-# (N/32, M/8) grid of 512 threads: lanes run along N (neighbouring columns
-# of one W row, coalesced), the block's 16 warps split each 512-wide K chunk,
-# each thread holds fp32 sums for the block's 8 rows of its column, and x's
-# chunk is staged in shared memory (read as a broadcast). In the same K loop
-# the block accumulates u for its rows from their own pages. The epilogue
-# sums the warps' partials in a fixed order (no atomics), adds s*u@B[page]
-# and rounds once to x's dtype. Ragged M/N/K edges are masked, never padded
-# in memory. Tensor cores, TMA and split-K (more blocks than N/32 at small
-# M) are later work.
+# MB of bf16 at K = N = 4096, about 10 us at 3.35 TB/s); its 2*M*K*N
+# operations are 4 a byte. Two routes, one rule (``lora_multi_path``):
+#
+# - ``stream`` (bf16, M <= 16, K and N multiples of 8, x and W on 16
+#   bytes, K <= 8192): streams W from HBM, where the engine's decode step finds it
+#   (``csrc/lora_dual_multi.cu``, ``lora_multi_stream_kernel``, whose header
+#   holds the full note). A block owns 128 columns and one of 8 K slices:
+#   256 blocks at decode, all resident at once; each thread keeps 10
+#   16-byte cp.async copies of its W rows in flight in a shared-memory ring
+#   and fp32 sums for every row. The 8 slices of a strip are one
+#   thread-block cluster that sums its partials of x@W and of u = x@A[page]
+#   (each slice's, from its rows' own pages) in rank order through
+#   distributed shared memory, adds s*u@B[page] and rounds once: one launch,
+#   no workspace, no float atomics, so repeat launches are bitwise equal.
+# - ``simt`` (fp32, more rows, or off that alignment): a (N/32, M/8) grid of
+#   512 threads; lanes run along N, the block's 16 warps split each 512-wide
+#   K chunk staged in shared memory, each thread holds fp32 sums for the
+#   block's 8 rows of its column, and u accumulates from the rows' pages in
+#   the same K loop; the epilogue sums the warps' partials in a fixed order.
+#   A tensor-core tile path for prefill-sized M is later work.
+#
+# Ragged M/N/K edges are masked, never padded in memory.
+
+
+def lora_multi_path(dtype, M, K, N, aligned=True):
+    """The kernel a CUDA ``lora_dual_multi`` call takes: 'stream' (bf16,
+    1 <= M <= STREAM_M_MAX rows, K and N multiples of 8 and x and W on a
+    16-byte boundary (``aligned``) for 16-byte copies of eight elements of a
+    row, K <= STREAM_K_MAX) or 'simt'."""
+    if (dtype == torch.bfloat16 and M <= STREAM_M_MAX and K <= STREAM_K_MAX
+            and K % 8 == 0 and N % 8 == 0 and aligned):
+        return "stream"
+    return "simt"
 
 
 def _row_pages(idx, batch_shape):
@@ -353,14 +379,25 @@ def lora_dual_multi(x, idx, w, a_stack, b_stack, scale=1.0):
     if M == 0 or N == 0:
         return y
     pages = pages.to(torch.int32).contiguous()
-    fn = build.load("lora_dual_multi").lora_dual_multi
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 6 + \
-            [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    err = fn(_DTYPE_CODE[x.dtype], x.data_ptr(), pages.data_ptr(), w.data_ptr(),
-             a_stack.data_ptr(), b_stack.data_ptr(), y.data_ptr(), M, K, N, r, P,
-             float(scale), torch.cuda.current_stream(x.device).cuda_stream)
+    path = lora_multi_path(x.dtype, M, K, N, (x.data_ptr() | w.data_ptr()) % 16 == 0)
+    args = (x.data_ptr(), pages.data_ptr(), w.data_ptr(), a_stack.data_ptr(),
+            b_stack.data_ptr(), y.data_ptr(), M, K, N, r, P, float(scale),
+            torch.cuda.current_stream(x.device).cuda_stream)
+    if path == "stream":
+        err = _multi_fn("lora_dual_multi_stream")(*args)
+    else:
+        err = _multi_fn("lora_dual_multi")(_DTYPE_CODE[x.dtype], *args)
     build.check(err, "lora_dual_multi")
     launches["lora_dual_multi"] += 1
+    launches_by_path["lora_dual_multi"][path] += 1
     return y
+
+
+def _multi_fn(symbol):
+    fn = getattr(build.load("lora_dual_multi"), symbol)
+    if fn.argtypes is None:
+        lead = [] if symbol == "lora_dual_multi_stream" else [ctypes.c_int]
+        fn.argtypes = lead + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + \
+            [ctypes.c_float, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn

@@ -25,25 +25,38 @@ K/V tiles arrive by cp.async in a double-buffered shared-memory ring;
 Q stays in registers; S = Q·K^T and P·V run on the tensor cores with fp32
 accumulators, the online softmax on the score fragments (row max and sum
 over the lane quad by shuffles), P rounded to bf16 before P·V as the
-reference does, l summed from the fp32 p. ``launches_by_path`` counts
-each primal call by the route it took.
+reference does, l summed from the fp32 p.
 
 The tangent walk does 2 + 2 products per tangent per (query, key) pair on
-top of the primal's 2, so it is bound by operations, and by the bytes of
-its (T, B*H, S, hd) output at short S. The fp32 primal, hd off the 16
-multiple, and the tangent and contraction modes run ``swa_kernel``: each
-query row to one warp (lanes split hd, so the primal accumulator lives in
-registers), walking 32-key chunks of the causal band staged in shared
-memory as fp32; lane j scores key j, the warp reduces max and sum with
-shuffles. The T tangent accumulators (T x hd per row) do not fit in
-registers for T up to 64, so they live in the warp's slice of shared
-memory (the launch halves the warps a block until it fits), and each
-chunk's kd_t/vd_t tiles are staged one tangent at a time. No (S, S) or
-(T, S, S) tensor is ever written. Both kernels keep the reference's
+top of the primal's 2: at the main path's S=32 it is bound by the bytes of
+its (T, B*H, S, hd) tangent stacks and output (about 18 MB at
+roberta-large's T=8), at long S by operations. In bf16 on ``swa_path``'s
+tensor-core route (``swa_tc_mt_kernel``) a block is one (b, h), a query
+tile of 16 rows a warp and a group of 1–4 tangents (as many 16 x hd fp32
+accumulators as a warp's registers hold: 4 at hd <= 32, 2 at hd <= 64, 1
+above); more tangents are more blocks. Q, the group's Qd_t and, per 64-key
+tile, K, V, Kd_t and Vd_t arrive by cp.async; each warp runs the primal
+walk, then per tangent Sd = Qd_t K^T + Q Kd_t^T on the tensor cores, psd =
+p sd scale in fp32, mu_t += sum psd, acc_t += psd V + bf16(p) Vd_t, and
+finishes outd_t in 16-byte stores. p is rounded to bf16 before its products
+as the reference rounds it; psd goes in as two bf16 (hi + lo) instead of
+one rounding: psd is several units where few keys are kept, and the first
+rows' outd cancels acc_t against the fp32 mu_t, so one rounding would leave
+up to |psd| |v| / 512. ``swa_attention_mt_tiled_ref`` is the
+plain tiled walk in the kernel's roundings (``round_psd`` gives the
+reference's). fp32, hd off the 16 multiple, and the contraction mode run
+``swa_kernel``: each query row to one warp (lanes split hd, so the primal
+accumulator lives in registers), walking 32-key chunks of the causal band
+staged in shared memory as fp32; lane j scores key j, the warp reduces max
+and sum with shuffles; its T tangent accumulators live in the warp's slice
+of shared memory (the launch halves the warps a block until it fits), and
+each chunk's kd_t/vd_t tiles are staged one tangent at a time. No (S, S) or
+(T, S, S) tensor is ever written. Every kernel keeps the reference's
 numerics: the explicit keep-gate on p (exp(NEG_INF - NEG_INF) would be
 1), the clamp of l at 1e-30, the band start ``(q_start - (window - 1)) //
 tile`` with out-of-range keys masked, and the GQA map ``h // (H / KV)``.
-S and hd edges are masked in the kernels; hd <= 128.
+S and hd edges are masked in the kernels; hd <= 128. ``launches_by_path``
+counts the primal and tangent calls by route.
 
 CPU tensors take the plain versions below; CUDA tensors launch a kernel
 or raise.
@@ -60,9 +73,11 @@ from repro_torch.kernels import build
 
 T_MAX = 64          # tangents a launch (the kernel's shared-memory plan)
 HD_MAX = 128
+TC_KEYS = 64        # keys a tile of the tensor-core kernels (csrc TC_BKV)
 launches = {"swa_attention": 0, "swa_attention_mt": 0, "swa_attention_mt_jvps": 0}
-# swa_attention (primal) calls by route (``swa_path``); sums to its launches
-launches_by_path = {"swa_attention": {"tc": 0, "simt": 0}}
+# primal and tangent calls by route (``swa_path``); each sums to its launches
+launches_by_path = {"swa_attention": {"tc": 0, "simt": 0},
+                    "swa_attention_mt": {"tc": 0, "simt": 0}}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -96,24 +111,70 @@ def swa_attention_mt_tangents_ref(q, k, v, qds, kds, vds, window=None):
     return torch.func.vmap(one)(qds, kds, vds)
 
 
+def swa_attention_mt_tiled_ref(q, k, v, qds, kds, vds, window=None, round_psd=False):
+    """Plain tiled version of the tangent walk in the roundings of the
+    tensor-core kernel: keys in its tiles of TC_KEYS (at multiples of it)
+    with an online softmax and fp32 accumulators, p rounded to q's dtype
+    before its products with v and vd. ``round_psd`` rounds psd too before
+    its product with v, as the reference's ``_mt_kernel`` does; the kernel
+    carries psd as two bf16 (module note). Operands as
+    ``swa_attention_mt_tangents``."""
+    B, H, S, hd = q.shape
+    G = H // k.shape[1]
+    dt = q.dtype
+    rep = lambda t: t.repeat_interleave(G, dim=-3).float()  # noqa: E731  kv head h // G
+    qf, qdf = q.float(), qds.float()
+    kf, vf, kdf, vdf = rep(k), rep(v), rep(kds), rep(vds)
+    scale = 1.0 / math.sqrt(hd)
+    m = torch.full((B, H, S, 1), -1e30, device=q.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros_like(qf)
+    mu = torch.zeros((qds.shape[0], B, H, S, 1), device=q.device)
+    accd = torch.zeros_like(qdf)
+    qpos = torch.arange(S, device=q.device)[:, None]
+    for c0 in range(0, S, TC_KEYS):
+        ks = slice(c0, min(S, c0 + TC_KEYS))
+        kpos = torch.arange(ks.start, ks.stop, device=q.device)[None, :]
+        keep = kpos <= qpos
+        if window is not None:
+            keep = keep & (kpos > qpos - window)
+        kt, vt = kf[..., ks, :], vf[..., ks, :]
+        s = torch.where(keep, qf @ kt.transpose(-1, -2) * scale, -1e30)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.where(keep, torch.exp(s - m_new), 0.0)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        acc = acc * alpha + p.to(dt).float() @ vt
+        sd = (qdf @ kt.transpose(-1, -2) + qf @ kdf[..., ks, :].transpose(-1, -2)) * scale
+        psd = p * sd
+        mu = mu * alpha + psd.sum(-1, keepdim=True)
+        accd = accd * alpha + ((psd.to(dt).float() if round_psd else psd) @ vt
+                               + p.to(dt).float() @ vdf[..., ks, :])
+        m = m_new
+    lc = l.clamp_min(1e-30)
+    return (accd / lc - (mu / lc) * (acc / lc)).to(dt)
+
+
 def swa_path(dtype, hd, aligned=True):
-    """The kernel a CUDA ``swa_attention`` (primal) call takes: 'tc' (bf16
-    with hd a multiple of 16, the depth of one mma step, and q, k, v on
-    16-byte boundaries (``aligned``) for the 16-byte copies of key and value
-    rows) or 'simt'."""
+    """The kernel a CUDA ``swa_attention`` (primal) or
+    ``swa_attention_mt_tangents`` call takes: 'tc' (bf16 with hd a multiple
+    of 16, the depth of one mma step, and every operand on a 16-byte
+    boundary (``aligned``) for the 16-byte copies of query, key and value
+    rows and their tangents') or 'simt'."""
     return "tc" if dtype == torch.bfloat16 and hd % 16 == 0 and aligned else "simt"
 
 
 _ARGS = {"swa_attention_fwd": (4, 6), "swa_attention_mt_tangents": (7, 7),
          "swa_attention_mt_jvps": (8, 7),      # (pointers, ints) after dtype
-         "swa_attention_fwd_tc": (4, 6)}       # no dtype: bf16 only
+         "swa_attention_fwd_tc": (4, 6),       # no dtype: bf16 only
+         "swa_attention_mt_tangents_tc": (7, 7)}
 
 
 def _fn(symbol):
     fn = getattr(build.load("swa_attention"), symbol)
     if fn.argtypes is None:
         n_ptr, n_int = _ARGS[symbol]
-        lead = [] if symbol == "swa_attention_fwd_tc" else [ctypes.c_int]
+        lead = [] if symbol.endswith("_tc") else [ctypes.c_int]
         fn.argtypes = lead + [ctypes.c_void_p] * n_ptr + \
             [ctypes.c_int] * n_int + [ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
@@ -188,13 +249,19 @@ def swa_attention_mt_tangents(q, k, v, qds, kds, vds, window=None):
     out = torch.empty_like(qds)
     if out.numel() == 0:
         return out
-    err = _fn("swa_attention_mt_tangents")(
-        _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        qds.data_ptr(), kds.data_ptr(), vds.data_ptr(), out.data_ptr(),
-        B * H, S, hd, H, H // k.shape[1], T, -1 if window is None else int(window),
-        1.0 / math.sqrt(hd), torch.cuda.current_stream(q.device).cuda_stream)
+    path = swa_path(q.dtype, hd,
+                    all(t.data_ptr() % 16 == 0 for t in (q, k, v, qds, kds, vds, out)))
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), qds.data_ptr(), kds.data_ptr(),
+            vds.data_ptr(), out.data_ptr(), B * H, S, hd, H, H // k.shape[1], T,
+            -1 if window is None else int(window), 1.0 / math.sqrt(hd),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    if path == "tc":
+        err = _fn("swa_attention_mt_tangents_tc")(*args)
+    else:
+        err = _fn("swa_attention_mt_tangents")(_DTYPE_CODE[q.dtype], *args)
     build.check(err, "swa_attention_mt_tangents")
     launches["swa_attention_mt"] += 1
+    launches_by_path["swa_attention_mt"][path] += 1
     return out
 
 

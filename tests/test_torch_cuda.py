@@ -127,22 +127,35 @@ def test_lora_bf16_routes_match_plain(dev, M, K, N, r, T, has_xd):
     (1, 8, 2, 100, 128, 40, 3),      # GQA, band, ragged S
     (2, 4, 1, 33, 48, None, 1),      # MQA, hd not a multiple of 32
     (1, 2, 2, 300, 32, 64, 16),
-    (1, 4, 2, 40, 128, None, 64),    # T_MAX tangents at hd=128: one warp a block
+    (1, 4, 2, 40, 128, None, 64),    # T_MAX tangents at hd=128
+    (8, 16, 16, 32, 64, None, 1),    # roberta-large's main shape, T = 1 and 8
+    (8, 16, 16, 32, 64, None, 8),
+    (8, 32, 32, 32, 128, None, 8),   # llama2-7b widths
+    (1, 4, 4, 20, 40, 7, 5),         # hd off the 16 multiple: simt in bf16
 ])
 def test_swa_kernels_match_plain(dev, dtype, B, H, KV, S, hd, window, T):
+    """Primal and tangents against the plain versions, each on the route
+    ``swa_path`` gives; the tensor-core tangents also against the tiled
+    plain walk in their own roundings, at ``chip_smoke.close_tiled``'s
+    tighter limit."""
     from repro_torch.kernels.swa_attention import ops
     g = torch.Generator(device=dev)
     g.manual_seed(1)
     rn = lambda *s: torch.randn(s, generator=g, device=dev).to(dtype)  # noqa: E731
     q, k, v = rn(B, H, S, hd), rn(B, KV, S, hd), rn(B, KV, S, hd)
     qd, kd, vd = rn(T, B, H, S, hd), rn(T, B, KV, S, hd), rn(T, B, KV, S, hd)
-    out = _one_launch_by(ops.launches_by_path["swa_attention"], ops.swa_path(dtype, hd),
+    route = ops.swa_path(dtype, hd)
+    out = _one_launch_by(ops.launches_by_path["swa_attention"], route,
                          lambda: ops.swa_attention(q, k, v, window))
-    outd = ops.swa_attention_mt_tangents(q, k, v, qd, kd, vd, window)
+    outd = _one_launch_by(ops.launches_by_path["swa_attention_mt"], route,
+                          lambda: ops.swa_attention_mt_tangents(q, k, v, qd, kd, vd, window))
     torch.cuda.synchronize()
     _close(out, ops.swa_attention_ref(*_f32((q, k, v)), window), dtype)
     _close(outd, ops.swa_attention_mt_tangents_ref(*_f32((q, k, v, qd, kd, vd)),
                                                    window), dtype)
+    if route == "tc":
+        _chip_smoke().close_tiled("swa_attention_mt", outd, ops.swa_attention_mt_tiled_ref(
+            q, k, v, qd, kd, vd, window))
 
 
 @pytest.mark.parametrize("window", [None, 256])
@@ -533,10 +546,16 @@ def test_rwkv6_launches_per_estimate(dev, fused):
 @pytest.mark.parametrize("M,K,N,P,r", [
     (4, 4096, 4096, 4, 1),          # llama2-7b engine decode
     (256, 1024, 1024, 4, 1),
-    (5, 1000, 333, 3, 4),           # ragged edges, every page hit
+    (5, 1000, 333, 3, 4),           # ragged edges, every page hit (N: simt)
     (9, 16, 40, 2, 16),             # two row blocks, the rank limit
+    (1, 4096, 4096, 3, 1),          # one row
+    (16, 4096, 4096, 4, 2),         # the stream route's most rows, repeated pages
+    (6, 1000, 136, 2, 3),           # K off the 8 slices, N off the 128-column strip
+    (3, 1001, 64, 2, 1),            # K off the 8-element copies: simt in bf16
 ])
 def test_lora_multi_kernel_matches_plain(dev, dtype, M, K, N, P, r):
+    """Against the plain version on the route ``lora_multi_path`` gives; a
+    second launch on the same inputs is bitwise equal."""
     from repro_torch.kernels.lora_dual import ops
     g = torch.Generator(device=dev)
     g.manual_seed(0)
@@ -546,10 +565,14 @@ def test_lora_multi_kernel_matches_plain(dev, dtype, M, K, N, P, r):
     a, b = rn(P, K, r) / math.sqrt(K), rn(P, r, N)
     idx = (torch.arange(M, device=dev) % P).to(torch.int32)
     before = ops.launches["lora_dual_multi"]
-    out = ops.lora_dual_multi(x, idx, w, a, b, 0.5)
+    out = _one_launch_by(ops.launches_by_path["lora_dual_multi"],
+                         ops.lora_multi_path(dtype, M, K, N),
+                         lambda: ops.lora_dual_multi(x, idx, w, a, b, 0.5))
+    again = ops.lora_dual_multi(x, idx, w, a, b, 0.5)
     torch.cuda.synchronize()
-    assert ops.launches["lora_dual_multi"] == before + 1
+    assert ops.launches["lora_dual_multi"] == before + 2
     assert out.shape == (M, 1, N) and out.dtype == dtype
+    assert torch.equal(out, again)
     _close(out, ops.lora_dual_multi_ref(x.float(), idx, w.float(), a, b, 0.5), dtype)
 
 
@@ -566,10 +589,12 @@ def test_lora_multi_wrapper_raises_instead_of_falling_back(dev):
     with pytest.raises(ValueError, match="r<=16"):
         ops.lora_dual_multi(x, idx, w, torch.randn(2, 16, 17, device=dev),
                             torch.randn(2, 17, 8, device=dev))
-    # a page outside [0, P) reads nothing and comes back NaN
-    out = ops.lora_dual_multi(x, torch.tensor([0, 1, 2, -1], dtype=torch.int32,
-                                              device=dev), w, a, b)
-    assert torch.isfinite(out[:2]).all() and torch.isnan(out[2:]).all()
+    # a page outside [0, P) reads nothing and comes back NaN, on both routes
+    bad = torch.tensor([0, 1, 2, -1], dtype=torch.int32, device=dev)
+    for xw, route in (((x, w), "simt"), ((x.bfloat16(), w.bfloat16()), "stream")):
+        out = _one_launch_by(ops.launches_by_path["lora_dual_multi"], route,
+                             lambda xw=xw: ops.lora_dual_multi(*xw[:1], bad, xw[1], a, b))
+        assert torch.isfinite(out[:2]).all() and torch.isnan(out[2:]).all()
 
 
 def test_engine_launches_per_decode_step(dev):

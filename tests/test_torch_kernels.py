@@ -142,6 +142,33 @@ def test_swa_plain_matches_pallas_interpret():
     assert _rel(swa_ops.swa_attention_mt_tangents(*tarrs, 24), want_d) <= RTOL
 
 
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("B,H,KV,S,hd,window,T", [
+    (1, 4, 2, 100, 32, 40, 2),     # GQA, band, ragged S (two 64-key tiles)
+    (2, 2, 2, 64, 16, None, 3),
+    (1, 2, 1, 70, 64, None, 2),    # MQA, one key past a tile
+])
+def test_swa_mt_tiled_plain_matches_pallas_interpret(B, H, KV, S, hd, window, T, dtype):
+    """The tiled plain walk, rounding psd as the reference does, against the
+    TPU kernel's ``_mt_kernel`` in interpret mode at the same 64-key tiles
+    (ragged S zero-padded by the reference's wrapper). bf16: within one bf16
+    ulp of each value and 1e-3 of the largest (``chip_smoke.close_tiled``;
+    most values are bitwise equal, the untiled plain version in fp32 is
+    1.4e-2 to 2.3e-2 off); fp32: the cross-framework 1e-5."""
+    arrs = _swa_inputs(6, B, H, KV, S, hd, T)
+    want = jax_swa_mt_pallas(*(jnp.asarray(a, dtype=getattr(jnp, dtype)) for a in arrs),
+                             window=window, block_q=64, block_k=64, interpret=True)
+    want = np.array(want.astype(jnp.float32))
+    got = swa_ops.swa_attention_mt_tiled_ref(
+        *(_t(a).to(getattr(torch, dtype)) for a in arrs), window, round_psd=True)
+    assert got.shape == (T, B, H, S, hd) and got.dtype == getattr(torch, dtype)
+    if dtype == "float32":
+        assert _rel(got, want) <= RTOL
+    else:
+        torch.testing.assert_close(got.float(), torch.from_numpy(want), rtol=2 ** -7,
+                                   atol=1e-3 * float(np.abs(want).max()))
+
+
 def test_lora_proj_rule_matches_jax_jvp_and_vmaps_to_one_call(monkeypatch):
     """The LoRA rule's tangent equals jax.jvp of the same projection, and
     K stacked tangents reach the multi-tangent wrapper as ONE T=K call."""
@@ -620,6 +647,38 @@ def test_swa_path_rule(dtype, hd, aligned, want):
     assert swa_ops.swa_path(dtype, hd, aligned) == want
 
 
+@pytest.mark.parametrize("dtype,M,K,N,aligned,want", [
+    (torch.bfloat16, 4, 4096, 4096, True, "stream"),      # llama2-7b decode
+    (torch.bfloat16, 1, 16, 8, True, "stream"),
+    (torch.bfloat16, 16, 1000, 136, True, "stream"),      # K off the slices, N off 128
+    (torch.bfloat16, 4, 1001, 4096, True, "simt"),        # K off the 8-element copies
+    (torch.bfloat16, 16, 8192, 4096, True, "stream"),
+    (torch.bfloat16, 17, 4096, 4096, True, "simt"),       # more rows
+    (torch.bfloat16, 256, 4096, 4096, True, "simt"),
+    (torch.bfloat16, 4, 8193, 4096, True, "simt"),        # x's slice past shared memory
+    (torch.bfloat16, 4, 1000, 333, True, "simt"),         # N off the 8-column loads
+    (torch.bfloat16, 4, 4096, 4096, False, "simt"),       # x or W off 16 bytes
+    (torch.float32, 4, 4096, 4096, True, "simt"),         # fp32 stays on the fp32 kernel
+    (torch.float16, 4, 4096, 4096, True, "simt"),
+])
+def test_lora_multi_path_rule(dtype, M, K, N, aligned, want):
+    assert lora_ops.lora_multi_path(dtype, M, K, N, aligned) == want
+
+
+def test_engine_decode_takes_the_stream_route():
+    """Every adapted projection of llama2-7b's batched decode (bf16, rows up
+    to the engine's batch) streams W; the reduced fp32 engine takes simt."""
+    from repro_torch.configs import SpryConfig, get_config, reduce_config
+    from repro_torch.peft.lora import target_dims
+    cfg = get_config("llama2-7b")
+    for t in SpryConfig().lora_targets:
+        K, N = target_dims(cfg, t)
+        for batch in (1, 4, 16):
+            assert lora_ops.lora_multi_path(torch.bfloat16, batch, K, N) == "stream"
+        K, N = target_dims(reduce_config(cfg), t)
+        assert lora_ops.lora_multi_path(torch.float32, 2, K, N) == "simt"
+
+
 @pytest.mark.parametrize("arch", ["roberta-large-lora", "llama2-7b", "zamba2-1.2b",
                                   "rwkv6-1.6b"])
 def test_full_width_main_path_takes_the_tensor_core_routes(arch):
@@ -645,7 +704,10 @@ def test_route_counters_reset_with_the_launch_counters():
     swa_ops.launches_by_path["swa_attention"]["simt"] += 1
     try:
         assert launch_paths()["lora_dual_mt"]["tc"] >= 2
-        assert set(launch_paths()) == {"lora_dual_mt", "swa_attention"}
+        assert set(launch_paths()) == {"lora_dual_mt", "swa_attention",
+                                       "swa_attention_mt", "lora_dual_multi"}
+        assert set(launch_paths()["swa_attention_mt"]) == {"tc", "simt"}
+        assert set(launch_paths()["lora_dual_multi"]) == {"stream", "simt"}
         assert set(launch_paths()["lora_dual_mt"]) == {"tc", "store", "simt"}
     finally:
         reset_launch_counts()
