@@ -10,10 +10,10 @@ Phases, in order (any failure raises and exits non-zero):
   2. build    nvcc builds every CUDA source of the path for sm_90a, in
               parallel; prints each kernel's registers, shared memory and
               spills (-Xptxas -v), and the count of tensor-core instructions
-              in the SASS (cuobjdump -sass) of the four tensor-core kernels:
+              in the SASS (cuobjdump -sass) of the five tensor-core kernels:
               HGMMA in ``lora_mt_tc_kernel``, HMMA in ``swa_tc_kernel`` and
-              ``swa_tc_mt_kernel``, DMMA (fp64) in ``mamba2_ssd_kernel``;
-              fails if an instantiation has none
+              ``swa_tc_mt_kernel``, DMMA (fp64) in ``mamba2_ssd_kernel`` and
+              ``wkv6_chunk_kernel``; fails if an instantiation has none
   3. kernels  each of the twelve kernels against its plain PyTorch version on
               the card at the main path's shapes (roberta-large, llama2-7b,
               zamba2, rwkv6-1.6b) and one long shape. ``lora_dual_mt`` and
@@ -49,9 +49,13 @@ Phases, in order (any failure raises and exits non-zero):
               must agree bit for bit. Rows 10 and 11 also print
               ``eager_ms``, as rows 1 and 2 do. The wkv6
               recurrence (fp32 only, as the reference's kernels): rwkv6-1.6b's
-              shapes (B=8, S=32, H=32, hd=64), a ragged shape (S=37, B*H=15,
-              hd=40) and S=1024, T in {1, 8, 64}, with and without a tangent
-              of u, the same bitwise lane and repeat checks. The four
+              shapes (B=8, S=32, H=32, hd=64), two ragged shapes (S=29 and
+              S=37, B*H=15, hd=40) and S=1024, T in {1, 8, 64}, with and
+              without a tangent of u, each tangent launch on the route
+              ``wkv6_mt_path`` gives (chunk for S <= 32, held also against
+              the plain chunked form ``wkv6_chunked_ref`` at T <= 8:
+              ``max_abs_err_chunked``), the same bitwise lane and repeat
+              checks on both routes; rows 7 and 8 print ``eager_ms``. The four
               contraction epilogues return sums of n products, held against
               1e-6 x sum|terms| in every dtype (the kernel reads bf16 exactly
               into the same fp32 sums as fp32; a typical contraction is about
@@ -105,7 +109,8 @@ Phases, in order (any failure raises and exits non-zero):
               ``lora_dual_mt`` and ``swa_attention`` (primal and tangent)
               launch of phases 5 and 6 (bf16 at full width) must take a
               tensor-core route (tc, or store where no input tangent
-              exists), none simt. Prints
+              exists), none simt, and every ``wkv6_scan_mt`` launch the
+              chunk route (S=32), none rec. Prints
               each run's loss, test accuracy, seconds per round and peak
               device memory of a round (weights included, model init
               excluded), and SPRY's and FedAvg's round peaks side by side for
@@ -173,7 +178,7 @@ SOURCES = {
     "mamba2_scan_mt_jvps": "src/repro_torch/csrc/mamba2_scan.cu",
     "lora_dual_multi": "src/repro_torch/csrc/lora_dual_multi.cu",
     "wkv6_scan": "src/repro_torch/csrc/wkv6_scan.cu",
-    "wkv6_scan_mt": "src/repro_torch/csrc/wkv6_scan.cu",
+    "wkv6_scan_mt": "src/repro_torch/csrc/wkv6_chunk.cu",
     "wkv6_scan_mt_jvps": "src/repro_torch/csrc/wkv6_scan.cu",
 }
 
@@ -191,7 +196,7 @@ def time_ms(fn, graph=True, windows=3):
     and yardstick) n calls are captured once into a CUDA graph and each
     window replays it, so a call is timed at the device's rate, not at the
     rate the host launches it, and a kernel and its plain version are timed
-    alike; without (``eager_ms`` of rows 1, 2, 10 and 11: what a call costs on the
+    alike; without (``eager_ms`` of rows 1, 2, 7, 8, 10 and 11: what a call costs on the
     main path, host work included) the calls run eagerly. A window holds at
     least 200 calls of anything under 0.1 ms, and about 0.1 s of calls (at
     least 3) of anything slower. Three warm-up calls, timed on the host,
@@ -660,6 +665,54 @@ def mamba2_lanes_and_repeats(B, S, H, hd, N, gen):
         f"equal to T=1 launches (tangents and jvps), jvps repeat bitwise")
 
 
+def wkv6_flops(B, S, H, hd, T, has_ud=False):
+    """fp32 operations of the primal, the tangent pass and the contraction:
+    for each, the lesser of the recurrent form's count and the chunked
+    form's (``ops.wkv6_chunked_ref``), so a chunked kernel is never held to
+    the recurrence's work."""
+    n = B * S * H * hd                   # elements of one (B,S,H,hd) stream
+    el = n * hd                          # state elements walked
+    contract = 2 * T * n
+    # recurrent, per state element and token: the decay update S <- w S +
+    # k v^T 3, the readout r^T S 2 (the tangent modes emit no y); per tangent
+    # the update Sd <- wd S + w Sd + kd v^T + k vd^T 7 and the readouts rd^T S
+    # and r^T Sd 2 each. The bonus term (r . (u k)) v_j costs O(hd) a token
+    # and head, per element of n: the scalar a = r . (u k) 3 and y += a v 2;
+    # in the tangent modes a, the products r u (and r k with a tangent of u)
+    # 1 each, then per tangent ad = rd . (u k) + (r u) . kd (+ (r k) . ud)
+    # 4 (+2) and yd += ad v + a vd 4.
+    rec_p = 5 * el + 5 * n
+    rec_t = 3 * el + (4 + has_ud) * n + T * (11 * el + (8 + 2 * has_ud) * n)
+    # chunked, per chunk of q <= 32 tokens, head and channel, over its p =
+    # q (q - 1) / 2 pairs s' < s: L by running products 1 a pair, A's terms
+    # r (k L) and their sum 3; the diagonal u (r k) and its sum 3 a token; y
+    # = A v 2 (p + q) a value column. A tangent: Ld 2 a pair, Ad's terms r (k
+    # Ld + kd L) + rd (k L) and their sum 8; its diagonal 5 (+2 with a
+    # tangent of u) a token; yd = Ad v + A vd 4 (p + q) a column. After the
+    # first chunk the readout of the carried state: Lc 1 and r Lc 1 a token
+    # and channel and (r Lc)^T S 2 hd; a tangent's Lcd 2, rd Lc + r Lcd 3 and
+    # two such products 4 hd. Before the last the state's update: S <- Lq S
+    # + (k Lend)^T v, 2 hd^2 + q hd + 2 q hd^2 a head; a tangent's Sd <- Lqd
+    # S + Lq Sd + (kd Lend + k Lendd)^T v + (k Lend)^T vd, 3 hd^2 + 3 q hd +
+    # 4 q hd^2.
+    ch_p = ch_state = ch_t = 0
+    for s0 in range(0, S, 32):
+        q = min(32, S - s0)
+        p = q * (q - 1) // 2
+        readout, update = s0 > 0, s0 + q < S
+        state = ((4 * p + 3 * q) * hd + readout * (2 * q * hd + 2 * q * hd * hd)
+                 + update * (2 * hd * hd + q * hd + 2 * q * hd * hd))
+        ch_state += state
+        ch_p += state + 2 * (p + q) * hd
+        ch_t += ((10 * p + (5 + 2 * has_ud) * q) * hd + 4 * (p + q) * hd
+                 + readout * (5 * q * hd + 4 * q * hd * hd)
+                 + update * (3 * hd * hd + 3 * q * hd + 4 * q * hd * hd))
+    ch_p, ch_state, ch_t = (x * B * H for x in (ch_p, ch_state, ch_t))
+    tang = min(rec_t, ch_state + T * ch_t)
+    return {"wkv6_scan": min(rec_p, ch_p), "wkv6_scan_mt": tang,
+            "wkv6_scan_mt_jvps": tang + contract}
+
+
 def wkv6_inputs(B, S, H, hd, T, has_ud, gen):
     """Recurrence operands at the model's scales: r, k, v ~ N(0, 0.25), the
     decay w = exp(-exp(0.5 + 0.5 z)) in (0, 1) as rwkv6's w0 = 0.5 gives."""
@@ -685,8 +738,10 @@ def wkv6_cases(B, S, H, hd, T, has_ud, gen):
     prim, tang, uds, gy = wkv6_inputs(B, S, H, hd, T, has_ud, gen)
     shape = f"B={B} S={S} H={H} hd={hd} T={T} ud={has_ud}"
     out = {}
+    route = ops.wkv6_mt_path(S)
     y = ops.wkv6_scan(*prim)
-    yd = ops.wkv6_scan_mt_tangents(*prim, *tang, uds)
+    yd = took_path(f"wkv6_scan_mt {shape}", ops.launches_by_path["wkv6_scan_mt"],
+                   route, lambda: ops.wkv6_scan_mt_tangents(*prim, *tang, uds))
     jv = ops.wkv6_scan_mt_jvps(*prim, *tang, gy, uds)
     plain_ms = {}
     (y_ref, _), plain_ms["wkv6_scan"] = timed_once(lambda: ops.wkv6_scan_ref(*prim))
@@ -699,29 +754,24 @@ def wkv6_cases(B, S, H, hd, T, has_ud, gen):
     out["wkv6_scan"] = {"max_abs_err": close(f"wkv6_scan {shape}", y, y_ref,
                                              torch.float32)}
     out["wkv6_scan_mt"] = {"max_abs_err": close(f"wkv6_scan_mt {shape}", yd, yd_ref,
-                                                torch.float32)}
+                                                torch.float32), "path": route}
     err, rel = close_jvps(f"wkv6_scan_mt_jvps {shape}", jv, jv_ref, mag)
     out["wkv6_scan_mt_jvps"] = {"max_abs_err": err, "err_over_terms": rel}
-    del yd_ref, yd
+    del yd_ref
+    if route == "chunk" and T <= 8:     # the kernel's own algorithm, in plain torch
+        out["wkv6_scan_mt"]["max_abs_err_chunked"] = close(
+            f"wkv6_scan_mt {shape} vs wkv6_chunked_ref", yd,
+            ops.wkv6_chunked_ref(*prim, *tang, uds)[1], torch.float32)
+    del yd
     n = B * S * H * hd                   # elements of one (B,S,H,hd) stream
-    el = n * hd                          # state elements walked
-    # the flops the function needs. Per state element and token: the decay
-    # update S <- w S + k v^T 3, the readout r^T S 2 (the tangent modes emit
-    # no y); per tangent the update Sd <- wd S + w Sd + kd v^T + k vd^T 7
-    # and the readouts rd^T S and r^T Sd 2 each. The bonus term
-    # (r . (u k)) v_j costs O(hd) a token and head, per element of n: the
-    # scalar a = r . (u k) 3 and y += a v 2; in the tangent modes a, the
-    # products r u (and r k with a tangent of u) 1 each, then per tangent
-    # ad = rd . (u k) + (r u) . kd (+ (r k) . ud) 4 (+2) and
-    # yd += ad v + a vd 4. The contraction 2 per output element and tangent.
-    # Bytes: each input read once, each output written once.
+    # bytes: each input read once, each output written once; flops from
+    # ``wkv6_flops``
     ud_el = T * H * hd * has_ud
-    tang_fl = T * (11 * el + (8 + 2 * has_ud) * n)
-    prim_fl = 3 * el + (4 + has_ud) * n
-    costs = {"wkv6_scan": (5 * el + 5 * n, 4 * (5 * n + H * hd)),
-             "wkv6_scan_mt": (prim_fl + tang_fl,
+    flops = wkv6_flops(B, S, H, hd, T, has_ud)
+    costs = {"wkv6_scan": (flops["wkv6_scan"], 4 * (5 * n + H * hd)),
+             "wkv6_scan_mt": (flops["wkv6_scan_mt"],
                               4 * (4 * n + H * hd + 5 * T * n + ud_el)),
-             "wkv6_scan_mt_jvps": (prim_fl + tang_fl + 2 * T * n,
+             "wkv6_scan_mt_jvps": (flops["wkv6_scan_mt_jvps"],
                                    4 * (5 * n + H * hd + 4 * T * n + ud_el + T))}
     runs = {"wkv6_scan": lambda: ops.wkv6_scan(*prim),
             "wkv6_scan_mt": lambda: ops.wkv6_scan_mt_tangents(*prim, *tang, uds),
@@ -744,6 +794,8 @@ def wkv6_cases(B, S, H, hd, T, has_ud, gen):
         res["plain_ms"] = plain_ms[name]
         res["library_ms"] = None
         res["yardstick_ms"] = time_ms(yard[name])
+        if name != "wkv6_scan_mt_jvps":   # rows 7 and 8 called eagerly
+            res["eager_ms"] = time_ms(runs[name], graph=False)
         log(f"[kernels] {name} {shape}: " + json.dumps(res))
     return out
 
@@ -934,10 +986,13 @@ def phase_kernels():
     mamba2_lanes_and_repeats(3, 37, 5, 24, 20, gen)
     mamba2_lanes_and_repeats(2, 70, 3, 40, 64, gen)
     # the wkv6 recurrence (fp32 only): rwkv6-1.6b's shapes (one client
-    # estimate, B=8, S=32, H=32, hd=64), a ragged shape (odd S, B*H = 15, hd
-    # not a multiple of the 32-column tile) and a long sequence; T in {1, 8,
-    # 64}, with and without a tangent of u (the path passes none)
-    for (B, S, H, hd) in ((8, 32, 32, 64), (3, 37, 5, 40), (1, 1024, 4, 64)):
+    # estimate, B=8, S=32, H=32, hd=64; the tangents' chunk route), two
+    # ragged shapes (odd S on either tangent route, B*H = 15, hd not a
+    # multiple of the 32-column tile or the 16-byte rows of 8) and a long
+    # sequence; T in {1, 8, 64}, with and without a tangent of u (the path
+    # passes none)
+    for (B, S, H, hd) in ((8, 32, 32, 64), (3, 29, 5, 40), (3, 37, 5, 40),
+                          (1, 1024, 4, 64)):
         for T in (1, 8, 64):
             for has_ud in (False, True):
                 res = wkv6_cases(B, S, H, hd, T, has_ud, gen)
@@ -946,6 +1001,7 @@ def phase_kernels():
                     main.update(res)
     for has_ud in (False, True):
         wkv6_lanes_and_repeats(8, 32, 32, 64, has_ud, gen)
+        wkv6_lanes_and_repeats(3, 29, 5, 40, has_ud, gen)
         wkv6_lanes_and_repeats(3, 37, 5, 40, has_ud, gen)
     # the multi-adapter projection: llama2-7b's engine decode (M = max_batch
     # 4, K = N = 4096, P = 4 pages, r = 1), a prefill-sized M with random
@@ -1117,11 +1173,13 @@ def check_paths(what, paths, path_totals):
     bf16 at aligned widths and must take a tensor-core route
     (``lora_dual_mt``: tc, or store where no input tangent exists; the
     ``swa_attention`` primal and tangents: tc), never simt (training
-    launches no row 6). Adds ``paths`` into ``path_totals``."""
+    launches no row 6), and every row-8 launch (S=32) the chunk route,
+    never rec. Adds ``paths`` into ``path_totals``."""
     for k, by in paths.items():
-        if by.get("simt"):
-            raise AssertionError(f"{what}: {by['simt']} {k} launches took the simt "
-                                 f"route: {paths}")
+        for off in ("simt", "rec"):
+            if by.get(off):
+                raise AssertionError(f"{what}: {by[off]} {k} launches took the {off} "
+                                     f"route: {paths}")
         for route, n in by.items():
             path_totals[k][route] += n
 
@@ -1622,7 +1680,8 @@ def log_serve_profile(cfg, engine, fns, P, n=3):
 TENSOR_CORE_KERNELS = (("lora_dual", "lora_mt_tc_kernel", "HGMMA"),
                        ("swa_attention", "swa_tc_kernel", "HMMA"),
                        ("swa_attention", "swa_tc_mt_kernel", "HMMA"),
-                       ("mamba2_ssd", "mamba2_ssd_kernel", "DMMA"))
+                       ("mamba2_ssd", "mamba2_ssd_kernel", "DMMA"),
+                       ("wkv6_chunk", "wkv6_chunk_kernel", "DMMA"))
 
 
 def log_tensor_core_sass(build):
@@ -1734,8 +1793,8 @@ def main(argv=None):
                     for r in results if r["arch"] == arch}
             log(f"[train] {arch} peak device memory GiB of a round ({what}, batch "
                 f"8 x 32 tokens): " + json.dumps(peak))
-        log("[train] launches of rows 1, 2 and 3 by route over the site and train "
-            "phases (simt must be 0): " + json.dumps(path_totals))
+        log("[train] launches of rows 1, 2, 3 and 8 by route over the site and "
+            "train phases (simt and rec must be 0): " + json.dumps(path_totals))
     log(f"[phase] site and train {time.time() - tp:.1f}s")
     tp = time.time()
     if args.only in (None, "serve"):

@@ -1,6 +1,7 @@
 // Small Hopper (sm_90a) building blocks shared by the port's tensor-core
-// kernels: asynchronous 16-byte copies into shared memory (cp.async),
+// kernels: asynchronous 16- and 4-byte copies into shared memory (cp.async),
 // ldmatrix fragment loads, the bf16 mma.sync.m16n8k16 tensor-core product,
+// the fp64 mma.sync.m16n8k8 product (DMMA) and its fragment loads,
 // the fences and descriptors of warpgroup products (wgmma) over
 // 128-byte-swizzled shared-memory tiles, and the tensor-memory-accelerator
 // (TMA) loads, mbarriers and thread-block-cluster operations that feed them
@@ -24,6 +25,13 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
                "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+// 4 bytes global -> shared, for rows that are not 16-byte aligned; as above
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(valid ? 4 : 0)
                : "memory");
 }
 
@@ -102,6 +110,45 @@ __device__ __forceinline__ uint64_t wgmma_desc(const void* p, uint32_t lbo, uint
   d |= (uint64_t)((sbo & 0x3FFFF) >> 4) << 32;
   d |= (uint64_t)1 << 62;
   return d;
+}
+
+// ---- fp64 tensor-core products: mma.sync.m16n8k8.f64 (DMMA) --------------
+// Lane (g, t) = (lane / 4, lane % 4) of a warp holds the fragments below.
+
+struct FragA { double v[4]; };   // 16 x 8, row major
+struct FragB { double v[2]; };   // 8 x 8, col major
+
+// d += a b: fp32 operands are exact in fp64, so are their products; the sums
+// round to nearest in fp64
+__device__ __forceinline__ void mma(double (&d)[4], const FragA& a, const FragB& b) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f64.f64.f64.f64 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+d"(d[0]), "+d"(d[1]), "+d"(d[2]), "+d"(d[3])
+      : "d"(a.v[0]), "d"(a.v[1]), "d"(a.v[2]), "d"(a.v[3]), "d"(b.v[0]), "d"(b.v[1]));
+}
+
+// A (16 x 8) of a row-major fp32 or fp64 tile: element (r, k) at p[r * ld + k]
+template <class T>
+__device__ __forceinline__ FragA load_a(const T* p, int ld, int g, int t) {
+  return {{(double)p[g * ld + t], (double)p[(g + 8) * ld + t], (double)p[g * ld + t + 4],
+           (double)p[(g + 8) * ld + t + 4]}};
+}
+
+// A (16 x 8) as the transpose of a row-major tile: element (r, k) at p[k * ld + r]
+__device__ __forceinline__ FragA load_at(const float* p, int ld, int g, int t) {
+  return {{p[t * ld + g], p[t * ld + g + 8], p[(t + 4) * ld + g], p[(t + 4) * ld + g + 8]}};
+}
+
+// B (8 x 8) of a row-major tile: element (k, n) at p[k * ld + n]
+__device__ __forceinline__ FragB load_b(const float* p, int ld, int g, int t) {
+  return {{p[t * ld + g], p[(t + 4) * ld + g]}};
+}
+
+// B (8 x 8) as the transpose of a row-major fp32 or fp64 tile: element (k, n)
+// at p[n * ld + k]
+template <class T>
+__device__ __forceinline__ FragB load_bt(const T* p, int ld, int g, int t) {
+  return {{(double)p[g * ld + t], (double)p[g * ld + t + 4]}};
 }
 
 // ---- mbarriers, TMA and clusters ----------------------------------------

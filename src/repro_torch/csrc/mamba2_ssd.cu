@@ -140,42 +140,15 @@ __host__ __device__ inline Layout layout(bool carry, int HG, int HW, int XS, int
   return L;
 }
 
-// ---- fp64 tensor-core products: mma.sync.m16n8k8.f64 (DMMA) -----------------
-
-struct FragA { double v[4]; };   // 16 x 8, row major
-struct FragB { double v[2]; };   // 8 x 8, col major
-
-// d += a b: fp32 operands are exact in fp64, so are their products; the
-// sums round to nearest in fp64
-__device__ __forceinline__ void mma(double (&d)[4], const FragA& a, const FragB& b) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f64.f64.f64.f64 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+d"(d[0]), "+d"(d[1]), "+d"(d[2]), "+d"(d[3])
-      : "d"(a.v[0]), "d"(a.v[1]), "d"(a.v[2]), "d"(a.v[3]), "d"(b.v[0]), "d"(b.v[1]));
-}
-
-// A (16 x 8) of a row-major tile: element (r, k) at p[r * ld + k]
-__device__ __forceinline__ FragA load_a(const float* p, int ld, int g, int t) {
-  return {{p[g * ld + t], p[(g + 8) * ld + t], p[g * ld + t + 4], p[(g + 8) * ld + t + 4]}};
-}
-
-// A (16 x 8) as the transpose of a row-major tile: element (r, k) at p[k * ld + r]
-__device__ __forceinline__ FragA load_at(const float* p, int ld, int g, int t) {
-  return {{p[t * ld + g], p[t * ld + g + 8], p[(t + 4) * ld + g], p[(t + 4) * ld + g + 8]}};
-}
-
-// B (8 x 8) as the transpose of a row-major tile: element (k, n) at p[n * ld + k]
-__device__ __forceinline__ FragB load_bt(const float* p, int ld, int g, int t) {
-  return {{p[g * ld + t], p[g * ld + t + 4]}};
-}
+using hopper::cp_async4;
+using hopper::FragA;
+using hopper::FragB;
+using hopper::load_a;
+using hopper::load_at;
+using hopper::load_bt;
+using hopper::mma;
 
 // ---- staging ---------------------------------------------------------------
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(hopper::smem_u32(dst)),
-               "l"(src), "r"(valid ? 4 : 0)
-               : "memory");
-}
 
 // A thread's share of a (Q, HG, HW) tile of a (B, S, H, hd) tensor, moved
 // VEC columns at a time (4 with 16-byte rows, else 1): from column c of head

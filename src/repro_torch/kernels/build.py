@@ -23,7 +23,8 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = {"lora_dual": "lora_dual_mt.cu", "lora_dual_multi": "lora_dual_multi.cu",
            "swa_attention": "swa_attention.cu", "mamba2_ssd": "mamba2_ssd.cu",
-           "mamba2_scan": "mamba2_scan.cu", "wkv6_scan": "wkv6_scan.cu"}
+           "mamba2_scan": "mamba2_scan.cu", "wkv6_scan": "wkv6_scan.cu",
+           "wkv6_chunk": "wkv6_chunk.cu"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

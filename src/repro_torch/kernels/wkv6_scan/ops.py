@@ -21,26 +21,46 @@ kernels take and give fp32 only. The reference flattens to (B*H, S, hd)
 and pads S to its TPU block; the CUDA kernels index (B,S,H,hd) directly
 and take any S, so neither copy is made.
 
-On the H100 the work is bound by operations: per (b*h, token) the primal
-walk does 7 hd^2 flops (5 without the readout, which the tangent modes
-skip) and each tangent 13 hd^2, none of it a product a tensor core takes
-(a rank-1 update and a mat-vec a token). The TPU kernel keeps the (hd, hd)
-state and T tangent states in VMEM, 144 KiB at T=8, hd=64. The CUDA
-kernel (``csrc/wkv6_scan.cu``) uses that column j of y, S and every Sd
-reads only column j of the state: G = 8 lanes own one
-value column, each lane hd/8 of its rows, so a column's primal state and
-its TC tangent states stay in registers (8 (TC+1) floats a lane at
-hd = 64, TC = 8) and y_t[j] is a 3-step shuffle sum. A block takes 32
-columns of one (b, h) row and stages each 8-token chunk of r, k, w (and
-their tangents), which every column reads, in shared memory with
-coalesced loads; outputs leave through shared memory as coalesced rows.
-Tangents go in chunks of TC <= 8 over grid.z, each chunk redoing the
-primal walk. The contraction multiplies each lane's partial by gy as it
-goes and sums the block in a fixed order into one fp32 partial per
-(tangent, block); a second small kernel sums those in a fixed order: no
-atomics, the same jvps on every run, and every lane runs the same
-instruction sequence for any T (explicit fma intrinsics), so a T=8 launch
-equals eight T=1 launches bit for bit. hd <= 64.
+On the H100 the recurrent walk is bound by operations: per (b*h, token) the
+primal walk does 5 hd^2 flops and each tangent 11 hd^2, none of it a product
+a tensor core takes (a rank-1 update and a mat-vec a token). The TPU kernel
+keeps the (hd, hd) state and T tangent states in VMEM, 144 KiB at T=8,
+hd=64. The port computes each function in the form that bounds it least:
+
+- The primal (``csrc/wkv6_scan.cu``, ``wkv6_primal_kernel``) keeps the
+  recurrence and its per-token fp32 rounding of the state, ``s = fma(w, s,
+  k v_j)``: the rwkv6 card-vs-CPU check follows that rounding, as zamba2's
+  follows the mamba2 state's. A block takes one (b, h) row and stages its
+  r, k, w rows and v columns for up to 32 tokens in one round of 16-byte
+  ``cp.async`` copies (longer S: a ring of two 32-token chunks, the next
+  loading while one is walked); each thread holds an 8-row x 4-column
+  block of the state in registers, so a token's r, k, w rows arrive as
+  16-byte shared loads that serve four columns. The readout is y_t[j] = r_t
+  . S_{t-1}[:, j] + a_t v_t[j] with the bonus a_t = sum_i r_t u k_t once a
+  token; the partials of 8 tokens are summed over a column's 8 row lanes in
+  one reduce-scatter of shuffles; y leaves through shared memory as rows.
+- The tangents at S <= 32, every main-path launch, use the chunked form
+  (``csrc/wkv6_chunk.cu``; ``wkv6_chunked_ref`` below is its plain
+  version): per 32-token chunk y = A v with A[s][s'] = sum_c r_s k_s' L_c
+  and L_c[s][s'] the product of the decays in (s', s), by running
+  products; a tangent is yd = Ad v + A vd with Ad from the product rule.
+  At rwkv6-1.6b's shape that needs 0.98 GFLOP for T=8 against 3.09 in
+  the recurrent form (``chip_smoke.wkv6_flops``), so the pass is bound by
+  its 92 MB instead. Sums over c and the (Q x Q) x (Q x hd) products run
+  in fp64, the products on the fp64 tensor cores (``mma.sync`` f64). S >
+  32 keeps the recurrent kernel of the first port (``launches_by_path``
+  counts both routes, by ``wkv6_mt_path``).
+- The contraction epilogue keeps the recurrent kernel of the first port:
+  G = 8 lanes own a value column, each lane hd/8 of its rows, so a
+  column's primal state and its TC tangent states stay in registers; a
+  block takes 32 columns of one (b, h) row and stages each 8-token chunk
+  in shared memory; tangents go in chunks of TC <= 8 over grid.z. Each
+  lane's partial is multiplied by gy as it goes and the block summed in a
+  fixed order into one fp32 partial per (tangent, block), which a second
+  small kernel sums in a fixed order: no atomics.
+
+Every tangent runs the same instruction sequence for any T, so a T=8
+launch equals eight T=1 launches bit for bit, on either route. hd <= 64.
 
 CPU tensors take the plain versions below; CUDA tensors launch a kernel
 or raise.
@@ -54,7 +74,16 @@ import torch
 from repro_torch.kernels import build
 
 HD_MAX = 64
+CHUNK = 32          # tokens of the chunked tangent route; longer S: recurrent
 launches = {"wkv6_scan": 0, "wkv6_scan_mt": 0, "wkv6_scan_mt_jvps": 0}
+launches_by_path = {"wkv6_scan_mt": {"chunk": 0, "rec": 0}}
+
+
+def wkv6_mt_path(S):
+    """Route of a ``wkv6_scan_mt_tangents`` launch: 'chunk' (the chunked
+    form on the fp64 tensor cores, one chunk) for S <= CHUNK, else 'rec'
+    (the recurrent kernel)."""
+    return "chunk" if S <= CHUNK else "rec"
 
 
 def wkv6_scan_ref(r, k, v, w, u, state=None):
@@ -88,6 +117,85 @@ def wkv6_scan_mt_ref(r, k, v, w, u, rds, kds, vds, wds, uds=None):
     return y, torch.func.vmap(one)(rds, kds, vds, wds, uds)
 
 
+def wkv6_chunked_ref(r, k, v, w, u, rds=None, kds=None, vds=None, wds=None,
+                     uds=None, *, chunk=32):
+    """Plain version of the chunked form the S <= 32 multi-tangent kernel
+    computes, for the tests and chip_smoke: y, or (y, ydots) with tangents
+    (uds None: u carries no tangent). Per chunk of ``chunk`` tokens s, s'
+    (chunk-local) and channel c: L_c[s][s'] = w_{s-1} ... w_{s'+1} for
+    s' < s, built by running products down each column in the
+    recurrence's order (L_c[s'+1][s'] = 1; no logs, ratios or division);
+    A[s][s'] = sum_c r_s k_s' L_c[s][s'] with the bonus a_s = sum_c r_s u
+    k_s on the diagonal; y = A v. Per tangent, by the product rule,
+    Ld_c[s+1][s'] = w_s Ld_c[s][s'] + wd_s L_c[s][s'], Ad = sum_c (rd k L +
+    r kd L + r k Ld), ad_s = sum_c (u (rd_s k_s + r_s kd_s) + ud r_s k_s),
+    yd = Ad v + A vd. The terms are formed in fp32; A, Ad and everything
+    after them are summed in fp64. The (hd, hd) state and its tangents
+    carry from chunk to chunk in fp64: row s of a chunk reads r_s^T
+    diag(Lc_s) S with Lc_s = w_{s-1} ... w_0 of the chunk."""
+    B, S, H, hd = r.shape
+    tang = rds is not None
+    T = rds.shape[0] if tang else 0
+    f64 = torch.float64
+
+    def heads(x):                      # (..., B, S, H, hd) -> (..., B, H, S, hd)
+        return x.transpose(-3, -2)
+
+    def csum(x):                       # fp32 terms summed over c in fp64
+        return x.to(f64).sum(-1)
+
+    pr = tuple(map(heads, (r, k, v, w)))
+    tg = tuple(map(heads, (rds, kds, vds, wds))) if tang else None
+    uu = u[None, :, None, :]                               # (1,H,1,hd)
+    ud = None if uds is None else uds[:, None, :, None, :]  # (T,1,H,1,hd)
+    st = r.new_zeros((B, H, hd, hd), dtype=f64)
+    std = r.new_zeros((T, B, H, hd, hd), dtype=f64)
+    ys, yds = [], []
+    for s0 in range(0, S, chunk):
+        q = min(chunk, S - s0)
+        rr, kk, vv, ww = (x[..., s0:s0 + q, :] for x in pr)           # (B,H,q,hd)
+        eye = torch.eye(q, dtype=r.dtype, device=r.device)[..., None]  # (q,q,1)
+        col, lc = torch.zeros_like(rr), torch.ones_like(rr[..., 0, :])
+        L, Lc = [], []
+        if tang:
+            rdd, kdd, vdd, wdd = (x[..., s0:s0 + q, :] for x in tg)   # (T,B,H,q,hd)
+            dcol, dlc = torch.zeros_like(rdd), torch.zeros_like(rdd[..., 0, :])
+            Ld, Lcd = [], []
+        for s in range(q):              # row s: col[s'] = L_c[s][s'], lc = Lc_s
+            L.append(col)
+            Lc.append(lc)
+            if tang:
+                Ld.append(dcol)
+                Lcd.append(dlc)
+                dcol = ww[..., s, None, :] * dcol + wdd[..., s, None, :] * col
+                dlc = ww[..., s, :] * dlc + wdd[..., s, :] * lc
+            col = ww[..., s, None, :] * col + eye[s]   # column s starts at 1
+            lc = ww[..., s, :] * lc
+        L, Lc = torch.stack(L, -3), torch.stack(Lc, -2)   # (B,H,q,q,hd), (B,H,q,hd)
+        kL = kk[..., None, :, :] * L
+        A = csum(rr[..., :, None, :] * kL) + torch.diag_embed(csum(rr * uu * kk))
+        vv64 = vv.to(f64)
+        ys.append(A @ vv64 + (rr * Lc).to(f64) @ st)
+        if tang:
+            Ld, Lcd = torch.stack(Ld, -3), torch.stack(Lcd, -2)
+            ad = uu * (rdd * kk + rr * kdd)
+            if ud is not None:
+                ad = ad + ud * (rr * kk)
+            Ad = csum(rdd[..., :, None, :] * kL + rr[..., :, None, :]
+                      * (kdd[..., None, :, :] * L + kk[..., None, :, :] * Ld))
+            Ad = Ad + torch.diag_embed(csum(ad))
+            yds.append(Ad @ vv64 + A @ vdd.to(f64)
+                       + (rdd * Lc + rr * Lcd).to(f64) @ st
+                       + (rr * Lc).to(f64) @ std)
+            std = (dlc.to(f64)[..., None] * st + lc.to(f64)[..., None] * std
+                   + (kdd * col + kk * dcol).to(f64).transpose(-1, -2) @ vv64
+                   + (kk * col).to(f64).transpose(-1, -2) @ vdd.to(f64))
+        st = (lc.to(f64)[..., None] * st
+              + (kk * col).to(f64).transpose(-1, -2) @ vv64)
+    y = heads(torch.cat(ys, dim=-2)).float()
+    return (y, heads(torch.cat(yds, dim=-2)).float()) if tang else y
+
+
 def wkv6_scan_mt_jvps_ref(r, k, v, w, u, rds, kds, vds, wds, gy, uds=None):
     """Plain version (port of ``ref.wkv6_scan_mt_jvps_ref``): materializes
     the T tangents and contracts them with gy in fp32 -> (T,)."""
@@ -100,14 +208,17 @@ def _f32(*ts):
     return tuple(None if t is None else t.float().contiguous() for t in ts)
 
 
-_ARGS = {"wkv6_scan_fwd": (6, 4), "wkv6_scan_mt_tangents": (11, 5),
-         "wkv6_scan_mt_jvps": (13, 5)}        # (pointers, ints), then the stream
+# (library, pointers, ints), then the stream
+_ARGS = {"wkv6_scan_fwd": ("wkv6_scan", 6, 4),
+         "wkv6_scan_mt_tangents": ("wkv6_scan", 11, 5),
+         "wkv6_chunk_tangents": ("wkv6_chunk", 11, 5),
+         "wkv6_scan_mt_jvps": ("wkv6_scan", 13, 5)}
 
 
 def _fn(symbol):
-    fn = getattr(build.load("wkv6_scan"), symbol)
+    lib, n_ptr, n_int = _ARGS[symbol]
+    fn = getattr(build.load(lib), symbol)
     if fn.argtypes is None:
-        n_ptr, n_int = _ARGS[symbol]
         fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
@@ -180,8 +291,9 @@ def wkv6_scan(r, k, v, w, u):
 
 def wkv6_scan_mt_tangents(r, k, v, w, u, rds, kds, vds, wds, uds=None):
     """Tangent-only multi-tangent pass: rds..wds (T,B,S,H,hd), uds (T,H,hd)
-    or None -> ydots (T,B,S,H,hd). The primal walk runs inside the kernel
-    (the tangent recurrence needs S) but y is not written."""
+    or None -> ydots (T,B,S,H,hd). The primal's pieces (A, or the state
+    walk on the recurrent route) are formed inside the kernel but y is not
+    written. The route is ``wkv6_mt_path(S)``."""
     r, k, v, w, u, rds, kds, vds, wds, uds = _f32(r, k, v, w, u, rds, kds, vds,
                                                   wds, uds)
     if r.device.type == "cpu":
@@ -193,12 +305,15 @@ def wkv6_scan_mt_tangents(r, k, v, w, u, rds, kds, vds, wds, uds=None):
     out = torch.empty_like(rds)
     if out.numel() == 0:
         return out
-    err = _fn("wkv6_scan_mt_tangents")(
+    path = wkv6_mt_path(S)
+    symbol = "wkv6_chunk_tangents" if path == "chunk" else "wkv6_scan_mt_tangents"
+    err = _fn(symbol)(
         r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
         rds.data_ptr(), kds.data_ptr(), vds.data_ptr(), wds.data_ptr(),
         _ptr(uds), out.data_ptr(), B, S, H, hd, T, _stream(r))
     build.check(err, "wkv6_scan_mt_tangents")
     launches["wkv6_scan_mt"] += 1
+    launches_by_path["wkv6_scan_mt"][path] += 1
     return out
 
 

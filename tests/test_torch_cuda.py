@@ -460,16 +460,24 @@ def _wkv6_inputs(B, S, H, hd, T, has_ud, dev, seed):
 @pytest.mark.parametrize("has_ud", [False, True], ids=["no_ud", "ud"])
 @pytest.mark.parametrize("B,S,H,hd,T", [
     (8, 32, 32, 64, 8),              # rwkv6-1.6b shapes, one client estimate
+    (3, 29, 5, 40, 3),               # the chunk route: ragged S, B*H and hd
     (3, 37, 5, 40, 3),               # ragged S, B*H, hd not a tile multiple
     (2, 19, 3, 16, 64),              # hd <= 16, tangents in 8 chunks
     (1, 5, 1, 1, 1),
+    (2, 70, 3, 24, 2),               # the primal's ring of chunks, hd % 4 == 0
 ])
 def test_wkv6_kernels_match_plain(dev, B, S, H, hd, T, has_ud):
+    """Each kernel against its plain version, the tangents on the route
+    ``wkv6_mt_path`` gives (chunk for S <= 32) and, on the chunk route, also
+    against the plain chunked form (``wkv6_chunked_ref``)."""
     from repro_torch.kernels.wkv6_scan import ops
     prim, tang, uds, gy = _wkv6_inputs(B, S, H, hd, T, has_ud, dev, 7)
     before = dict(ops.launches)
     y = ops.wkv6_scan(*prim)
-    yd = ops.wkv6_scan_mt_tangents(*prim, *tang, uds)
+    route = ops.wkv6_mt_path(S)
+    assert route == ("chunk" if S <= 32 else "rec")
+    yd = _one_launch_by(ops.launches_by_path["wkv6_scan_mt"], route,
+                        lambda: ops.wkv6_scan_mt_tangents(*prim, *tang, uds))
     jv = ops.wkv6_scan_mt_jvps(*prim, *tang, gy, uds)
     torch.cuda.synchronize()
     assert {k: n - before[k] for k, n in ops.launches.items()} == \
@@ -477,17 +485,20 @@ def test_wkv6_kernels_match_plain(dev, B, S, H, hd, T, has_ud):
     y_ref, yd_ref = ops.wkv6_scan_mt_ref(*prim, *tang, uds)
     _close(y, y_ref, torch.float32)
     _close(yd, yd_ref, torch.float32)
+    if route == "chunk":
+        _close(yd, ops.wkv6_chunked_ref(*prim, *tang, uds)[1], torch.float32)
     mag = (gy[None] * yd_ref).abs().sum(dim=(1, 2, 3, 4))
     _jvps_close(jv, torch.einsum("bshd,tbshd->t", gy, yd_ref), mag)
 
 
 @pytest.mark.parametrize("has_ud", [False, True], ids=["no_ud", "ud"])
-def test_wkv6_lanes_bitwise_and_jvps_repeat(dev, has_ud):
+@pytest.mark.parametrize("S", [29, 37], ids=["chunk", "rec"])
+def test_wkv6_lanes_bitwise_and_jvps_repeat(dev, S, has_ud):
     """Each tangent of a T=8 launch equals its own T=1 launch bit for bit
-    (tangents and contraction), and two contraction launches on the same
-    inputs give the same jvps (no atomics)."""
+    (tangents on both routes, and the contraction), and two contraction
+    launches on the same inputs give the same jvps (no atomics)."""
     from repro_torch.kernels.wkv6_scan import ops
-    prim, tang, uds, gy = _wkv6_inputs(3, 37, 5, 40, 8, has_ud, dev, 8)
+    prim, tang, uds, gy = _wkv6_inputs(3, S, 5, 40, 8, has_ud, dev, 8)
     yd = ops.wkv6_scan_mt_tangents(*prim, *tang, uds)
     jv = ops.wkv6_scan_mt_jvps(*prim, *tang, gy, uds)
     for t in range(8):

@@ -705,7 +705,9 @@ def test_route_counters_reset_with_the_launch_counters():
     try:
         assert launch_paths()["lora_dual_mt"]["tc"] >= 2
         assert set(launch_paths()) == {"lora_dual_mt", "swa_attention",
-                                       "swa_attention_mt", "lora_dual_multi"}
+                                       "swa_attention_mt", "lora_dual_multi",
+                                       "wkv6_scan_mt"}
+        assert set(launch_paths()["wkv6_scan_mt"]) == {"chunk", "rec"}
         assert set(launch_paths()["swa_attention_mt"]) == {"tc", "simt"}
         assert set(launch_paths()["lora_dual_multi"]) == {"stream", "simt"}
         assert set(launch_paths()["lora_dual_mt"]) == {"tc", "store", "simt"}
@@ -765,5 +767,6 @@ def test_build_hash_covers_included_headers(monkeypatch, tmp_path):
     (tmp_path / "b.cuh").write_text("// b, v2\n")
     assert build._target("k") != first
     csrc = Path(build.__file__).resolve().parents[1] / "csrc"
-    for src in ("lora_dual_mt.cu", "swa_attention.cu", "mamba2_ssd.cu"):
+    for src in ("lora_dual_mt.cu", "swa_attention.cu", "mamba2_ssd.cu",
+                "wkv6_chunk.cu", "wkv6_scan.cu"):
         assert [p.name for p in build._inputs(csrc / src)] == [src, "hopper.cuh"]

@@ -378,6 +378,59 @@ def test_kernel_mirrors_match_reference_oracles(oracle, T, has_ud):
                        wops.wkv6_scan_ref(*(x.float() for x in half))[0])
 
 
+@pytest.mark.parametrize("has_ud", [False, True], ids=["no_ud", "ud"])
+@pytest.mark.parametrize("T", [1, 3])
+@pytest.mark.parametrize("chunk", [4, 32])
+def test_chunked_form_matches_reference_oracles(oracle, chunk, T, has_ud):
+    """The chunked form the S <= 32 multi-tangent kernel computes
+    (``wkv6_chunked_ref``: L and Ld by running products, A and Ad summed in
+    fp64, the state carried from chunk to chunk) against
+    ``ref.wkv6_scan_ref``, ``wkv6_scan_mt_ref`` and ``wkv6_scan_mt_jvps_ref``
+    at S=7: y and ydots at rel 1e-5, the contraction of its ydots with gy at
+    1e-6 x sum|terms|. chunk=4 splits S into a full and a ragged chunk."""
+    o = oracle
+    tp, gy = tuple(map(_t, o["prim"])), _t(o["gy"])
+    tt = tuple(torch.from_numpy(x[:T]) for x in o["tang"])
+    tud = torch.from_numpy(o["uds"][:T]) if has_ud else None
+    jyd, jjv = o["yd", has_ud][:T], o["jvps", has_ud][:T]
+    y, yd = wops.wkv6_chunked_ref(*tp, *tt, tud, chunk=chunk)
+    assert y.shape == tp[0].shape and yd.shape == (T,) + tp[0].shape
+    assert _rel(y, o["y"]) <= 1e-5 and _rel(yd, jyd) <= 1e-5
+    assert _rel(wops.wkv6_chunked_ref(*tp, chunk=chunk), o["y"]) <= 1e-5
+    mag = np.abs(o["gy"][None].astype(np.float64) * jyd.astype(np.float64)).sum(
+        axis=(1, 2, 3, 4))
+    got = torch.einsum("bshd,tbshd->t", gy.double(), yd.double()).numpy()
+    err = np.abs(got - jjv.astype(np.float64))
+    assert (err <= 1e-6 * mag).all(), (err, mag)
+
+
+def test_chunked_form_stays_finite_where_the_decay_underflows(oracle):
+    """w0 = 3 (w = exp(-exp(3 + z)), about 1e-9 a token) drives L to 0 in
+    fp32 within a few tokens of the chunk. The chunked form divides by no
+    product of decays, so y and ydots stay finite and agree with the
+    reference's recurrence."""
+    o = oracle
+    r, k, v, w, u = o["prim"]
+    w3 = np.exp(-np.exp(3.0 + np.log(-np.log(w.astype(np.float64))) - 0.5)
+                ).astype(np.float32)
+    prim = (r, k, v, w3, u)
+    assert (np.prod(w3[:, 1:6], axis=1) == 0).any()       # L underflows
+    jy, jyd = jax.jit(jwref.wkv6_scan_mt_ref)(*prim, *o["tang"], o["uds"])
+    y, yd = wops.wkv6_chunked_ref(*map(_t, prim), *map(_t, o["tang"]),
+                                  _t(o["uds"]))
+    assert torch.isfinite(y).all() and torch.isfinite(yd).all()
+    assert _rel(y, np.asarray(jy)) <= 1e-5 and _rel(yd, np.asarray(jyd)) <= 1e-5
+
+
+@pytest.mark.parametrize("S,path", [(1, "chunk"), (29, "chunk"), (32, "chunk"),
+                                    (33, "rec"), (1024, "rec")])
+def test_tangent_route_rule(S, path):
+    """The multi-tangent wrapper's route is the sequence length alone: the
+    chunked kernel serves one chunk (S <= 32, every main-path launch), the
+    recurrent kernel longer S."""
+    assert wops.wkv6_mt_path(S) == path
+
+
 def test_wrappers_raise_on_other_devices():
     prim = tuple(torch.zeros(s, device="meta") for s in
                  ((1, 2, 1, 4),) * 4 + ((1, 4),))
