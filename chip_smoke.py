@@ -10,18 +10,19 @@ Phases, in order (any failure raises and exits non-zero):
   2. build    nvcc builds every CUDA source of the path for sm_90a, in
               parallel; prints each kernel's registers, shared memory and
               spills (-Xptxas -v), and the count of tensor-core instructions
-              in the SASS (cuobjdump -sass) of the five tensor-core kernels:
-              HGMMA in ``lora_mt_tc_kernel``, HMMA in ``swa_tc_kernel`` and
-              ``swa_tc_mt_kernel``, DMMA (fp64) in ``mamba2_ssd_kernel`` and
-              ``wkv6_chunk_kernel``; fails if an instantiation has none
+              in the SASS (cuobjdump -sass) of the seven tensor-core kernels:
+              HGMMA in ``lora_mt_tc_kernel`` and ``lora_jvps_tc_kernel``,
+              HMMA in ``swa_tc_kernel``, ``swa_tc_mt_kernel`` and
+              ``swa_tc_jvps_kernel``, DMMA (fp64) in ``mamba2_ssd_kernel``
+              and ``wkv6_chunk_kernel``; fails if an instantiation has none
   3. kernels  each of the twelve kernels against its plain PyTorch version on
               the card at the main path's shapes (roberta-large, llama2-7b,
               zamba2, rwkv6-1.6b) and one long shape. ``lora_dual_mt`` and
               the ``swa_attention`` primal also at their routes' edges (T in
               {1, 8, 64}, rank 16, M=200 with T=3, K or N off the 8-element
               rows; S in {1, 17, 32, 2048} with hd in {64, 128}, hd 48 and
-              40); every case of rows 1, 2, 3 and 6 held to the route its
-              wrapper must take (the per-route launch counters), the bf16
+              40); every case of rows 1-6 held to the route its wrapper
+              must take (the per-route launch counters), the bf16
               tangents on the tensor-core route also against the tiled plain
               walk in their own roundings (``close_tiled``). The
               multi-adapter projection at llama2-7b's engine decode (M=4,
@@ -60,7 +61,11 @@ Phases, in order (any failure raises and exits non-zero):
               1e-6 x sum|terms| in every dtype (the kernel reads bf16 exactly
               into the same fp32 sums as fp32; a typical contraction is about
               sum|terms| / sqrt(n), so a wrong or dropped term fails), and
-              print err / sum|terms| as ``err_over_terms``. Times the
+              print err / sum|terms| as ``err_over_terms``; the LoRA one
+              also at M=200, K=N=1032, rank 16 (off the tensor-core tiles)
+              and with 64 tangents, and the bf16 LoRA and attention
+              contractions (route tc) lane by lane: a T=8 launch equals
+              eight T=1 launches bit for bit, and two launches agree. Times the
               kernel, the plain version and either one PyTorch call that
               computes the same function (library_ms) or, where none does,
               a yardstick (yardstick_ms: the kernel's largest GEMM, for the
@@ -107,9 +112,10 @@ Phases, in order (any failure raises and exits non-zero):
               site's tangent kernel replaced by ONE contraction epilogue), and
               no kernel at all on the backprop and zero-order rounds; every
               ``lora_dual_mt`` and ``swa_attention`` (primal and tangent)
-              launch of phases 5 and 6 (bf16 at full width) must take a
-              tensor-core route (tc, or store where no input tangent
-              exists), none simt, and every ``wkv6_scan_mt`` launch the
+              launch and every contraction epilogue of rows 4 and 5 in
+              phases 5 and 6 (bf16 at full width) must take a tensor-core
+              route (tc, or store where no input tangent exists), none
+              simt, and every ``wkv6_scan_mt`` launch the
               chunk route (S=32), none rec. Prints
               each run's loss, test accuracy, seconds per round and peak
               device memory of a round (weights included, model init
@@ -392,14 +398,16 @@ def lora_jvps_case(M, K, N, r, T, has_xd, dtype, gen, timed):
     b, bd = rn(r, N), rn(T, r, N)
     gy = rn(M, N).to(dtype)
     args = (x, w, a, ad, b, bd, gy, 1.0, xd)
-    got = ops.lora_dual_mt_jvps(*args)
+    name = f"lora_dual_mt_jvps M={M} K={K} N={N} r={r} T={T} xd={has_xd} {dtype}"
+    path = ops.lora_jvps_path(dtype, K, N, has_xd)
+    got = took_path(name, ops.launches_by_path["lora_dual_mt_jvps"], path,
+                    lambda: ops.lora_dual_mt_jvps(*args))
     want = ops.lora_dual_mt_jvps_ref(*_f32(args))
     yd = ops.lora_dual_mt_tangents_ref(*_f32((x, xd, w, a, ad, b, bd, 1.0)))
     mag = (gy.float()[None] * yd.float()).abs().sum(dim=(1, 2))
     torch.cuda.synchronize()
-    name = f"lora_dual_mt_jvps M={M} K={K} N={N} r={r} T={T} xd={has_xd} {dtype}"
     err, rel = close_jvps(name, got, want, mag)
-    res = {"max_abs_err": err, "err_over_terms": rel}
+    res = {"path": path, "max_abs_err": err, "err_over_terms": rel}
     if timed:
         es = x.element_size()
         flops = (2 * M * K * r + 2 * M * N * r * 2 + 2 * T * M * K * r * (1 + has_xd)
@@ -425,16 +433,18 @@ def swa_jvps_case(B, H, KV, S, hd, window, T, dtype, gen, timed):
     qd, kd, vd = rn(T, B, H, S, hd), rn(T, B, KV, S, hd), rn(T, B, KV, S, hd)
     gy = rn(B, H, S, hd)
     args = (q, k, v, qd, kd, vd, gy, window)
-    got = ops.swa_attention_mt_jvps(*args)
+    name = (f"swa_attention_mt_jvps B={B} H={H} KV={KV} S={S} hd={hd} "
+            f"window={window} T={T} {dtype}")
+    path = ops.swa_path(dtype, hd)
+    got = took_path(name, ops.launches_by_path["swa_attention_mt_jvps"], path,
+                    lambda: ops.swa_attention_mt_jvps(*args))
     od = ops.swa_attention_mt_tangents_ref(*_f32(args[:6]), window)
     want = torch.einsum("bhsd,tbhsd->t", gy.float(), od)
     mag = (gy.float()[None] * od).abs().sum(dim=(1, 2, 3, 4))
     del od
     torch.cuda.synchronize()
-    name = (f"swa_attention_mt_jvps B={B} H={H} KV={KV} S={S} hd={hd} "
-            f"window={window} T={T} {dtype}")
     err, rel = close_jvps(name, got, want, mag)
-    res = {"max_abs_err": err, "err_over_terms": rel}
+    res = {"path": path, "max_abs_err": err, "err_over_terms": rel}
     if timed:
         es = q.element_size()
         pairs = B * H * _kept_pairs(S, window)
@@ -456,6 +466,57 @@ def swa_jvps_case(B, H, KV, S, hd, window, T, dtype, gen, timed):
 
 def _kept_pairs(S, window):
     return sum(min(q + 1, window) if window else q + 1 for q in range(S))
+
+
+def lora_jvps_lanes_and_repeats(M, K, N, r, has_xd, gen):
+    """The LoRA contraction on its tc route (bf16): each tangent of a T=8
+    launch equals its own T=1 launch bit for bit, and two launches on the
+    same inputs give the same jvps."""
+    import torch
+    from repro_torch.kernels.lora_dual import ops
+    rn = lambda *s: torch.randn(s, generator=gen, device="cuda")  # noqa: E731
+    T = 8
+    x = rn(M, K).bfloat16()
+    xd = rn(T, M, K).bfloat16() if has_xd else None
+    w = (rn(K, N) / math.sqrt(K)).bfloat16()
+    a, ad = rn(K, r) / math.sqrt(K), rn(T, K, r) / math.sqrt(K)
+    b, bd, gy = rn(r, N), rn(T, r, N), rn(M, N).bfloat16()
+    name = f"lora_dual_mt_jvps M={M} K={K} N={N} r={r} xd={has_xd}"
+    jv = took_path(name, ops.launches_by_path["lora_dual_mt_jvps"], "tc",
+                   lambda: ops.lora_dual_mt_jvps(x, w, a, ad, b, bd, gy, 0.5, xdots=xd))
+    for t in range(T):
+        one = ops.lora_dual_mt_jvps(x, w, a, ad[t:t + 1].contiguous(), b,
+                                    bd[t:t + 1].contiguous(), gy, 0.5,
+                                    xdots=None if xd is None else xd[t:t + 1].contiguous())
+        if not torch.equal(one[0], jv[t]):
+            raise AssertionError(f"{name}: tangent {t} of a T=8 launch differs from a "
+                                 f"T=1 launch")
+    if not torch.equal(ops.lora_dual_mt_jvps(x, w, a, ad, b, bd, gy, 0.5, xdots=xd), jv):
+        raise AssertionError(f"{name}: two launches on the same inputs differ")
+    log(f"[kernels] {name} (tc): T=8 lanes bitwise equal to T=1 launches, repeat bitwise")
+
+
+def swa_jvps_lanes_and_repeats(B, H, KV, S, hd, window, gen):
+    """The attention contraction on its tc route (bf16): each tangent of a
+    T=8 launch, in any slot of any tangent group, equals its own T=1 launch
+    bit for bit, and two launches on the same inputs give the same jvps."""
+    import torch
+    from repro_torch.kernels.swa_attention import ops
+    rn = lambda *s: torch.randn(s, generator=gen, device="cuda").bfloat16()  # noqa: E731
+    T = 8
+    q, k, v, gy = rn(B, H, S, hd), rn(B, KV, S, hd), rn(B, KV, S, hd), rn(B, H, S, hd)
+    qd, kd, vd = rn(T, B, H, S, hd), rn(T, B, KV, S, hd), rn(T, B, KV, S, hd)
+    name = f"swa_attention_mt_jvps B={B} H={H} KV={KV} S={S} hd={hd} window={window}"
+    jv = took_path(name, ops.launches_by_path["swa_attention_mt_jvps"], "tc",
+                   lambda: ops.swa_attention_mt_jvps(q, k, v, qd, kd, vd, gy, window))
+    for t in range(T):
+        one = tuple(a[t:t + 1].contiguous() for a in (qd, kd, vd))
+        if not torch.equal(ops.swa_attention_mt_jvps(q, k, v, *one, gy, window)[0], jv[t]):
+            raise AssertionError(f"{name}: tangent {t} of a T=8 launch differs from a "
+                                 f"T=1 launch")
+    if not torch.equal(ops.swa_attention_mt_jvps(q, k, v, qd, kd, vd, gy, window), jv):
+        raise AssertionError(f"{name}: two launches on the same inputs differ")
+    log(f"[kernels] {name} (tc): T=8 lanes bitwise equal to T=1 launches, repeat bitwise")
 
 
 def swa_case(B, H, KV, S, hd, window, T, dtype, gen, timed):
@@ -918,12 +979,19 @@ def phase_kernels():
                         8 * 32, K, K, 1, T, has_xd, dtype, gen, timed=(bf and T == 8)))
                     if bf and K == 1024 and T == 8 and has_xd:
                         main["lora_dual_mt_jvps"] = res
+                    if bf and T == 8:
+                        extra[f"lora_dual_mt_jvps K=N={K} T=8 xd={has_xd}"] = res
         for T in (1, 8):                    # odd M, N, K and rank
             for has_xd in (True, False):
                 note("lora_dual_mt_jvps", dtype, lora_jvps_case(
                     37, 100, 72, 3, T, has_xd, dtype, gen, timed=False))
         note("lora_dual_mt_jvps", dtype, lora_jvps_case(   # rank, tangent limits
             70, 33, 65, 16, 64, True, dtype, gen, timed=False))
+        for has_xd in (True, False):        # M, K and N off the tc tiles, rank 16
+            note("lora_dual_mt_jvps", dtype, lora_jvps_case(
+                200, 1032, 1032, 16, 3, has_xd, dtype, gen, timed=False))
+        note("lora_dual_mt_jvps", dtype, lora_jvps_case(    # 64 tangents through the ring
+            64, 1024, 1024, 1, 64, True, dtype, gen, timed=False))
         # the tangent kernel's routes at their edges: T = 64, rank 16, M = 200
         # with T = 3 (a 128-row tile straddles two tangents), rank 16 at
         # llama2-7b widths; K or N off the 8-element alignment (simt in bf16)
@@ -954,6 +1022,9 @@ def phase_kernels():
                                 B, H, KV, S, hd, window, T, dtype, gen, timed))
                             if bf and si == 0 and window is None and KV == H and T == 8:
                                 main["swa_attention_mt_jvps"] = res
+                            if bf and T == 8:
+                                extra[f"swa_attention_mt_jvps B={B} H={H} KV={KV} S={S} "
+                                      f"hd={hd} window={window} T=8"] = res
         # the primal's routes at short and odd S and at S = 2048 with hd = 64
         # (hd 48 and 40: a 16 multiple off the configs' widths, and simt)
         for B, H, S, hd in ((2, 8, 1, 64), (2, 8, 1, 128), (2, 8, 17, 64),
@@ -965,6 +1036,16 @@ def phase_kernels():
                     res = swa_case(B, H, KV, S, hd, window, 0, dtype, gen, timed)
                     if timed:
                         extra[f"swa_attention B={B} H={H} S={S} hd={hd}"] = res
+    # the bf16 contraction epilogues' lanes: LoRA at roberta-large's and
+    # llama2-7b's widths and off the tiles, with and without an input tangent;
+    # attention at both head widths (two tangents a group, one) and with four
+    # a group over two key buffers and a band
+    for M, K, N, r in ((256, 1024, 1024, 1), (256, 4096, 4096, 1), (200, 1032, 1032, 16)):
+        for has_xd in (True, False):
+            lora_jvps_lanes_and_repeats(M, K, N, r, has_xd, gen)
+    for B, H, KV, S, hd, window in ((8, 16, 16, 32, 64, None), (8, 32, 32, 32, 128, None),
+                                    (2, 8, 2, 100, 128, 40), (1, 4, 1, 150, 32, 64)):
+        swa_jvps_lanes_and_repeats(B, H, KV, S, hd, window, gen)
     # the mamba2 recurrence (fp32 only): zamba2's shapes (one client estimate,
     # B=8, S=32, H=64, hd=N=64, one 32-token chunk), one token past the chunk
     # (S=33), a ragged shape (odd S; hd, N and B*H*hd not multiples of 32 or
@@ -1020,7 +1101,7 @@ def phase_kernels():
             lora_multi_case(M, K, N, P, r, dtype, gen, timed=False)
     log(f"[kernels] contraction epilogues, largest err / sum|terms| (limit "
         f"{JVPS_RTOL}): " + json.dumps(worst))
-    log("[kernels] redesigned rows 1, 2 and 3, every timed bf16 case: " + json.dumps(extra))
+    log("[kernels] redesigned rows 1-5, every timed bf16 case: " + json.dumps(extra))
     # release what the timing holds (the side stream and the cuBLAS
     # workspaces), so the later phases' memory peaks do not depend on
     # whether this phase ran
@@ -1169,12 +1250,12 @@ def phase_parity(fused, arch="roberta-large-lora", **overrides):
 # ---------------------------------------------------------------------------
 
 def check_paths(what, paths, path_totals):
-    """Every launch of rows 1, 2 and 3 on the full-width training path is
-    bf16 at aligned widths and must take a tensor-core route
-    (``lora_dual_mt``: tc, or store where no input tangent exists; the
-    ``swa_attention`` primal and tangents: tc), never simt (training
-    launches no row 6), and every row-8 launch (S=32) the chunk route,
-    never rec. Adds ``paths`` into ``path_totals``."""
+    """Every launch of rows 1-5 on the full-width training path is bf16 at
+    aligned widths and must take a tensor-core route (``lora_dual_mt``: tc,
+    or store where no input tangent exists; the ``swa_attention`` primal,
+    tangents and contraction and the LoRA contraction: tc), never simt
+    (training launches no row 6), and every row-8 launch (S=32) the chunk
+    route, never rec. Adds ``paths`` into ``path_totals``."""
     for k, by in paths.items():
         for off in ("simt", "rec"):
             if by.get(off):
@@ -1678,8 +1759,10 @@ def log_serve_profile(cfg, engine, fns, P, n=3):
 # instantiations, the SASS instruction that proves tensor-core use; DMMA:
 # the fp64 tensor cores)
 TENSOR_CORE_KERNELS = (("lora_dual", "lora_mt_tc_kernel", "HGMMA"),
+                       ("lora_dual", "lora_jvps_tc_kernel", "HGMMA"),
                        ("swa_attention", "swa_tc_kernel", "HMMA"),
                        ("swa_attention", "swa_tc_mt_kernel", "HMMA"),
+                       ("swa_attention", "swa_tc_jvps_kernel", "HMMA"),
                        ("mamba2_ssd", "mamba2_ssd_kernel", "DMMA"),
                        ("wkv6_chunk", "wkv6_chunk_kernel", "DMMA"))
 
@@ -1793,7 +1876,7 @@ def main(argv=None):
                     for r in results if r["arch"] == arch}
             log(f"[train] {arch} peak device memory GiB of a round ({what}, batch "
                 f"8 x 32 tokens): " + json.dumps(peak))
-        log("[train] launches of rows 1, 2, 3 and 8 by route over the site and "
+        log("[train] launches of rows 1-5 and 8 by route over the site and "
             "train phases (simt and rec must be 0): " + json.dumps(path_totals))
     log(f"[phase] site and train {time.time() - tp:.1f}s")
     tp = time.time()

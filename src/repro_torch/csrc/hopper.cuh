@@ -5,7 +5,9 @@
 // the fences and descriptors of warpgroup products (wgmma) over
 // 128-byte-swizzled shared-memory tiles, and the tensor-memory-accelerator
 // (TMA) loads, mbarriers and thread-block-cluster operations that feed them
-// (barriers, ranks and reads of another block's shared memory).
+// (barriers, ranks and reads of another block's shared memory); and, for the
+// contraction epilogues, a programmatic dependent launch and the fixed-order
+// sum of per-block partials.
 #pragma once
 
 #include <cuda.h>
@@ -261,6 +263,44 @@ __device__ __forceinline__ void grid_launch_dependents() {
 
 __device__ __forceinline__ void grid_wait_previous() {
   asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+
+// Launch ``kern`` as the programmatic dependent of the stream's previous
+// kernel: its blocks may start while that kernel runs, and each must wait
+// for it (grid_wait_previous) before reading what it writes.
+template <typename... Params, typename... Args>
+int launch_dependent(void (*kern)(Params...), dim3 grid, int threads, int smem,
+                     cudaStream_t stream, Args... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  cudaError_t e = cudaLaunchKernelEx(&cfg, kern, args...);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+// out[t] = the sum of parts[t n .. t n + n - 1] for t = blockIdx.x, one warp
+// a t: lane l adds partials l, l + 32, ... in order, then a fixed shuffle
+// tree. The order depends on n alone, never on the grid, so tangent t's sum
+// is the same bits whatever the number of tangents. Launched with
+// launch_dependent behind the kernel that writes the partials.
+template <int WARP = 32>
+__global__ void __launch_bounds__(WARP)
+sum_parts_kernel(const float* __restrict__ parts, float* __restrict__ out, int n) {
+  grid_wait_previous();
+  const float* p = parts + (size_t)blockIdx.x * n;
+  float s = 0.f;
+  for (int i = threadIdx.x; i < n; i += WARP) s += p[i];
+#pragma unroll
+  for (int o = WARP / 2; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+  if (threadIdx.x == 0) out[blockIdx.x] = s;
 }
 
 }  // namespace hopper

@@ -48,9 +48,40 @@
 //   pieces accumulated in shared memory in the same K loop. fp32 stays
 //   here: TF32 tensor cores keep about three digits, and the card-vs-CPU
 //   parity of the reduced fp32 configs is held at 1e-5.
+//
+// The contraction epilogue takes two routes, one rule in ops.py::
+// lora_jvps_path. Its work is one frozen-W product z = gy @ W^T (2 M K N
+// operations) shared by all T tangents, plus rank-r terms; with an input
+// tangent the bytes of W and the T xd tangents bound it (T = 8, K = N =
+// 4096: 54.5 MB against 8.6 GFLOP), without one the bytes of x and gy.
+//
+// tc (bf16, K % 8 == N % 8 == 0, every operand 16-byte aligned; with or
+//   without an input tangent). <gy, yd_t> = <z, xd_t> + s <gy, ud_t @ B +
+//   u @ Bd_t>, and both terms are sums over N. The rank-r pre-pass above
+//   writes u and ud_t; then, as its programmatic dependent launch,
+//   lora_jvps_tc_kernel: a block owns a 64 x 128 tile of z over one slice
+//   of N, and the slices are the fewest that bring the grid to about one
+//   wave of the 132 SMs (4 at roberta-large's K = N = 1024, M = 256; 1 at
+//   llama2-7b's 4096). Its producer thread keeps TMA filling an 8-stage ring
+//   of 128-byte-swizzled gy and W tiles, both K-major (W's rows are W^T's
+//   columns, N contiguous: no transpose bit), then each xd_t's tile as the
+//   ring drains, so the tangents' tiles arrive while the GEMM runs; one
+//   consumer warpgroup runs bf16 wgmma m64n128k16 into fp32 registers and
+//   dots that fragment with each xd_t's tile in fp32: z never leaves the
+//   block. The producer warpgroup's other three warps add the rank-r terms
+//   of the slice's rows, shared among the tile's K blocks. Each block writes
+//   one partial a tangent; a one-warp kernel sums them in a fixed order. The
+//   plan depends on (M, K, N) alone and every sum's order on neither T nor
+//   the tangent's place, so tangent t of a T = 8 launch is bitwise a T = 1
+//   launch. Without an input tangent lora_jvps_rank_kernel runs the rank-r
+//   terms alone over the same plan. bf16 products are exact in fp32, so
+//   the error is the fp32 sums' (the limit is 1e-6 of sum|terms|).
+// simt (fp32, or off that alignment): lora_dual_mt_jvps_kernel below.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
+
+#include <algorithm>
 
 #include "hopper.cuh"
 
@@ -422,10 +453,12 @@ __device__ __forceinline__ void unpack8(const uint4& p, float (&f)[8]) {
 // float4 pairs, and the kernel holds few enough registers that its blocks
 // can share an SM with those of the GEMM, its programmatic dependent
 // launch, whose K loop runs meanwhile; RC = R_MAX takes any r <= 16 with
-// scalar loads (the 8 k of a slice are 8 r floats apart). Needs K % 8 == 0
-// and 16-byte aligned x, xd, A and Ad.
+// scalar loads (the 8 k of a slice are 8 r floats apart). One row a warp:
+// twice the warps of two rows a warp, for the same sums in the same order,
+// took 7-10% off rows 1 and 5 at llama2-7b widths. Needs K % 8 == 0 and
+// 16-byte aligned x, xd, A and Ad.
 constexpr int RR_WARPS = 8;
-constexpr int RR_ROWS = 2;
+constexpr int RR_ROWS = 1;
 
 // acc + sum_c x[c] f[c * stride], in c order
 __device__ __forceinline__ float dot8(const float (&x)[8], const float* f, int stride,
@@ -517,7 +550,9 @@ __device__ __forceinline__ void wgmma_n64(float (&d)[32], uint64_t da, uint64_t 
 }
 
 // d (64 x 128 fp32, the warpgroup's accumulator fragment) += a (64 x 16,
-// K-major) * b (16 x 128, MN-major), both bf16 in shared memory
+// K-major) * b (16 x 128), both bf16 in shared memory; b MN-major at
+// TRANS_B = 1 (the descriptor's transpose bit), K-major at 0
+template <int TRANS_B>
 __device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t da, uint64_t db) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
@@ -530,7 +565,7 @@ __device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t da, uint64_t
       "%40, %41, %42, %43, %44, %45, %46, %47, "
       "%48, %49, %50, %51, %52, %53, %54, %55, "
       "%56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 1;\n}\n"
+      "%64, %65, p, 1, 1, 0, %67;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
         "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
         "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
@@ -542,7 +577,7 @@ __device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t da, uint64_t
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
         "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(1)
+      : "l"(da), "l"(db), "r"(1), "n"(TRANS_B)
       : "memory");
 }
 
@@ -674,7 +709,7 @@ lora_mt_tc_kernel(const __grid_constant__ CUtensorMap map_xd,
       for (int kk = 0; kk < TC_BK / 16; ++kk) {
         const uint64_t da = hopper::wgmma_desc(sa + kk * 32, 16, 1024);
         const uint64_t db = hopper::wgmma_desc(sb + kk * 16 * 128, TC_BK * 128, 1024);
-        if constexpr (BN == 128) wgmma_n128(acc, da, db);
+        if constexpr (BN == 128) wgmma_n128<1>(acc, da, db);
         else wgmma_n64(acc, da, db);
       }
       hopper::wgmma_commit();
@@ -794,27 +829,6 @@ lora_mt_store_kernel(const float* __restrict__ b, const float* __restrict__ bd,
   }
 }
 
-// Launch ``kern`` behind the rank-r pre-pass as a programmatic dependent
-// launch: its blocks may start while the pre-pass runs, and each waits for
-// the pre-pass (griddepcontrol.wait) only before it reads u and ud.
-template <typename... Params, typename... Args>
-int launch_after_prepass(void (*kern)(Params...), dim3 grid, int threads, int smem,
-                         cudaStream_t stream, Args... args) {
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = grid;
-  cfg.blockDim = dim3(threads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  attr[0].val.programmaticStreamSerializationAllowed = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  cudaError_t e = cudaLaunchKernelEx(&cfg, kern, args...);
-  if (e != cudaSuccess) return (int)e;
-  return (int)cudaGetLastError();
-}
-
 // cuTensorMapEncodeTiled of libcuda, looked up through the CUDA runtime so
 // the library links no -lcuda
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -873,14 +887,287 @@ int launch_tc(const bf16* xd, const bf16* w, const float* b, const float* bd,
   const int mt = (T * M + Tile::BM - 1) / Tile::BM;
   const dim3 grid(mt + (mt & 1), (N + BN - 1) / BN);
   const int smem = 1024 + Tile::RING + Tile::BARS + Tile::staged_floats(r) * 4;
-  return launch_after_prepass(lora_mt_tc_kernel<WGS, BN>, grid, Tile::THREADS, smem,
-                              stream, map_xd, map_w, b, bd, u, ud, yd, M, K, N, r, T,
-                              scale);
+  return hopper::launch_dependent(lora_mt_tc_kernel<WGS, BN>, grid, Tile::THREADS, smem,
+                                  stream, map_xd, map_w, b, bd, u, ud, yd, M, K, N, r, T,
+                                  scale);
+}
+
+// the rank-r pre-pass: u (M, r) and ud (T, M, r) into fp32 scratch
+int launch_prepass(const void* x, const void* xd, const void* a, const void* ad, float* u,
+                   float* ud, int M, int K, int r, int T, cudaStream_t s) {
+  const dim3 grid(T + 1, (M + RR_WARPS * RR_ROWS - 1) / (RR_WARPS * RR_ROWS));
+  if (r == 1)
+    lora_mt_rank_kernel<1><<<grid, 32 * RR_WARPS, 0, s>>>(
+        (const bf16*)x, (const bf16*)xd, (const float*)a, (const float*)ad, u, ud, M, K, r);
+  else
+    lora_mt_rank_kernel<R_MAX><<<grid, 32 * RR_WARPS, 0, s>>>(
+        (const bf16*)x, (const bf16*)xd, (const float*)a, (const float*)ad, u, ud, M, K, r);
+  return (int)cudaGetLastError();
 }
 
 // the large tile where it gives about one wave of blocks, else the small
 int tc_tile_large(int TM, int N) {
   return (long long)((TM + 127) / 128) * ((N + 127) / 128) >= 120;
+}
+
+// ---------------------------------------------------------------------------
+// bf16 contraction epilogue (route tc of lora_jvps_path). See the note at the
+// top of this file. With z = gy @ W^T,
+//
+//   <gy, yd_t> = <z, xd_t> + s <gy, ud_t @ B + u @ Bd_t>,
+//
+// and both terms are sums over N: a block takes one slice of N, and its
+// (T,) partial is a sum over that slice alone. No block sums another's z.
+// ---------------------------------------------------------------------------
+
+constexpr int JC_M = 64;       // rows of gy (and of z) a block: one consumer warpgroup
+constexpr int JC_K = 128;      // columns of z a block: rows of W, the wgmma width
+constexpr int JC_N = 64;       // N a stage: one 128-byte swizzle row of bf16
+constexpr int JC_STAGES = 8;
+constexpr int JC_A = JC_M * JC_N * 2;       // gy tile, K-major (N contiguous)
+constexpr int JC_B = JC_K * JC_N * 2;       // W tile, K-major as well: W^T's rows are W's
+constexpr int JC_STAGE = JC_A + JC_B;       // 24 KB, a multiple of 1024
+constexpr int JC_XD = JC_M * JC_K * 2;      // xd_t's tile: two 64-column swizzle atoms
+constexpr int JC_RED = 8;                   // partials a tangent: 4 consumer, 3 rank warps
+constexpr int JC_SMEM = 1024 + JC_STAGES * JC_STAGE + 2 * JC_STAGES * 8 + JT_MAX * JC_RED * 4;
+constexpr int JC_WAVE = 128;   // blocks to aim for: about one wave of the 132 SMs
+
+// The tile plan, a function of (M, K, N) alone, never of T: (M / 64, K / 128)
+// tiles of z, and N split into as few slices of ``steps`` 64-column stages
+// as bring the grid to about one wave.
+struct JvpsPlan {
+  dim3 grid;
+  int steps;
+};
+
+JvpsPlan jvps_plan(int M, int K, int N) {
+  const int mt = (M + JC_M - 1) / JC_M, kt = (K + JC_K - 1) / JC_K;
+  const int n_steps = (N + JC_N - 1) / JC_N;
+  const long long tiles = (long long)mt * kt;
+  int split = (int)std::min<long long>(n_steps, std::max<long long>(1, (JC_WAVE + tiles - 1) / tiles));
+  const int steps = (n_steps + split - 1) / split;
+  split = (n_steps + steps - 1) / steps;
+  return {dim3(mt, kt, split), steps};
+}
+
+// s <gy, ud_t @ B + u @ Bd_t> over rows m0 + first, m0 + first + stride, ...
+// below min(m0 + JC_M, M) and columns [n0, n1) (n1 - n0 a multiple of 8),
+// for t < T. Thread ``tid`` of ``nthr`` (whole warps) takes (row, 8-column
+// chunk) pairs tid, tid + nthr, ... in order, with 16-byte loads of gy and
+// float4 loads of B and Bd_t, for JC_TG tangents at once: their loads are
+// independent, so a pair's L2 round trips overlap (one tangent at a time,
+// the walk was bound by their latency). Its warp's sum of each tangent, by
+// a fixed shuffle tree, goes to red[t * JC_RED + tid / 32]. A tangent's
+// arithmetic and order are the same whatever T is and whichever group it
+// falls in.
+constexpr int JC_TG = 8;
+__device__ void jvps_rank_terms(const bf16* __restrict__ gy, const float* __restrict__ b,
+                                const float* __restrict__ bd, const float* __restrict__ u,
+                                const float* __restrict__ ud, float* red, int M, int N, int r,
+                                int T, float scale, int m0, int first, int stride, int n0,
+                                int n1, int tid, int nthr) {
+  const int lim = min(JC_M, M - m0);
+  const int rows = first < lim ? (lim - 1 - first) / stride + 1 : 0;
+  const int chunks = (n1 - n0) / 8;
+  for (int t0 = 0; t0 < T; t0 += JC_TG) {
+    const int nt = min(JC_TG, T - t0);
+    float acc[JC_TG];
+#pragma unroll
+    for (int q = 0; q < JC_TG; ++q) acc[q] = 0.f;
+    for (int p = tid; p < rows * chunks; p += nthr) {
+      const int m = m0 + first + (p / chunks) * stride;
+      const int c = n0 + (p % chunks) * 8;
+      float g[8], lo[JC_TG][8];
+      unpack8(*reinterpret_cast<const uint4*>(gy + (size_t)m * N + c), g);
+#pragma unroll
+      for (int q = 0; q < JC_TG; ++q)
+#pragma unroll
+        for (int i = 0; i < 8; ++i) lo[q][i] = 0.f;
+      for (int j = 0; j < r; ++j) {
+        const float* bj = b + (size_t)j * N + c;
+        const float4 b0 = *reinterpret_cast<const float4*>(bj);
+        const float4 b1 = *reinterpret_cast<const float4*>(bj + 4);
+        const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+        const float c2 = u[(size_t)m * r + j];
+#pragma unroll
+        for (int q = 0; q < JC_TG; ++q) {
+          if (q < nt) {
+            const int t = t0 + q;
+            const float c1 = ud[((size_t)t * M + m) * r + j];
+            const float* dj = bd + ((size_t)t * r + j) * N + c;
+            const float4 d0 = *reinterpret_cast<const float4*>(dj);
+            const float4 d1 = *reinterpret_cast<const float4*>(dj + 4);
+            const float dv[8] = {d0.x, d0.y, d0.z, d0.w, d1.x, d1.y, d1.z, d1.w};
+#pragma unroll
+            for (int i = 0; i < 8; ++i) lo[q][i] = fmaf(c2, dv[i], fmaf(c1, bv[i], lo[q][i]));
+          }
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < JC_TG; ++q)
+#pragma unroll
+        for (int i = 0; i < 8; ++i) acc[q] = fmaf(g[i], lo[q][i], acc[q]);
+    }
+#pragma unroll
+    for (int q = 0; q < JC_TG; ++q) {
+      const float v = warp_sum(acc[q]);
+      if (q < nt && tid % 32 == 0) red[(t0 + q) * JC_RED + tid / 32] = scale * v;
+    }
+  }
+}
+
+// One (JC_M, JC_K) tile of z = gy @ W^T over one slice of N, contracted with
+// each xd_t's tile in fp32; nothing of z leaves the block. Warpgroup 0
+// consumes: bf16 wgmma m64n128k16, fp32 accumulators in registers, one
+// group in flight; then, per tangent, its accumulator fragment dotted with
+// xd_t's tile from shared memory. Warpgroup 1 produces: one thread asks the
+// TMA unit for the slice's gy and W tiles (both K-major, 128-byte swizzled),
+// then for each xd_t tile, through a ring of full and empty mbarriers, so
+// the tangents' tiles arrive while the GEMM runs; its warps 1-3 wait for
+// the pre-pass (programmatic dependent launch) and add the rank-r terms of
+// their share of the slice's rows. parts[t][block] = the consumer warps'
+// sums + the rank warps', in a fixed order.
+__global__ void __launch_bounds__(256, 1)
+lora_jvps_tc_kernel(const __grid_constant__ CUtensorMap map_gy,
+                    const __grid_constant__ CUtensorMap map_w,
+                    const __grid_constant__ CUtensorMap map_xd, const bf16* __restrict__ gy,
+                    const float* __restrict__ b, const float* __restrict__ bd,
+                    const float* __restrict__ u, const float* __restrict__ ud,
+                    float* __restrict__ parts, int M, int N, int r, int T, float scale,
+                    int steps) {
+  hopper::grid_launch_dependents();     // the partials' sum may launch; it waits for this grid
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (hopper::smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + JC_STAGES * JC_STAGE);
+  uint64_t* empty = full + JC_STAGES;
+  float* red = reinterpret_cast<float*>(empty + JC_STAGES);    // T x JC_RED
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int m0 = blockIdx.x * JC_M, k0 = blockIdx.y * JC_K;
+  const int n0 = blockIdx.z * steps * JC_N;
+  const int n1 = min(N, n0 + steps * JC_N);
+  const int ns = (n1 - n0 + JC_N - 1) / JC_N;     // this slice's stages (>= 1)
+
+  if (tid == 0) {
+    for (int s = 0; s < JC_STAGES; ++s) {
+      hopper::mbar_init(&full[s], 1);             // the producer's expect_tx
+      hopper::mbar_init(&empty[s], 4);            // each consumer warp
+    }
+    hopper::mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp >= 5) {
+    // rank-r terms: rows m0 + blockIdx.y + gridDim.y i of the slice, so the
+    // K tiles of one (M tile, slice) share its rows
+    hopper::grid_wait_previous();
+    jvps_rank_terms(gy, b, bd, u, ud, red + 4, M, N, r, T, scale, m0, blockIdx.y, gridDim.y,
+                    n0, n1, tid - 160, 96);
+  } else if (tid == 128) {
+    for (int i = 0; i < ns + T; ++i) {
+      const int s = i % JC_STAGES;
+      hopper::mbar_wait(&empty[s], ((i / JC_STAGES) & 1) ^ 1);   // round 0 passes
+      uint8_t* st = smem + s * JC_STAGE;
+      if (i < ns) {
+        const int n = n0 + i * JC_N;
+        hopper::mbar_arrive_expect_tx(&full[s], JC_STAGE);
+        hopper::tma_load_2d(st, &map_gy, &full[s], n, m0);
+        hopper::tma_load_2d(st + JC_A, &map_w, &full[s], n, k0);
+      } else {   // rows past M belong to the next tangent: the consumers skip them
+        const int row = (i - ns) * M + m0;
+        hopper::mbar_arrive_expect_tx(&full[s], JC_XD);
+        hopper::tma_load_2d(st, &map_xd, &full[s], k0, row);
+        hopper::tma_load_2d(st + JC_XD / 2, &map_xd, &full[s], k0 + 64, row);
+      }
+    }
+  } else if (warp < 4) {
+    float acc[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+    hopper::fence_acc(acc);
+    for (int i = 0; i < ns; ++i) {
+      const int s = i % JC_STAGES;
+      hopper::mbar_wait(&full[s], (i / JC_STAGES) & 1);
+      const uint8_t* sa = smem + s * JC_STAGE;
+      hopper::fence_acc(acc);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < JC_N / 16; ++kk)
+        wgmma_n128<0>(acc, hopper::wgmma_desc(sa + kk * 32, 16, 1024),
+                      hopper::wgmma_desc(sa + JC_A + kk * 32, 16, 1024));
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<1>();
+      hopper::fence_acc(acc);
+      if (i > 0 && lane == 0) hopper::mbar_arrive(&empty[(i - 1) % JC_STAGES]);
+    }
+    hopper::wgmma_wait<0>();
+    hopper::fence_acc(acc);
+    if (lane == 0) hopper::mbar_arrive(&empty[(ns - 1) % JC_STAGES]);
+
+    // per tangent: thread (warp w, lane l) holds z at rows 16 w + l / 4 (+ 8)
+    // and, in each 8-column block c, columns 8 c + 2 (l % 4) (+ 1); it dots
+    // them with the same entries of xd_t's tile, whose row y keeps its
+    // 16-byte chunk q of each 128-byte atom row at q ^ (y % 8) (TMA's 128-byte
+    // swizzle), in a fixed order; the warp's sum goes to red by a fixed tree
+    const int rl = warp * 16 + (lane >> 2);
+    for (int t = 0; t < T; ++t) {
+      const int i = ns + t, s = i % JC_STAGES;
+      hopper::mbar_wait(&full[s], (i / JC_STAGES) & 1);
+      const uint8_t* xs = smem + s * JC_STAGE;
+      float sum = 0.f;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int y = rl + 8 * h;
+        if (m0 + y >= M) continue;
+#pragma unroll
+        for (int c = 0; c < JC_K / 8; ++c) {
+          const uint8_t* p = xs + (c / 8) * (JC_XD / 2) + y * 128 + (((c % 8) ^ (y % 8)) << 4) +
+                             (lane & 3) * 4;
+          const float2 xv = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+          sum = fmaf(acc[c * 4 + 2 * h], xv.x, sum);
+          sum = fmaf(acc[c * 4 + 2 * h + 1], xv.y, sum);
+        }
+      }
+      sum = warp_sum(sum);
+      if (lane == 0) {
+        red[t * JC_RED + warp] = sum;
+        hopper::mbar_arrive(&empty[s]);
+      }
+    }
+  }
+  __syncthreads();
+  if (tid < T) {
+    const float* rt = red + tid * JC_RED;
+    const int blk = (blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x;
+    parts[(size_t)tid * gridDim.x * gridDim.y * gridDim.z + blk] =
+        ((rt[0] + rt[1]) + (rt[2] + rt[3])) + ((rt[4] + rt[5]) + rt[6]);
+  }
+}
+
+// No input tangent: the rank-r terms alone, over the same plan and rows
+// (four warps), so parts has the same shape.
+__global__ void __launch_bounds__(128)
+lora_jvps_rank_kernel(const bf16* __restrict__ gy, const float* __restrict__ b,
+                      const float* __restrict__ bd, const float* __restrict__ u,
+                      const float* __restrict__ ud, float* __restrict__ parts, int M, int N,
+                      int r, int T, float scale, int steps) {
+  __shared__ float red[JT_MAX * JC_RED];
+  hopper::grid_launch_dependents();
+  hopper::grid_wait_previous();
+  const int m0 = blockIdx.x * JC_M, n0 = blockIdx.z * steps * JC_N;
+  jvps_rank_terms(gy, b, bd, u, ud, red, M, N, r, T, scale, m0, blockIdx.y, gridDim.y, n0,
+                  min(N, n0 + steps * JC_N), threadIdx.x, 128);
+  __syncthreads();
+  if (threadIdx.x < T) {
+    const float* rt = red + threadIdx.x * JC_RED;
+    const int blk = (blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x;
+    parts[(size_t)threadIdx.x * gridDim.x * gridDim.y * gridDim.z + blk] =
+        (rt[0] + rt[1]) + (rt[2] + rt[3]);
+  }
+}
+
+int jvps_blocks(int M, int K, int N) {
+  const JvpsPlan p = jvps_plan(M, K, N);
+  return (int)(p.grid.x * p.grid.y * p.grid.z);
 }
 
 }  // namespace
@@ -939,24 +1226,77 @@ extern "C" int lora_dual_mt_tangents_bf16(const void* x, const void* xd,
   cudaStream_t s = (cudaStream_t)stream;
   float* u = (float*)scratch;
   float* ud = u + (size_t)M * r;
-  const dim3 rr_grid(T + 1, (M + RR_WARPS * RR_ROWS - 1) / (RR_WARPS * RR_ROWS));
-  if (r == 1)
-    lora_mt_rank_kernel<1><<<rr_grid, 32 * RR_WARPS, 0, s>>>(
-        (const bf16*)x, (const bf16*)xd, (const float*)a, (const float*)ad, u, ud, M, K, r);
-  else
-    lora_mt_rank_kernel<R_MAX><<<rr_grid, 32 * RR_WARPS, 0, s>>>(
-        (const bf16*)x, (const bf16*)xd, (const float*)a, (const float*)ad, u, ud, M, K, r);
-  int err = (int)cudaGetLastError();
+  const int err = launch_prepass(x, xd, a, ad, u, ud, M, K, r, T, s);
   if (err != 0) return err;
   if (xd == nullptr) {
     const dim3 grid((N + ST_COLS - 1) / ST_COLS, (M + ST_ROWS - 1) / ST_ROWS, T);
-    return launch_after_prepass(lora_mt_store_kernel, grid, 256, 0, s, (const float*)b,
-                                (const float*)bd, (const float*)u, (const float*)ud,
-                                (bf16*)yd, M, N, r, scale);
+    return hopper::launch_dependent(lora_mt_store_kernel, grid, 256, 0, s, (const float*)b,
+                                    (const float*)bd, (const float*)u, (const float*)ud,
+                                    (bf16*)yd, M, N, r, scale);
   }
   if (tc_tile_large(T * M, N))
     return launch_tc<2, 128>((const bf16*)xd, (const bf16*)w, (const float*)b,
                              (const float*)bd, u, ud, (bf16*)yd, M, K, N, r, T, scale, s);
   return launch_tc<1, 64>((const bf16*)xd, (const bf16*)w, (const float*)b,
                           (const float*)bd, u, ud, (bf16*)yd, M, K, N, r, T, scale, s);
+}
+
+// Blocks of a bf16 contraction-epilogue launch (its partials per tangent),
+// or -1 for a shape it does not take.
+extern "C" int lora_dual_mt_jvps_bf16_blocks(int M, int K, int N) {
+  if (M < 1 || K < 1 || N < 1) return -1;
+  return jvps_blocks(M, K, N);
+}
+
+// The bf16 contraction epilogue (K % 8 == 0, N % 8 == 0, every operand 16-byte
+// aligned): the rank-r pre-pass into ``scratch`` (fp32: u (M r), ud (T M r),
+// then the partials (T, lora_dual_mt_jvps_bf16_blocks)), the tensor-core GEMM
+// with its contraction (xd given) or the rank-r terms alone (xd null), then
+// the partials' fixed-order sum into ``jvps`` (fp32, T). Returns
+// cudaGetLastError() after the last launch, or the first failure.
+extern "C" int lora_dual_mt_jvps_bf16(const void* x, const void* xd, const void* w,
+                                      const void* a, const void* ad, const void* b,
+                                      const void* bd, const void* gy, void* scratch,
+                                      void* jvps, int M, int K, int N, int r, int T,
+                                      float scale, void* stream) {
+  if (r < 1 || r > R_MAX || T < 1 || T > JT_MAX || M < 1 || K < 1 || N < 1 ||
+      K % 8 != 0 || N % 8 != 0 || (long long)M * (T + 1) > 0x7fffffffLL ||
+      ((uintptr_t)x | (uintptr_t)xd | (uintptr_t)w | (uintptr_t)a | (uintptr_t)ad |
+       (uintptr_t)b | (uintptr_t)bd | (uintptr_t)gy) % 16 != 0 ||
+      (M + RR_WARPS * RR_ROWS - 1) / (RR_WARPS * RR_ROWS) > 65535 ||
+      (K + JC_K - 1) / JC_K > 65535)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  float* u = (float*)scratch;
+  float* ud = u + (size_t)M * r;
+  float* parts = ud + (size_t)T * M * r;
+  int err = launch_prepass(x, xd, a, ad, u, ud, M, K, r, T, s);
+  if (err != 0) return err;
+  const JvpsPlan plan = jvps_plan(M, K, N);
+  if (xd == nullptr) {
+    err = hopper::launch_dependent(lora_jvps_rank_kernel, plan.grid, 128, 0, s, (const bf16*)gy,
+                                   (const float*)b, (const float*)bd, (const float*)u,
+                                   (const float*)ud, parts, M, N, r, T, scale, plan.steps);
+  } else {
+    static bool attr_set = false;
+    if (!attr_set) {
+      cudaError_t e = cudaFuncSetAttribute(lora_jvps_tc_kernel,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, JC_SMEM);
+      if (e != cudaSuccess) return (int)e;
+      attr_set = true;
+    }
+    CUtensorMap map_gy, map_w, map_xd;
+    err = bf16_map(&map_gy, gy, N, M, JC_M);
+    if (err == 0) err = bf16_map(&map_w, w, N, K, JC_K);
+    if (err == 0) err = bf16_map(&map_xd, xd, K, T * M, JC_M);
+    if (err != 0) return err;
+    err = hopper::launch_dependent(lora_jvps_tc_kernel, plan.grid, 256, JC_SMEM, s, map_gy,
+                                   map_w, map_xd, (const bf16*)gy, (const float*)b,
+                                   (const float*)bd, (const float*)u, (const float*)ud, parts,
+                                   M, N, r, T, scale, plan.steps);
+  }
+  if (err != 0) return err;
+  return hopper::launch_dependent(hopper::sum_parts_kernel<32>, dim3(T), 32, 0, s,
+                                  (const float*)parts, (float*)jvps,
+                                  (int)(plan.grid.x * plan.grid.y * plan.grid.z));
 }

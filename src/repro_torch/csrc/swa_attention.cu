@@ -57,8 +57,23 @@
 // staging rows in 16-byte stores. 16-key groups past S or past the warp's
 // last row are skipped.
 //
-// Every other case (fp32, hd not a multiple of 16, and the contraction
-// mode) is swa_kernel: one warp per query row; lanes split hd
+// The bf16 contraction epilogue with hd % 16 == 0 (swa_tc_jvps_kernel) is
+// the same walk: the warp's 16 rows of gy are staged beside Q, and at the
+// finish outd_t stays in fp32 fragments, is dotted with gy's in fp32 and
+// reduced over the warp by shuffles and over the block's warps in warp
+// order, one partial a (t, bh, query block); a one-warp kernel sums each
+// tangent's partials in a fixed order. Nothing is stored but the partials,
+// so at S = 32 the bytes it reads bound it (4.4 MB at roberta-large's T =
+// 8). The contraction is held to 1e-6 of sum|terms| against the fp32 plain
+// version, and one rounding of p leaves about 2^-9 of each term, ~4x that
+// limit over a roberta-large contraction's ~2.6e5 terms: so p too goes in
+// as a bf16 (hi, lo) pair, in P V and in p Vd_t (psd already does in psd
+// V), which leaves about 2^-16. A tangent's arithmetic and every sum's
+// order are the same in any slot of any tangent group, so tangent t of a
+// T = 8 launch is bitwise a T = 1 launch.
+//
+// Every other case (fp32, hd not a multiple of 16) is swa_kernel: one warp
+// per query row; lanes split hd
 // (NI = ceil(hd / 32) elements a lane). Keys are walked in chunks of
 // KC = 32 staged in shared memory as fp32: lane j scores key j, the warp
 // reduces max and sum with shuffles.
@@ -652,10 +667,12 @@ int launch_tc_nhd(const void* q, const void* k, const void* v, void* out, int BH
 // (32 + 32), so 4 at hd <= 32, 2 at hd <= 64 and 1 above
 __host__ __device__ constexpr int tangents_a_warp(int nhd) { return nhd <= 2 ? 4 : nhd <= 4 ? 2 : 1; }
 
-// shared memory of a tangent block: Q and the block's Qd_t rows, then
-// ``nbuf`` buffers of K, V and each tangent's Kd_t, Vd_t (``rows`` keys each)
-size_t tc_mt_smem_bytes(int hd, int tw, int nw, int rows, int nbuf) {
-  return (size_t)((1 + tw) * 16 * nw + nbuf * (2 + 2 * tw) * rows) * (hd + 8) * sizeof(bf16);
+// shared memory of a tangent block: Q and the block's Qd_t rows (and, for
+// the contraction, its gy rows), then ``nbuf`` buffers of K, V and each
+// tangent's Kd_t, Vd_t (``rows`` keys each)
+size_t tc_mt_smem_bytes(int hd, int tw, int nw, int rows, int nbuf, bool jvps) {
+  return (size_t)((1 + tw + jvps) * 16 * nw + nbuf * (2 + 2 * tw) * rows) * (hd + 8) *
+         sizeof(bf16);
 }
 
 // rows [r0, r0 + n) of an (S, 16 NHD) matrix into shared memory at row
@@ -694,13 +711,17 @@ __device__ __forceinline__ void tile_scores(float (&s)[TC_BKV / 8][4], const bf1
   }
 }
 
-template <int NHD>
-__global__ void __launch_bounds__(32 * TC_WARPS)
-swa_tc_mt_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, const bf16* __restrict__ qd,
-                 const bf16* __restrict__ kd, const bf16* __restrict__ vd,
-                 bf16* __restrict__ od, int BH, int S, int H, int G, int T, int window,
-                 float scale, int rows) {
+// The tangent walk of one block; JVPS: the contraction epilogue, which
+// stages the block's gy rows beside Q, carries p as a bf16 pair in P V and
+// p Vd_t (as psd in psd V), and contracts outd_t with gy instead of storing
+// it, one partial a (t, bh, query block) in parts (T, BH, gridDim.y).
+template <int NHD, bool JVPS>
+__device__ __forceinline__ void tc_mt_walk(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                                           const bf16* __restrict__ v, const bf16* __restrict__ qd,
+                                           const bf16* __restrict__ kd, const bf16* __restrict__ vd,
+                                           const bf16* __restrict__ gy, bf16* __restrict__ od,
+                                           float* __restrict__ parts, int BH, int S, int H, int G,
+                                           int T, int window, float scale, int rows) {
   constexpr int HD = 16 * NHD;
   constexpr int LD = HD + 8;
   constexpr int CH = HD / 8;
@@ -710,7 +731,8 @@ swa_tc_mt_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int QR = 16 * nw;             // query rows of the block
   bf16* qs = reinterpret_cast<bf16*>(smem_raw);   // QR x LD
   bf16* qds = qs + QR * LD;                        // TW x QR x LD
-  bf16* tiles = qds + TW * QR * LD;                // buffers of (2 + 2 TW) x rows x LD
+  bf16* gys = qds + TW * QR * LD;                  // QR x LD, JVPS only
+  bf16* tiles = gys + (JVPS ? QR * LD : 0);        // buffers of (2 + 2 TW) x rows x LD
   const int buf = (2 + 2 * TW) * rows * LD;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int bh = blockIdx.x;
@@ -732,6 +754,7 @@ swa_tc_mt_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   stage_rows<NHD, LD>(qs, q + (size_t)bh * S * HD, q0, QR, S);
   for (int u = 0; u < nt; ++u)
     stage_rows<NHD, LD>(qds + u * QR * LD, tangent(qd, BH, bh, t0 + u), q0, QR, S);
+  if (JVPS) stage_rows<NHD, LD>(gys, gy + (size_t)bh * S * HD, q0, QR, S);
 
   // the block's rows share one band: from the first row's window start,
   // floored to the key tile, to the last row
@@ -792,9 +815,10 @@ swa_tc_mt_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       tile_softmax(p, m_lo, m_hi, l_lo, l_hi, al_lo, al_hi, r_lo, r_hi, qw, c0, S, window,
                    scale2);
       rescale(o, al_lo, al_hi);
-      tile_pv<NHD, LD>(o, p, vt, lane, groups);
+      tile_pv<NHD, LD, JVPS>(o, p, vt, lane, groups);
       // each tangent: sd = Qd_t K^T + Q Kd_t^T; psd = p sd scale (fp32);
       // mu_t += sum psd; acc_t += psd V (psd as a bf16 pair) + bf16(p) Vd_t
+      // (p too as a pair under JVPS)
 #pragma unroll
       for (int u = 0; u < TW; ++u) {
         if (u >= nt) break;
@@ -823,19 +847,53 @@ swa_tc_mt_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         mu[u][1] = mu[u][1] * al_hi + ps_hi;
         rescale(acc[u], al_lo, al_hi);
         tile_pv<NHD, LD, true>(acc[u], sd, vt, lane, groups);
-        tile_pv<NHD, LD>(acc[u], p, kdt + rows * LD, lane, groups);
+        tile_pv<NHD, LD, JVPS>(acc[u], p, kdt + rows * LD, lane, groups);
       }
     }
     __syncthreads();                  // buffer it & 1 is refilled at it + 2
   }
   hopper::cp_async_wait<0>();
+  const float lc_lo = fmaxf(l_lo, 1e-30f), lc_hi = fmaxf(l_hi, 1e-30f);
+  const int cq = 2 * (lane & 3);
+  if constexpr (JVPS) {
+    // finish: outd_t = acc_t / l - (mu_t / l) * out in fp32 fragments, dotted
+    // with this warp's gy rows (zero past S, where outd_t is zero too) in a
+    // fixed order, reduced over the warp by a fixed shuffle tree; the block's
+    // warps are summed in warp order. A tangent's arithmetic is the same in
+    // any slot of any group, so it does not depend on T.
+    __shared__ float red[4][TC_WARPS];
+    const bf16* gw = gys + (16 * warp + (lane >> 2)) * LD + cq;
+#pragma unroll
+    for (int u = 0; u < TW; ++u) {
+      if (u >= nt) break;
+      const float ml_lo = mu[u][0] / lc_lo, ml_hi = mu[u][1] / lc_hi;
+      float sum = 0.f;
+#pragma unroll
+      for (int d = 0; d < 2 * NHD; ++d) {
+        const float2 g_lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(gw + 8 * d));
+        const float2 g_hi =
+            __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(gw + 8 * LD + 8 * d));
+        sum = fmaf(g_lo.x, acc[u][d][0] / lc_lo - ml_lo * (o[d][0] / lc_lo), sum);
+        sum = fmaf(g_lo.y, acc[u][d][1] / lc_lo - ml_lo * (o[d][1] / lc_lo), sum);
+        sum = fmaf(g_hi.x, acc[u][d][2] / lc_hi - ml_hi * (o[d][2] / lc_hi), sum);
+        sum = fmaf(g_hi.y, acc[u][d][3] / lc_hi - ml_hi * (o[d][3] / lc_hi), sum);
+      }
+      sum = warp_sum(sum);
+      if (lane == 0) red[u][warp] = sum;
+    }
+    __syncthreads();
+    if ((int)threadIdx.x < nt) {
+      float sum = red[threadIdx.x][0];
+      for (int w = 1; w < nw; ++w) sum += red[threadIdx.x][w];
+      parts[((size_t)(t0 + threadIdx.x) * BH + bh) * gridDim.y + blockIdx.y] = sum;
+    }
+    return;
+  }
   if (qw >= S) return;
 
   // finish: outd_t = acc_t / l - (mu_t / l) * out, rounded to bf16 into
   // this warp's rows of the Qd_t staging (read for the last time above),
   // then stored in 16-byte rows
-  const float lc_lo = fmaxf(l_lo, 1e-30f), lc_hi = fmaxf(l_hi, 1e-30f);
-  const int cq = 2 * (lane & 3);
   __syncwarp();
 #pragma unroll
   for (int u = 0; u < TW; ++u) {
@@ -864,30 +922,86 @@ swa_tc_mt_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 template <int NHD>
+__global__ void __launch_bounds__(32 * TC_WARPS)
+swa_tc_mt_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                 const bf16* __restrict__ v, const bf16* __restrict__ qd,
+                 const bf16* __restrict__ kd, const bf16* __restrict__ vd,
+                 bf16* __restrict__ od, int BH, int S, int H, int G, int T, int window,
+                 float scale, int rows) {
+  tc_mt_walk<NHD, false>(q, k, v, qd, kd, vd, nullptr, od, nullptr, BH, S, H, G, T, window,
+                         scale, rows);
+}
+
+template <int NHD>
+__global__ void __launch_bounds__(32 * TC_WARPS)
+swa_tc_jvps_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                   const bf16* __restrict__ v, const bf16* __restrict__ qd,
+                   const bf16* __restrict__ kd, const bf16* __restrict__ vd,
+                   const bf16* __restrict__ gy, float* __restrict__ parts, int BH, int S,
+                   int H, int G, int T, int window, float scale, int rows) {
+  hopper::grid_launch_dependents();     // the partials' sum may launch; it waits for this grid
+  tc_mt_walk<NHD, true>(q, k, v, qd, kd, vd, gy, nullptr, parts, BH, S, H, G, T, window,
+                        scale, rows);
+}
+
+// The tangent walk (gy null) or its contraction into ``parts`` (T, BH,
+// query blocks) followed by their fixed-order sum into ``jvps`` (T).
+template <int NHD>
 int launch_tc_mt_nhd(const void* q, const void* k, const void* v, const void* qd,
-                     const void* kd, const void* vd, void* od, int BH, int S, int H, int G,
-                     int T, int window, float scale, cudaStream_t stream) {
+                     const void* kd, const void* vd, const void* gy, void* od, float* parts,
+                     int BH, int S, int H, int G, int T, int window, float scale,
+                     cudaStream_t stream) {
   constexpr int TW = tangents_a_warp(NHD);
-  static bool attr_set = false;
-  if (!attr_set) {   // the largest plan: four warps, two buffers of 64 keys
-    const size_t most = tc_mt_smem_bytes(16 * NHD, TW, TC_WARPS, TC_BKV, 2);
+  const bool jvps = gy != nullptr;
+  static bool attr_set[2] = {false, false};
+  if (!attr_set[jvps]) {   // the largest plan: four warps, two buffers of 64 keys
+    const size_t most = tc_mt_smem_bytes(16 * NHD, TW, TC_WARPS, TC_BKV, 2, jvps);
     if (most > SMEM_LIMIT) return (int)cudaErrorInvalidValue;
-    cudaError_t e = cudaFuncSetAttribute(
-        swa_tc_mt_kernel<NHD>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)most);
+    cudaError_t e = jvps ? cudaFuncSetAttribute(swa_tc_jvps_kernel<NHD>,
+                                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                (int)most)
+                         : cudaFuncSetAttribute(swa_tc_mt_kernel<NHD>,
+                                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                (int)most);
     if (e != cudaSuccess) return (int)e;
-    attr_set = true;
+    attr_set[jvps] = true;
   }
   // one tile of the keys rounded up to 16 when S fits one, else two
   // buffers of TC_BKV
   const bool one = S <= TC_BKV;
   const int rows = one ? (S + 15) / 16 * 16 : TC_BKV;
   const int nw = tc_warps(S);
-  const size_t smem = tc_mt_smem_bytes(16 * NHD, TW, nw, rows, one ? 1 : 2);
+  const size_t smem = tc_mt_smem_bytes(16 * NHD, TW, nw, rows, one ? 1 : 2, jvps);
   const dim3 grid(BH, (S + 16 * nw - 1) / (16 * nw), (T + TW - 1) / TW);
-  swa_tc_mt_kernel<NHD><<<grid, 32 * nw, smem, stream>>>(
+  if (!jvps) {
+    swa_tc_mt_kernel<NHD><<<grid, 32 * nw, smem, stream>>>(
+        (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)qd, (const bf16*)kd,
+        (const bf16*)vd, (bf16*)od, BH, S, H, G, T, window, scale, rows);
+    return (int)cudaGetLastError();
+  }
+  swa_tc_jvps_kernel<NHD><<<grid, 32 * nw, smem, stream>>>(
       (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)qd, (const bf16*)kd,
-      (const bf16*)vd, (bf16*)od, BH, S, H, G, T, window, scale, rows);
-  return (int)cudaGetLastError();
+      (const bf16*)vd, (const bf16*)gy, parts, BH, S, H, G, T, window, scale, rows);
+  const int err = (int)cudaGetLastError();
+  if (err != 0) return err;
+  return hopper::launch_dependent(hopper::sum_parts_kernel<32>, dim3(T), 32, 0, stream,
+                                  (const float*)parts, (float*)od, (int)(BH * grid.y));
+}
+
+int launch_tc_mt(const void* q, const void* k, const void* v, const void* qd, const void* kd,
+                 const void* vd, const void* gy, void* od, float* parts, int BH, int S, int hd,
+                 int H, int G, int T, int window, float scale, cudaStream_t s) {
+  switch (hd / 16) {
+    case 1: return launch_tc_mt_nhd<1>(q, k, v, qd, kd, vd, gy, od, parts, BH, S, H, G, T, window, scale, s);
+    case 2: return launch_tc_mt_nhd<2>(q, k, v, qd, kd, vd, gy, od, parts, BH, S, H, G, T, window, scale, s);
+    case 3: return launch_tc_mt_nhd<3>(q, k, v, qd, kd, vd, gy, od, parts, BH, S, H, G, T, window, scale, s);
+    case 4: return launch_tc_mt_nhd<4>(q, k, v, qd, kd, vd, gy, od, parts, BH, S, H, G, T, window, scale, s);
+    case 5: return launch_tc_mt_nhd<5>(q, k, v, qd, kd, vd, gy, od, parts, BH, S, H, G, T, window, scale, s);
+    case 6: return launch_tc_mt_nhd<6>(q, k, v, qd, kd, vd, gy, od, parts, BH, S, H, G, T, window, scale, s);
+    case 7: return launch_tc_mt_nhd<7>(q, k, v, qd, kd, vd, gy, od, parts, BH, S, H, G, T, window, scale, s);
+    case 8: return launch_tc_mt_nhd<8>(q, k, v, qd, kd, vd, gy, od, parts, BH, S, H, G, T, window, scale, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 bool bad_args(int BH, int S, int hd, int H, int G, int T) {
@@ -984,15 +1098,24 @@ extern "C" int swa_attention_mt_tangents_tc(const void* q, const void* k, const 
        (uintptr_t)vd | (uintptr_t)od) % 16 != 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  switch (hd / 16) {
-    case 1: return launch_tc_mt_nhd<1>(q, k, v, qd, kd, vd, od, BH, S, H, G, T, window, scale, s);
-    case 2: return launch_tc_mt_nhd<2>(q, k, v, qd, kd, vd, od, BH, S, H, G, T, window, scale, s);
-    case 3: return launch_tc_mt_nhd<3>(q, k, v, qd, kd, vd, od, BH, S, H, G, T, window, scale, s);
-    case 4: return launch_tc_mt_nhd<4>(q, k, v, qd, kd, vd, od, BH, S, H, G, T, window, scale, s);
-    case 5: return launch_tc_mt_nhd<5>(q, k, v, qd, kd, vd, od, BH, S, H, G, T, window, scale, s);
-    case 6: return launch_tc_mt_nhd<6>(q, k, v, qd, kd, vd, od, BH, S, H, G, T, window, scale, s);
-    case 7: return launch_tc_mt_nhd<7>(q, k, v, qd, kd, vd, od, BH, S, H, G, T, window, scale, s);
-    case 8: return launch_tc_mt_nhd<8>(q, k, v, qd, kd, vd, od, BH, S, H, G, T, window, scale, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return launch_tc_mt(q, k, v, qd, kd, vd, nullptr, od, nullptr, BH, S, hd, H, G, T, window,
+                      scale, s);
+}
+
+// bf16, hd % 16 == 0, every operand 16-byte aligned: the tensor-core
+// contraction epilogue. Operands as swa_attention_mt_jvps; ``parts`` is fp32
+// scratch of at least T * BH * ceil(S / 16) partials (one a tangent, b*h and
+// query block of 16 rows or more), ``jvps`` the fp32 (T) result. Returns cudaGetLastError() after the last launch, or
+// the first failure.
+extern "C" int swa_attention_mt_jvps_tc(const void* q, const void* k, const void* v,
+                                        const void* qd, const void* kd, const void* vd,
+                                        const void* gy, void* parts, void* jvps, int BH, int S,
+                                        int hd, int H, int G, int T, int window, float scale,
+                                        void* stream) {
+  if (bad_args(BH, S, hd, H, G, T) || hd % 16 != 0 ||
+      ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)qd | (uintptr_t)kd |
+       (uintptr_t)vd | (uintptr_t)gy) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  return launch_tc_mt(q, k, v, qd, kd, vd, gy, jvps, (float*)parts, BH, S, hd, H, G, T,
+                      window, scale, (cudaStream_t)stream);
 }

@@ -20,9 +20,10 @@ csrc/           the CUDA sources
 
 Each kernel module keeps a plain PyTorch version beside its wrapper (CPU
 tensors take it) and a launch counter that only a kernel launch moves; the
-wrappers with more than one kernel route (``lora_dual_mt``,
-``lora_dual_multi``, the ``swa_attention`` primal and tangents, and
-``wkv6_scan_mt_tangents``) also count their calls by route.
+wrappers with more than one kernel route (``lora_dual_mt`` and its
+contraction epilogue, ``lora_dual_multi``, the ``swa_attention`` primal,
+tangents and contraction epilogue, and ``wkv6_scan_mt_tangents``) also
+count their calls by route.
 """
 from repro_torch.kernels.lora_dual import ops as _lora_ops
 from repro_torch.kernels.mamba2_scan import ops as _mamba2_ops

@@ -60,9 +60,10 @@ R_MAX = 16          # LoRA rank bound of the kernel's shared-memory tiles
 JT_MAX = 64         # tangents a contraction-epilogue launch
 # kernel launches; the plain versions do not count
 launches = {"lora_dual_mt": 0, "lora_dual_mt_jvps": 0, "lora_dual_multi": 0}
-# calls by route (``lora_mt_path``, ``lora_multi_path``); each sums to its
-# launches
+# calls by route (``lora_mt_path``, ``lora_jvps_path``, ``lora_multi_path``);
+# each sums to its launches
 launches_by_path = {"lora_dual_mt": {"tc": 0, "store": 0, "simt": 0},
+                    "lora_dual_mt_jvps": {"tc": 0, "simt": 0},
                     "lora_dual_multi": {"stream": 0, "simt": 0}}
 STREAM_M_MAX = 16       # rows of the multi-adapter stream route (fp32 sums a thread)
 STREAM_K_MAX = 8192     # its K: a block stages its K / 8 slice of x in shared memory
@@ -104,8 +105,11 @@ def lora_mt_path(dtype, K, N, has_xd, aligned=True):
 def _fn(symbol):
     fn = getattr(build.load("lora_dual"), symbol)
     if fn.argtypes is None:
-        if symbol == "lora_dual_mt_tangents_bf16":
-            fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + \
+        if symbol == "lora_dual_mt_jvps_bf16_blocks":
+            fn.argtypes = [ctypes.c_int] * 3
+        elif symbol in ("lora_dual_mt_tangents_bf16", "lora_dual_mt_jvps_bf16"):
+            n_ptr = 9 if symbol == "lora_dual_mt_tangents_bf16" else 10
+            fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 5 + \
                 [ctypes.c_float, ctypes.c_void_p]
         else:
             n_ptr = 8 if symbol == "lora_dual_mt_tangents" else 9
@@ -200,21 +204,32 @@ def lora_dual_mt_tangents(x, xdots, w, a, adots, b, bdots, scale=1.0):
 # ``kernels/dispatch.lora_jvp_contract`` reaches for the final site of a
 # ``SplitLoss`` of kind 'lora' on the fused-contraction route.
 #
-# On the H100: the work is one frozen-W product gy@W^T (2*M*K*N
-# operations) shared by all T tangents plus rank-r terms, so with an input
-# tangent it is bound by operations at bf16 rates only for very small T;
-# at the main path's shapes the bytes of the T xdot tangents (T*M*K) bound
-# it; without one it reads x, gy and the rank-r factors only. The CUDA kernel
-# (``csrc/lora_dual_mt.cu``, ``lora_dual_mt_jvps_kernel``) runs a
-# (N/64, M/64) grid; each block holds its gy tile in shared memory and
-# rewrites its contraction as <gy@W^T + s*(gy@B^T)@A^T, xdot_t> +
-# s*<x^T(gy@B^T), Adot_t> + s*<(x@A)^T gy, Bdot_t>, so the frozen-W product
-# and every other factor that does not depend on t is formed once per K
-# step for all T, and each tangent costs one read of its xdot tile and
-# rank-r dots. Sums are fp32 SIMT FMAs, kept per thread and summed in a
-# fixed order (no atomics), one (T,) partial per block, summed here.
-# Tensor cores for gy@W^T and reading x once for all N tiles are later
-# work.
+# On the H100: the work is one frozen-W product z = gy@W^T (2*M*K*N
+# operations) shared by all T tangents plus rank-r terms; with an input
+# tangent the bytes of W and the T xdot tangents bound it (54.5 MB at
+# llama2-7b widths, T=8, against 8.6 GFLOP), without one it reads x, gy
+# and the rank-r factors only. Two routes, one rule (``lora_jvps_path``):
+#
+# - ``tc`` (bf16, K and N multiples of 8, every operand on 16 bytes; with or
+#   without an input tangent): the rank-r pre-pass of ``lora_dual_mt``
+#   (u = x@A, udot_t in fp32), then a bf16 ``wgmma`` GEMM whose epilogue
+#   contracts (``csrc/lora_dual_mt.cu``, ``lora_jvps_tc_kernel``): a block
+#   owns a 64 x 128 tile of z over one slice of N (N split until the grid is
+#   about one wave of the 132 SMs, by (M, K, N) alone, never by T), TMA
+#   fills a ring of 128-byte-swizzled gy and W tiles (both K-major: W^T's
+#   rows are W's) and then each xdot_t's tile, and the fp32 accumulator is
+#   dotted with each xdot_t's tile in fp32, so z never leaves the block;
+#   the block's idle producer warps add s*<gy, udot_t@B + u@Bdot_t> over
+#   their share of the slice (both terms are sums over N). Without an input
+#   tangent the GEMM is skipped and only those rank-r terms run. One (T,)
+#   partial a block, summed by a one-warp kernel in a fixed order: no
+#   atomics, and tangent t of a T=8 launch is bitwise a T=1 launch.
+# - ``simt`` (fp32, or off that alignment): a (N/64, M/64) grid; each block
+#   holds its gy tile in shared memory and rewrites its contraction as
+#   <gy@W^T + s*(gy@B^T)@A^T, xdot_t> + s*<x^T(gy@B^T), Adot_t> +
+#   s*<(x@A)^T gy, Bdot_t>, so every factor that does not depend on t is
+#   formed once per K step for all T; fp32 SIMT FMAs, one (T,) partial per
+#   block, summed here. fp32 stays here: TF32 keeps about three digits.
 
 
 def lora_dual_mt_jvps_ref(x, w, a, adots, b, bdots, gy, scale=1.0, xdots=None):
@@ -239,6 +254,63 @@ def lora_dual_mt_jvps_ref(x, w, a, adots, b, bdots, gy, scale=1.0, xdots=None):
     return jvps
 
 
+def lora_jvps_path(dtype, K, N, has_xd, aligned=True):
+    """The kernel a CUDA ``lora_dual_mt_jvps`` call takes: 'tc' (bf16, K and
+    N multiples of 8 and every operand starting on 16 bytes (``aligned``):
+    the TMA unit copies 16-byte-strided rows of gy, W and xdots, the
+    pre-pass reads x and xdots in 16-byte vectors, and the rank-r terms read
+    gy, B and Bdots in 16-byte vectors) or 'simt' (fp32, or off that
+    alignment). Unlike ``lora_mt_path``, ``has_xd`` does not change the
+    route: without an input tangent the tc route skips the GEMM and runs the
+    rank-r terms alone."""
+    del has_xd
+    return "tc" if dtype == torch.bfloat16 and K % 8 == 0 and N % 8 == 0 and aligned \
+        else "simt"
+
+
+def lora_dual_mt_jvps_split_ref(x, w, a, adots, b, bdots, gy, scale=1.0, xdots=None,
+                                steps=None):
+    """Plain version in the tc kernel's association: N cut into the
+    kernel's slices of ``steps`` 64-column stages (default: its plan for
+    these widths, ``jvps_split_plan``); each slice's partial <gy@W^T,
+    xdot_t> + s<gy, udot_t@B + u@Bdot_t> over that slice alone, the
+    partials summed in slice order. Held against the JAX reference on the
+    CPU; the port's main path never calls it."""
+    K, N = w.shape
+    T = adots.shape[0]
+    x2 = x.reshape(-1, K).to(a.dtype)
+    gy2 = gy.reshape(-1, N).float()
+    u = x2 @ a                                                    # (M, r)
+    udots = x2 @ adots                                            # (T, M, r)
+    xd = None
+    if xdots is not None:
+        xd = xdots.reshape(T, -1, K).float()
+        udots = udots + xd @ a
+    if steps is None:
+        steps = jvps_split_plan(x2.shape[0], K, N)[1]
+    jvps = torch.zeros(T, dtype=torch.float32, device=gy.device)
+    for n0 in range(0, N, steps * 64):
+        ns = slice(n0, min(N, n0 + steps * 64))
+        g = gy2[:, ns]
+        lo = udots @ b[:, ns] + u @ bdots[:, :, ns]               # (T, M, n)
+        part = scale * torch.einsum("mn,tmn->t", g, lo)
+        if xd is not None:
+            part = part + torch.einsum("mk,tmk->t", g @ w.float()[:, ns].T, xd)
+        jvps = jvps + part
+    return jvps
+
+
+def jvps_split_plan(M, K, N):
+    """The tc contraction's plan, as ``csrc/lora_dual_mt.cu::jvps_plan``
+    makes it from (M, K, N) alone: (blocks along M, K and N, 64-column
+    stages a slice of N). Tiles of z are 64 x 128; N is split into the
+    fewest slices that bring the grid to about 128 blocks."""
+    mt, kt, n_steps = -(-M // 64), -(-K // 128), -(-N // 64)
+    split = min(n_steps, max(1, -(-128 // (mt * kt))))
+    steps = -(-n_steps // split)
+    return (mt, kt, -(-n_steps // steps)), steps
+
+
 def lora_dual_mt_jvps(x, w, a, adots, b, bdots, gy, scale=1.0, xdots=None):
     """All T jvp scalars <gy, ydot_t> (fp32, (T,)): x (..., K); w (K, N);
     a (K, r); adots (T, K, r); b (r, N); bdots (T, r, N); gy (..., N) in
@@ -254,17 +326,31 @@ def lora_dual_mt_jvps(x, w, a, adots, b, bdots, gy, scale=1.0, xdots=None):
     M = x.numel() // K
     if M == 0 or N == 0:
         return torch.zeros(T, dtype=torch.float32, device=x.device)
-    parts = torch.empty(((M + 63) // 64, (N + 63) // 64, T), dtype=torch.float32,
-                        device=x.device)
-    err = _fn("lora_dual_mt_jvps")(
-        _DTYPE_CODE[x.dtype], x.data_ptr(),
-        None if xdots is None else xdots.data_ptr(), w.data_ptr(), a.data_ptr(),
-        adots.data_ptr(), b.data_ptr(), bdots.data_ptr(), gy.data_ptr(),
-        parts.data_ptr(), M, K, N, r, T, float(scale),
-        torch.cuda.current_stream(x.device).cuda_stream)
+    path = lora_jvps_path(x.dtype, K, N, xdots is not None,
+                          all(t.data_ptr() % 16 == 0
+                              for t in (x, xdots, w, a, adots, b, bdots, gy) if t is not None))
+    xd_ptr = None if xdots is None else xdots.data_ptr()
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if path == "tc":    # u, udot_t of the pre-pass, then the blocks' (T,) partials
+        blocks = _fn("lora_dual_mt_jvps_bf16_blocks")(M, K, N)
+        scratch = torch.empty((T + 1) * M * r + T * blocks, dtype=torch.float32,
+                              device=x.device)
+        jvps = torch.empty(T, dtype=torch.float32, device=x.device)
+        err = _fn("lora_dual_mt_jvps_bf16")(
+            x.data_ptr(), xd_ptr, w.data_ptr(), a.data_ptr(), adots.data_ptr(),
+            b.data_ptr(), bdots.data_ptr(), gy.data_ptr(), scratch.data_ptr(),
+            jvps.data_ptr(), M, K, N, r, T, float(scale), stream)
+    else:
+        parts = torch.empty(((M + 63) // 64, (N + 63) // 64, T), dtype=torch.float32,
+                            device=x.device)
+        err = _fn("lora_dual_mt_jvps")(
+            _DTYPE_CODE[x.dtype], x.data_ptr(), xd_ptr, w.data_ptr(), a.data_ptr(),
+            adots.data_ptr(), b.data_ptr(), bdots.data_ptr(), gy.data_ptr(),
+            parts.data_ptr(), M, K, N, r, T, float(scale), stream)
     build.check(err, "lora_dual_mt_jvps")
     launches["lora_dual_mt_jvps"] += 1
-    return parts.sum(dim=(0, 1))
+    launches_by_path["lora_dual_mt_jvps"][path] += 1
+    return jvps if path == "tc" else parts.sum(dim=(0, 1))
 
 
 # ---------------------------------------------------------------------------

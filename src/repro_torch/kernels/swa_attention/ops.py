@@ -44,7 +44,8 @@ one rounding: psd is several units where few keys are kept, and the first
 rows' outd cancels acc_t against the fp32 mu_t, so one rounding would leave
 up to |psd| |v| / 512. ``swa_attention_mt_tiled_ref`` is the
 plain tiled walk in the kernel's roundings (``round_psd`` gives the
-reference's). fp32, hd off the 16 multiple, and the contraction mode run
+reference's). The contraction epilogue runs the same walk on the same route
+(second half of this module). fp32 and hd off the 16 multiple run
 ``swa_kernel``: each query row to one warp (lanes split hd, so the primal
 accumulator lives in registers), walking 32-key chunks of the causal band
 staged in shared memory as fp32; lane j scores key j, the warp reduces max
@@ -75,9 +76,11 @@ T_MAX = 64          # tangents a launch (the kernel's shared-memory plan)
 HD_MAX = 128
 TC_KEYS = 64        # keys a tile of the tensor-core kernels (csrc TC_BKV)
 launches = {"swa_attention": 0, "swa_attention_mt": 0, "swa_attention_mt_jvps": 0}
-# primal and tangent calls by route (``swa_path``); each sums to its launches
+# primal, tangent and contraction calls by route (``swa_path``); each sums to
+# its launches
 launches_by_path = {"swa_attention": {"tc": 0, "simt": 0},
-                    "swa_attention_mt": {"tc": 0, "simt": 0}}
+                    "swa_attention_mt": {"tc": 0, "simt": 0},
+                    "swa_attention_mt_jvps": {"tc": 0, "simt": 0}}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -156,18 +159,19 @@ def swa_attention_mt_tiled_ref(q, k, v, qds, kds, vds, window=None, round_psd=Fa
 
 
 def swa_path(dtype, hd, aligned=True):
-    """The kernel a CUDA ``swa_attention`` (primal) or
-    ``swa_attention_mt_tangents`` call takes: 'tc' (bf16 with hd a multiple
+    """The kernel a CUDA ``swa_attention`` (primal), ``swa_attention_mt_tangents``
+    or ``swa_attention_mt_jvps`` call takes: 'tc' (bf16 with hd a multiple
     of 16, the depth of one mma step, and every operand on a 16-byte
     boundary (``aligned``) for the 16-byte copies of query, key and value
-    rows and their tangents') or 'simt'."""
+    rows, their tangents' and gy's) or 'simt'."""
     return "tc" if dtype == torch.bfloat16 and hd % 16 == 0 and aligned else "simt"
 
 
 _ARGS = {"swa_attention_fwd": (4, 6), "swa_attention_mt_tangents": (7, 7),
          "swa_attention_mt_jvps": (8, 7),      # (pointers, ints) after dtype
          "swa_attention_fwd_tc": (4, 6),       # no dtype: bf16 only
-         "swa_attention_mt_tangents_tc": (7, 7)}
+         "swa_attention_mt_tangents_tc": (7, 7),
+         "swa_attention_mt_jvps_tc": (9, 7)}
 
 
 def _fn(symbol):
@@ -277,15 +281,30 @@ def swa_attention_mt_tangents(q, k, v, qds, kds, vds, window=None):
 # On the H100 it does the multi-tangent walk's operations but writes no
 # tangent output, so at the main path's S=32 it is bound by the bytes it
 # reads (q, k, v, their T tangents and gy) and in practice by latency;
-# at long S by operations. The CUDA kernel is the multi-tangent kernel's
-# walk (``csrc/swa_attention.cu``, mode JVPS: one warp a query row, T
-# tangent accumulators in the warp's slice of shared memory, same band,
-# GQA map, keep gate and l clamp) with the tangent store replaced by a
-# finish step: each outd_t = accd_t/l - (mud_t/l)*out is dotted with the
-# row of gy in fp32 and reduced over the warp, the block's rows are summed
-# in warp order into one (T,) partial per (b*h, query block), and the
-# partials are summed here. No float atomics, so the sum is the same from
-# run to run, and nothing of size (T, S, hd) reaches device memory.
+# at long S by operations. Two routes, ``swa_path``'s rule:
+#
+# - ``tc`` (bf16, hd a multiple of 16, every operand on 16 bytes):
+#   ``swa_tc_jvps_kernel`` (``csrc/swa_attention.cu``) runs the tangent
+#   kernel's tensor-core walk (its grid, tangent groups, cp.async staging,
+#   band, keep gate, GQA map and l clamp) with the warp's 16 rows of gy
+#   staged beside Q; at the finish outd_t stays in fp32 fragments and is
+#   dotted with gy's, reduced over the warp by shuffles and over the
+#   block's warps in warp order, one partial a (t, b*h, query block); a
+#   one-warp kernel sums each tangent's partials in a fixed order. Every
+#   product whose result reaches the contraction carries its fp32 factor
+#   as a bf16 (hi, lo) pair (p in P V and p Vd_t, psd in psd V): one
+#   rounding of p leaves about 2^-9 of each term, and over the ~2.6e5 terms
+#   of a roberta contraction that misses 1e-6 of sum|terms|. A tangent's
+#   arithmetic and summation order do not depend on T or on its group, so
+#   tangent t of a T=8 launch is bitwise a T=1 launch.
+# - ``simt`` (fp32, other widths): the multi-tangent kernel's simt walk
+#   (mode JVPS: one warp a query row, T tangent accumulators in the warp's
+#   slice of shared memory) with the tangent store replaced by the same
+#   contraction in fp32, the block's rows summed in warp order into one
+#   (T,) partial per (b*h, query block), summed here.
+#
+# No float atomics, so the sum is the same from run to run, and nothing of
+# size (T, S, hd) reaches device memory.
 
 
 def swa_attention_mt_jvps_ref(q, k, v, qds, kds, vds, gy, window=None):
@@ -326,14 +345,22 @@ def swa_attention_mt_jvps(q, k, v, qds, kds, vds, gy, window=None):
     B, H, S, hd = q.shape
     if q.numel() == 0:
         return torch.zeros(T, dtype=torch.float32, device=q.device)
-    blocks = _query_blocks(S, hd, T)
-    parts = torch.empty((B * H, blocks, T), dtype=torch.float32, device=q.device)
-    err = _fn("swa_attention_mt_jvps")(
-        _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        qds.data_ptr(), kds.data_ptr(), vds.data_ptr(), gy.data_ptr(),
-        parts.data_ptr(), B * H, S, hd, H, H // k.shape[1], T,
-        -1 if window is None else int(window), 1.0 / math.sqrt(hd),
-        torch.cuda.current_stream(q.device).cuda_stream)
+    path = swa_path(q.dtype, hd,
+                    all(t.data_ptr() % 16 == 0 for t in (q, k, v, qds, kds, vds, gy)))
+    tail = (B * H, S, hd, H, H // k.shape[1], T, -1 if window is None else int(window),
+            1.0 / math.sqrt(hd), torch.cuda.current_stream(q.device).cuda_stream)
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), qds.data_ptr(), kds.data_ptr(),
+            vds.data_ptr(), gy.data_ptr())
+    if path == "tc":    # one partial a (t, b*h, 16 query rows) at most
+        parts = torch.empty(T * B * H * -(-S // 16), dtype=torch.float32, device=q.device)
+        jvps = torch.empty(T, dtype=torch.float32, device=q.device)
+        err = _fn("swa_attention_mt_jvps_tc")(*ptrs, parts.data_ptr(), jvps.data_ptr(), *tail)
+    else:
+        parts = torch.empty((B * H, _query_blocks(S, hd, T), T), dtype=torch.float32,
+                            device=q.device)
+        err = _fn("swa_attention_mt_jvps")(_DTYPE_CODE[q.dtype], *ptrs, parts.data_ptr(),
+                                           *tail)
     build.check(err, "swa_attention_mt_jvps")
     launches["swa_attention_mt_jvps"] += 1
-    return parts.sum(dim=(0, 1))
+    launches_by_path["swa_attention_mt_jvps"][path] += 1
+    return jvps if path == "tc" else parts.sum(dim=(0, 1))

@@ -1,8 +1,9 @@
 """Card-only tests of the port's CUDA kernels (marker ``cuda``).
 
 Each kernel is held against its plain PyTorch version on the card (the
-mamba2 and wkv6 kernels also lane by lane: a T=8 launch is eight T=1
-launches bit for bit), one reduced estimate per estimator route and family shows
+mamba2 and wkv6 kernels and the bf16 LoRA and attention contraction
+epilogues also lane by lane: a T=8 launch is eight T=1 launches bit for
+bit), one reduced estimate per estimator route and family shows
 one multi-tangent launch per site (standard) or one contraction epilogue
 at the final site (fused) for all K tangents, and a reduced serving engine
 makes ``chip_smoke.serve_launches`` multi-adapter launches and the ids of
@@ -266,25 +267,36 @@ def _jvps_close(got, want, mag):
     assert bool((err <= 1e-6 * mag).all()), (err, mag)
 
 
+def _lora_jvps_inputs(M, K, N, r, T, has_xd, dtype, dev, seed):
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    rn = lambda *s: torch.randn(s, generator=g, device=dev)  # noqa: E731
+    x = rn(M, K).to(dtype)
+    xd = rn(T, M, K).to(dtype) if has_xd else None
+    w = (rn(K, N) / math.sqrt(K)).to(dtype)
+    a, ad, b, bd = rn(K, r) / math.sqrt(K), rn(T, K, r) / math.sqrt(K), rn(r, N), rn(T, r, N)
+    return x, xd, w, a, ad, b, bd, rn(M, N).to(dtype)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("M,K,N,r,T,has_xd", [
     (256, 1024, 1024, 1, 8, True),
     (256, 1024, 1024, 1, 8, False),
     (37, 100, 72, 3, 3, True),       # ragged edges
     (70, 33, 65, 16, 64, True),      # rank and tangent limits
+    (256, 4096, 4096, 1, 8, True),   # llama2-7b widths
+    (256, 4096, 4096, 1, 8, False),
+    (200, 1032, 1032, 16, 3, True),  # M, K and N off the tc tiles, rank 16
+    (200, 1032, 1032, 16, 3, False),
+    (64, 1024, 1024, 1, 64, True),   # 64 tangents through the tc ring
 ])
 def test_lora_jvps_kernel_matches_plain(dev, dtype, M, K, N, r, T, has_xd):
     from repro_torch.kernels.lora_dual import ops
-    g = torch.Generator(device=dev)
-    g.manual_seed(2)
-    rn = lambda *s: torch.randn(s, generator=g, device=dev)  # noqa: E731
-    x = rn(M, K).to(dtype)
-    xd = rn(T, M, K).to(dtype) if has_xd else None
-    w = (rn(K, N) / math.sqrt(K)).to(dtype)
-    a, ad, b, bd = rn(K, r) / math.sqrt(K), rn(T, K, r) / math.sqrt(K), rn(r, N), rn(T, r, N)
-    gy = rn(M, N).to(dtype)
+    x, xd, w, a, ad, b, bd, gy = _lora_jvps_inputs(M, K, N, r, T, has_xd, dtype, dev, 2)
     before = ops.launches["lora_dual_mt_jvps"]
-    got = ops.lora_dual_mt_jvps(x, w, a, ad, b, bd, gy, 0.5, xdots=xd)
+    got = _one_launch_by(ops.launches_by_path["lora_dual_mt_jvps"],
+                         ops.lora_jvps_path(dtype, K, N, has_xd),
+                         lambda: ops.lora_dual_mt_jvps(x, w, a, ad, b, bd, gy, 0.5, xdots=xd))
     again = ops.lora_dual_mt_jvps(x, w, a, ad, b, bd, gy, 0.5, xdots=xd)
     torch.cuda.synchronize()
     assert ops.launches["lora_dual_mt_jvps"] == before + 2
@@ -296,28 +308,76 @@ def test_lora_jvps_kernel_matches_plain(dev, dtype, M, K, N, r, T, has_xd):
                                                f(xd)), mag)
 
 
+def _swa_jvps_inputs(B, H, KV, S, hd, T, dtype, dev, seed):
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    rn = lambda *s: torch.randn(s, generator=g, device=dev).to(dtype)  # noqa: E731
+    return (rn(B, H, S, hd), rn(B, KV, S, hd), rn(B, KV, S, hd), rn(T, B, H, S, hd),
+            rn(T, B, KV, S, hd), rn(T, B, KV, S, hd), rn(B, H, S, hd))
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,H,KV,S,hd,window,T", [
     (8, 16, 16, 32, 64, None, 8),
     (1, 8, 2, 100, 128, 40, 3),      # GQA, band, ragged S
     (2, 4, 1, 33, 48, None, 1),      # MQA, hd not a multiple of 32
     (1, 4, 2, 40, 128, None, 64),    # T_MAX tangents at hd=128
+    (8, 32, 32, 32, 128, None, 8),   # llama2-7b widths
+    (1, 4, 1, 300, 32, 64, 5),       # four tangents a group, two key buffers, band
 ])
 def test_swa_jvps_kernel_matches_plain(dev, dtype, B, H, KV, S, hd, window, T):
     from repro_torch.kernels.swa_attention import ops
-    g = torch.Generator(device=dev)
-    g.manual_seed(3)
-    rn = lambda *s: torch.randn(s, generator=g, device=dev).to(dtype)  # noqa: E731
-    q, k, v = rn(B, H, S, hd), rn(B, KV, S, hd), rn(B, KV, S, hd)
-    qd, kd, vd = rn(T, B, H, S, hd), rn(T, B, KV, S, hd), rn(T, B, KV, S, hd)
-    gy = rn(B, H, S, hd)
-    got = ops.swa_attention_mt_jvps(q, k, v, qd, kd, vd, gy, window)
+    q, k, v, qd, kd, vd, gy = _swa_jvps_inputs(B, H, KV, S, hd, T, dtype, dev, 3)
+    got = _one_launch_by(ops.launches_by_path["swa_attention_mt_jvps"],
+                         ops.swa_path(dtype, hd),
+                         lambda: ops.swa_attention_mt_jvps(q, k, v, qd, kd, vd, gy, window))
     again = ops.swa_attention_mt_jvps(q, k, v, qd, kd, vd, gy, window)
     torch.cuda.synchronize()
     assert torch.equal(got, again)
     od = ops.swa_attention_mt_tangents_ref(*_f32((q, k, v, qd, kd, vd)), window)
     mag = (gy.float()[None] * od).abs().sum(dim=(1, 2, 3, 4))
     _jvps_close(got, torch.einsum("bhsd,tbhsd->t", gy.float(), od), mag)
+
+
+@pytest.mark.parametrize("has_xd", [True, False], ids=["xd", "no_xd"])
+@pytest.mark.parametrize("M,K,N", [(200, 1032, 1032), (256, 1024, 1024)])
+def test_lora_jvps_lanes_bitwise_and_repeat(dev, M, K, N, has_xd):
+    """On the tc route each tangent of a T=8 launch equals its own T=1
+    launch bit for bit (the tile plan and every sum's order depend on
+    (M, K, N) alone), and two launches on the same inputs give the same
+    jvps; the kernel's plan is the one ``jvps_split_plan`` states."""
+    from repro_torch.kernels.lora_dual import ops
+    x, xd, w, a, ad, b, bd, gy = _lora_jvps_inputs(M, K, N, 2, 8, has_xd, torch.bfloat16,
+                                                   dev, 5)
+    grid, _ = ops.jvps_split_plan(M, K, N)
+    assert ops._fn("lora_dual_mt_jvps_bf16_blocks")(M, K, N) == math.prod(grid)
+    jv = _one_launch_by(ops.launches_by_path["lora_dual_mt_jvps"], "tc",
+                        lambda: ops.lora_dual_mt_jvps(x, w, a, ad, b, bd, gy, 0.5, xdots=xd))
+    for t in range(8):
+        one = ops.lora_dual_mt_jvps(x, w, a, ad[t:t + 1].contiguous(), b,
+                                    bd[t:t + 1].contiguous(), gy, 0.5,
+                                    xdots=None if xd is None else xd[t:t + 1].contiguous())
+        assert torch.equal(one[0], jv[t]), t
+    assert torch.equal(ops.lora_dual_mt_jvps(x, w, a, ad, b, bd, gy, 0.5, xdots=xd), jv)
+
+
+@pytest.mark.parametrize("B,H,KV,S,hd,window", [
+    (8, 16, 16, 32, 64, None),       # roberta-large: two tangents a group
+    (2, 8, 2, 100, 128, 40),         # one a group, GQA, band, ragged S
+    (1, 4, 1, 150, 32, None),        # four a group, two key buffers
+])
+def test_swa_jvps_lanes_bitwise_and_repeat(dev, B, H, KV, S, hd, window):
+    """On the tc route each tangent of a T=8 launch (in any slot of any
+    tangent group) equals its own T=1 launch bit for bit, and two launches
+    on the same inputs give the same jvps."""
+    from repro_torch.kernels.swa_attention import ops
+    q, k, v, qd, kd, vd, gy = _swa_jvps_inputs(B, H, KV, S, hd, 8, torch.bfloat16, dev, 6)
+    jv = _one_launch_by(ops.launches_by_path["swa_attention_mt_jvps"], "tc",
+                        lambda: ops.swa_attention_mt_jvps(q, k, v, qd, kd, vd, gy, window))
+    for t in range(8):
+        one = tuple(x[t:t + 1].contiguous() for x in (qd, kd, vd))
+        assert torch.equal(ops.swa_attention_mt_jvps(q, k, v, *one, gy, window)[0], jv[t]), t
+    assert torch.equal(ops.swa_attention_mt_jvps(q, k, v, qd, kd, vd, gy, window), jv)
 
 
 def test_fused_route_one_epilogue_per_estimate(dev):

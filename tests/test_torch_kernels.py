@@ -317,6 +317,41 @@ def test_lora_mt_jvps_plain_matches_pallas_interpret(has_xd):
     assert _rel(lora_ops.lora_dual_mt_jvps(*targs, 1.0, xdots=txd), want) <= RTOL
 
 
+@pytest.mark.parametrize("M,K,N,r,T,has_xd,steps", [
+    (37, 104, 200, 2, 3, True, 1),      # ragged M, N past the last 64-column stage
+    (37, 104, 200, 2, 3, False, 1),
+    (64, 256, 320, 1, 4, True, 2),      # slices of two stages, the last one short
+    (70, 136, 1032, 3, 2, True, None),  # the kernel's own plan: 17 slices of one stage
+    (8, 64, 128, 4, 1, False, None),
+])
+def test_lora_jvps_split_ref_matches_jax(M, K, N, r, T, has_xd, steps):
+    """The N-sliced plain version (the tc kernel's association: per slice of
+    N, <gy W^T, xdot_t> + s<gy, udot_t B + u Bdot_t>, slices summed in order)
+    against the JAX oracle at fp32 rel 1e-5."""
+    if steps is None:
+        grid, steps_plan = lora_ops.jvps_split_plan(M, K, N)
+        assert grid[2] > 1 or N <= 128
+    d = _lora_jvps_inputs(30, M, K, N, r, T, has_xd)
+    jargs, jxd = _lora_jvps_args(d, jnp.asarray)
+    targs, txd = _lora_jvps_args(d, _t)
+    got = lora_ops.lora_dual_mt_jvps_split_ref(*targs, 0.5, xdots=txd, steps=steps)
+    assert got.shape == (T,) and got.dtype == torch.float32
+    assert _rel(got, lora_dual_mt_jvps_ref(*jargs, 0.5, xdots=jxd)) <= RTOL
+
+
+@pytest.mark.parametrize("M,K,N,want", [
+    (256, 1024, 1024, ((4, 8, 4), 4)),      # roberta-large: 32 tiles, N split 4 ways
+    (256, 4096, 4096, ((4, 32, 1), 64)),    # llama2-7b widths: 128 tiles, no split
+    (200, 1024, 1032, ((4, 8, 4), 5)),      # 17 stages of N: slices of 5, the last of 2
+    (4096, 4096, 4096, ((64, 32, 1), 64)),
+    (8, 64, 64, ((1, 1, 1), 1)),
+])
+def test_lora_jvps_split_plan_depends_on_widths_only(M, K, N, want):
+    """The tc contraction's tile plan: about one wave of blocks, from
+    (M, K, N) alone (never T, so a tangent's sum is the same in any T)."""
+    assert lora_ops.jvps_split_plan(M, K, N) == want
+
+
 def _gy(seed, B, H, S, hd):
     return np.random.default_rng(seed).standard_normal((B, H, S, hd)).astype(np.float32)
 
@@ -635,6 +670,25 @@ def test_lora_mt_path_rule(dtype, K, N, has_xd, aligned, want):
     assert lora_ops.lora_mt_path(dtype, K, N, has_xd, aligned) == want
 
 
+@pytest.mark.parametrize("dtype,K,N,has_xd,aligned,want", [
+    (torch.bfloat16, 1024, 1024, True, True, "tc"),       # roberta-large
+    (torch.bfloat16, 1024, 1024, False, True, "tc"),      # no input tangent: rank-r terms
+    (torch.bfloat16, 4096, 4096, True, True, "tc"),       # llama2-7b
+    (torch.bfloat16, 4096, 4096, False, True, "tc"),
+    (torch.bfloat16, 8, 8, True, True, "tc"),             # the smallest aligned widths
+    (torch.bfloat16, 1004, 1024, True, True, "simt"),     # K off the 8-element rows
+    (torch.bfloat16, 1024, 1020, False, True, "simt"),    # N off them
+    (torch.bfloat16, 100, 72, True, True, "simt"),
+    (torch.bfloat16, 1024, 1024, True, False, "simt"),    # an operand off 16 bytes
+    (torch.bfloat16, 1024, 1024, False, False, "simt"),
+    (torch.float32, 1024, 1024, True, True, "simt"),      # fp32 stays exact fp32
+    (torch.float32, 1024, 1024, False, True, "simt"),
+    (torch.float16, 1024, 1024, True, True, "simt"),
+])
+def test_lora_jvps_path_rule(dtype, K, N, has_xd, aligned, want):
+    assert lora_ops.lora_jvps_path(dtype, K, N, has_xd, aligned) == want
+
+
 @pytest.mark.parametrize("dtype,hd,aligned,want", [
     (torch.bfloat16, 64, True, "tc"), (torch.bfloat16, 128, True, "tc"),
     (torch.bfloat16, 16, True, "tc"), (torch.bfloat16, 48, True, "tc"),
@@ -683,7 +737,8 @@ def test_engine_decode_takes_the_stream_route():
                                   "rwkv6-1.6b"])
 def test_full_width_main_path_takes_the_tensor_core_routes(arch):
     """At full published width (bf16) every LoRA target and attention head
-    width of the training path is aligned for the tensor-core kernels."""
+    width of the training path is aligned for the tensor-core kernels, the
+    contraction epilogues' included."""
     from repro_torch.configs import SpryConfig, get_config
     from repro_torch.peft.lora import default_lora_targets, target_dims
     cfg = get_config(arch)
@@ -694,6 +749,8 @@ def test_full_width_main_path_takes_the_tensor_core_routes(arch):
         K, N = target_dims(cfg, t)
         assert lora_ops.lora_mt_path(torch.bfloat16, K, N, True) == "tc", (t, K, N)
         assert lora_ops.lora_mt_path(torch.bfloat16, K, N, False) == "store", (t, K, N)
+        for has_xd in (True, False):
+            assert lora_ops.lora_jvps_path(torch.bfloat16, K, N, has_xd) == "tc", (t, K, N)
     if cfg.family in ("dense", "hybrid"):
         assert swa_ops.swa_path(torch.bfloat16, cfg.hd) == "tc"
 
@@ -702,13 +759,20 @@ def test_route_counters_reset_with_the_launch_counters():
     from repro_torch.kernels import launch_counts, launch_paths, reset_launch_counts
     lora_ops.launches_by_path["lora_dual_mt"]["tc"] += 2
     swa_ops.launches_by_path["swa_attention"]["simt"] += 1
+    lora_ops.launches_by_path["lora_dual_mt_jvps"]["tc"] += 1
+    swa_ops.launches_by_path["swa_attention_mt_jvps"]["simt"] += 1
     try:
         assert launch_paths()["lora_dual_mt"]["tc"] >= 2
+        assert launch_paths()["lora_dual_mt_jvps"]["tc"] >= 1
+        assert launch_paths()["swa_attention_mt_jvps"]["simt"] >= 1
         assert set(launch_paths()) == {"lora_dual_mt", "swa_attention",
                                        "swa_attention_mt", "lora_dual_multi",
-                                       "wkv6_scan_mt"}
+                                       "wkv6_scan_mt", "lora_dual_mt_jvps",
+                                       "swa_attention_mt_jvps"}
         assert set(launch_paths()["wkv6_scan_mt"]) == {"chunk", "rec"}
         assert set(launch_paths()["swa_attention_mt"]) == {"tc", "simt"}
+        assert set(launch_paths()["lora_dual_mt_jvps"]) == {"tc", "simt"}
+        assert set(launch_paths()["swa_attention_mt_jvps"]) == {"tc", "simt"}
         assert set(launch_paths()["lora_dual_multi"]) == {"stream", "simt"}
         assert set(launch_paths()["lora_dual_mt"]) == {"tc", "store", "simt"}
     finally:
@@ -725,8 +789,12 @@ def test_cuda_tensors_never_take_the_plain_version_on_any_route(monkeypatch, dty
         pytest.fail("a CUDA tensor reached the plain version")
     monkeypatch.setattr(lora_ops, "lora_dual_mt_tangents_ref", plain_reached)
     monkeypatch.setattr(swa_ops, "swa_attention_ref", plain_reached)
+    monkeypatch.setattr(lora_ops, "lora_dual_mt_jvps_ref", plain_reached)
+    monkeypatch.setattr(lora_ops, "lora_dual_mt_jvps_split_ref", plain_reached)
+    monkeypatch.setattr(swa_ops, "swa_attention_mt_jvps_ref", plain_reached)
     monkeypatch.setattr(lora_ops, "_check", lambda *a, **k: None)
     monkeypatch.setattr(swa_ops, "_check", lambda *a, **k: None)
+    monkeypatch.setattr(swa_ops, "_check_jvps", lambda *a, **k: 1)
 
     class OnCuda:
         """Stands in for a CUDA tensor (this torch has no CUDA)."""
@@ -749,7 +817,15 @@ def test_cuda_tensors_never_take_the_plain_version_on_any_route(monkeypatch, dty
                                            z[None, :1].float())
     with pytest.raises(Exception):
         swa_ops.swa_attention(t, t, t, None)
+    for xd in (None, z[None]):        # the contraction epilogues, either route
+        with pytest.raises(Exception):
+            lora_ops.lora_dual_mt_jvps(t, z, z[:, :1].float(), z[None, :, :1].float(),
+                                       z[:1].float(), z[None, :1].float(), t, xdots=xd)
+    with pytest.raises(Exception):
+        swa_ops.swa_attention_mt_jvps(t, t, t, t, t, t, t)
     assert launch_paths() == before
+    assert lora_ops.launches["lora_dual_mt_jvps"] == 0
+    assert swa_ops.launches["swa_attention_mt_jvps"] == 0
 
 
 def test_build_hash_covers_included_headers(monkeypatch, tmp_path):
