@@ -14,7 +14,9 @@ Phases, in order (any failure raises and exits non-zero):
               HGMMA in ``lora_mt_tc_kernel`` and ``lora_jvps_tc_kernel``,
               HMMA in ``swa_tc_kernel``, ``swa_tc_mt_kernel`` and
               ``swa_tc_jvps_kernel``, DMMA (fp64) in ``mamba2_ssd_kernel``
-              and ``wkv6_chunk_kernel``; fails if an instantiation has none
+              and ``wkv6_chunk_kernel`` (their tangent-store and
+              contraction instantiations); fails if an instantiation has
+              none
   3. kernels  each of the twelve kernels against its plain PyTorch version on
               the card at the main path's shapes (roberta-large, llama2-7b,
               zamba2, rwkv6-1.6b) and one long shape. ``lora_dual_mt`` and
@@ -43,20 +45,28 @@ Phases, in order (any failure raises and exits non-zero):
               2e-2). The mamba2 recurrence (fp32 only, as the reference's
               kernels): zamba2's shapes (B=8, S=32, H=64, hd=N=64), S=33
               (one token past a 32-token chunk), a ragged shape, N=100 and
-              three chunks (S=70, hd=40), T in {1, 8, 64}, and zamba2's
-              widths at S=1024 (B=1, T in {1, 8}); a T=8 launch must equal
-              eight T=1 launches bit for bit (tangents and contraction, at
-              one chunk and across chunks) and two contraction launches
-              must agree bit for bit. Rows 10 and 11 also print
-              ``eager_ms``, as rows 1 and 2 do. The wkv6
+              three chunks (S=70, hd=40), T in {1, 8, 64} (timed at
+              zamba2's shapes), and zamba2's widths at S=1024 (B=1, T in
+              {1, 8}); the contraction on the route ``mamba2_jvps_path``
+              gives (chunk for S <= 32); a T=8 launch must equal eight T=1
+              launches bit for bit (tangents and contraction, at one chunk
+              on either contraction route and across chunks) and two
+              contraction launches must agree bit for bit. Rows 10 and 11
+              also print ``eager_ms``, as rows 1 and 2 do. The wkv6
               recurrence (fp32 only, as the reference's kernels): rwkv6-1.6b's
               shapes (B=8, S=32, H=32, hd=64), two ragged shapes (S=29 and
               S=37, B*H=15, hd=40) and S=1024, T in {1, 8, 64}, with and
-              without a tangent of u, each tangent launch on the route
-              ``wkv6_mt_path`` gives (chunk for S <= 32, held also against
-              the plain chunked form ``wkv6_chunked_ref`` at T <= 8:
+              without a tangent of u, each tangent and contraction launch
+              on the route ``wkv6_mt_path`` / ``wkv6_jvps_path`` gives
+              (chunk for S <= 32; the tangents held also against the plain
+              chunked form ``wkv6_chunked_ref`` at T <= 8:
               ``max_abs_err_chunked``), the same bitwise lane and repeat
-              checks on both routes; rows 7 and 8 print ``eager_ms``. The four
+              checks on both routes; rows 7 and 8 print ``eager_ms``. On
+              the chunk route the mamba2 and wkv6 contractions are also
+              held against the fp64 contraction of the tangent pass's
+              output (``fp64_contraction``: the jvps within 1e-12 x
+              sum|terms| plus half an fp32 ulp, ``err_over_terms_fp64``, and
+              a repeat launch bitwise equal). The four
               contraction epilogues return sums of n products, held against
               1e-6 x sum|terms| in every dtype (the kernel reads bf16 exactly
               into the same fp32 sums as fp32; a typical contraction is about
@@ -115,8 +125,9 @@ Phases, in order (any failure raises and exits non-zero):
               launch and every contraction epilogue of rows 4 and 5 in
               phases 5 and 6 (bf16 at full width) must take a tensor-core
               route (tc, or store where no input tangent exists), none
-              simt, and every ``wkv6_scan_mt`` launch the
-              chunk route (S=32), none rec. Prints
+              simt, and every ``wkv6_scan_mt``, ``wkv6_scan_mt_jvps`` and
+              ``mamba2_scan_mt_jvps`` launch the chunk route (S=32), none
+              rec. Prints
               each run's loss, test accuracy, seconds per round and peak
               device memory of a round (weights included, model init
               excluded), and SPRY's and FedAvg's round peaks side by side for
@@ -181,11 +192,11 @@ SOURCES = {
     "lora_dual_mt_jvps": "src/repro_torch/csrc/lora_dual_mt.cu",
     "mamba2_scan": "src/repro_torch/csrc/mamba2_scan.cu",
     "mamba2_scan_mt": "src/repro_torch/csrc/mamba2_ssd.cu",
-    "mamba2_scan_mt_jvps": "src/repro_torch/csrc/mamba2_scan.cu",
+    "mamba2_scan_mt_jvps": "src/repro_torch/csrc/mamba2_ssd.cu",
     "lora_dual_multi": "src/repro_torch/csrc/lora_dual_multi.cu",
     "wkv6_scan": "src/repro_torch/csrc/wkv6_scan.cu",
     "wkv6_scan_mt": "src/repro_torch/csrc/wkv6_chunk.cu",
-    "wkv6_scan_mt_jvps": "src/repro_torch/csrc/wkv6_scan.cu",
+    "wkv6_scan_mt_jvps": "src/repro_torch/csrc/wkv6_chunk.cu",
 }
 
 
@@ -385,6 +396,35 @@ def close_jvps(name, got, want, mag):
         raise AssertionError(f"{name}: kernel vs plain |err| {err.tolist()} beyond "
                              f"{JVPS_RTOL} x sum|terms| {mag.tolist()}")
     return float(err.max()), float((err / mag).max())
+
+
+# the scan epilogues' chunk route against the fp64 contraction of the
+# tangent pass's stored output: both sum exact fp64 products of the same
+# fp32 tangents and gy, in two orders; the jvps then round once to fp32
+FP64_RTOL = 1e-12
+
+
+def fp64_contraction(name, again, jv, yd, gy):
+    """The jvps ``jv`` against ``einsum(gy, yd)`` in fp64, ``yd`` the
+    tangent pass's output on the same inputs: |jv - einsum| <= FP64_RTOL x
+    sum|terms| plus half an fp32 ulp of jv (its one rounding), and a second
+    launch, ``again()``, equals jv bit for bit. Returns the max |err| and
+    err / sum|terms|."""
+    import torch
+    y64, g64 = yd.double(), gy.double()
+    want = torch.einsum("bshd,tbshd->t", g64, y64)
+    mag = (g64[None] * y64).abs().sum(dim=(1, 2, 3, 4))
+    a = jv.abs()
+    half_ulp = (torch.nextafter(a, torch.full_like(a, float("inf"))) - a).double() / 2
+    err = (jv.double() - want).abs()
+    if not bool((err <= FP64_RTOL * mag + half_ulp).all()):
+        raise AssertionError(f"{name}: jvps vs the fp64 contraction of the tangents "
+                             f"|err| {err.tolist()} beyond {FP64_RTOL} x sum|terms| "
+                             f"{mag.tolist()} + half an fp32 ulp {half_ulp.tolist()}")
+    if not torch.equal(again(), jv):
+        raise AssertionError(f"{name}: a repeat launch's jvps differ from {jv.tolist()}")
+    return {"max_abs_err_fp64": float(err.max()),
+            "err_over_terms_fp64": float((err / mag).max())}
 
 
 def lora_jvps_case(M, K, N, r, T, has_xd, dtype, gen, timed):
@@ -627,7 +667,9 @@ def mamba2_flops(B, S, H, hd, N, T):
 def mamba2_cases(B, S, H, hd, N, T, gen, timed, plain_once=False):
     """The three mamba2 kernels on one problem (fp32, their only dtype):
     primal and tangents against the plain versions (``close``), the
-    contraction against JVPS_RTOL x sum|terms|. ``plain_once``: the plain
+    contraction on the route ``mamba2_jvps_path`` gives against JVPS_RTOL x
+    sum|terms| and, on route chunk, against the fp64 contraction of the
+    tangents (``fp64_contraction``). ``plain_once``: the plain
     versions' times are the one call of each that gives the reference (a
     walk of one launch a token and op) instead of graph replays. Returns
     {kernel: result}."""
@@ -645,7 +687,10 @@ def mamba2_cases(B, S, H, hd, N, T, gen, timed, plain_once=False):
     else:
         y_ref, yd_ref = ops.mamba2_scan_mt_ref(*prim, *tang)
     yd = ops.mamba2_scan_mt_tangents(*prim, *tang)
-    jv = ops.mamba2_scan_mt_jvps(*prim, *tang, gy)
+    route = ops.mamba2_jvps_path(S)
+    jv = took_path(f"mamba2_scan_mt_jvps {shape} T={T}",
+                   ops.launches_by_path["mamba2_scan_mt_jvps"], route,
+                   lambda: ops.mamba2_scan_mt_jvps(*prim, *tang, gy))
     jv_ref = torch.einsum("bshd,tbshd->t", gy, yd_ref)
     mag = (gy[None] * yd_ref).abs().sum(dim=(1, 2, 3, 4))
     torch.cuda.synchronize()
@@ -654,8 +699,13 @@ def mamba2_cases(B, S, H, hd, N, T, gen, timed, plain_once=False):
     out["mamba2_scan_mt"] = {"max_abs_err": close(
         f"mamba2_scan_mt {shape} T={T}", yd, yd_ref, torch.float32)}
     err, rel = close_jvps(f"mamba2_scan_mt_jvps {shape} T={T}", jv, jv_ref, mag)
-    out["mamba2_scan_mt_jvps"] = {"max_abs_err": err, "err_over_terms": rel}
+    out["mamba2_scan_mt_jvps"] = {"max_abs_err": err, "err_over_terms": rel, "path": route}
     del yd_ref
+    if route == "chunk":     # the tangents contracted are row 11's, in fp64
+        out["mamba2_scan_mt_jvps"].update(fp64_contraction(
+            f"mamba2_scan_mt_jvps {shape} T={T}",
+            lambda: ops.mamba2_scan_mt_jvps(*prim, *tang, gy), jv, yd, gy))
+    del yd
     if timed:
         # bound = max(bytes / 3.35 TB/s, flops / 67 TFLOP/s): each input read
         # once, each output written once; flops from ``mamba2_flops``
@@ -790,7 +840,10 @@ def wkv6_inputs(B, S, H, hd, T, has_ud, gen):
 def wkv6_cases(B, S, H, hd, T, has_ud, gen):
     """The three wkv6 kernels on one problem (fp32, their only dtype):
     primal and tangents against the plain versions (``close``), the
-    contraction against JVPS_RTOL x sum|terms|; every case timed with its
+    contraction against JVPS_RTOL x sum|terms| and, on route chunk, against
+    the fp64 contraction of the tangents (``fp64_contraction``); the
+    tangents and the contraction each on the route its rule gives
+    (``wkv6_mt_path``, ``wkv6_jvps_path``); every case timed with its
     bound, plain time (the one call of each plain version that gives the
     reference: a walk of one launch a token and op, up to a second at
     S=1024) and yardstick. Returns {kernel: result}."""
@@ -803,7 +856,9 @@ def wkv6_cases(B, S, H, hd, T, has_ud, gen):
     y = ops.wkv6_scan(*prim)
     yd = took_path(f"wkv6_scan_mt {shape}", ops.launches_by_path["wkv6_scan_mt"],
                    route, lambda: ops.wkv6_scan_mt_tangents(*prim, *tang, uds))
-    jv = ops.wkv6_scan_mt_jvps(*prim, *tang, gy, uds)
+    jroute = ops.wkv6_jvps_path(S)
+    jv = took_path(f"wkv6_scan_mt_jvps {shape}", ops.launches_by_path["wkv6_scan_mt_jvps"],
+                   jroute, lambda: ops.wkv6_scan_mt_jvps(*prim, *tang, gy, uds))
     plain_ms = {}
     (y_ref, _), plain_ms["wkv6_scan"] = timed_once(lambda: ops.wkv6_scan_ref(*prim))
     (_, yd_ref), plain_ms["wkv6_scan_mt"] = timed_once(
@@ -817,8 +872,12 @@ def wkv6_cases(B, S, H, hd, T, has_ud, gen):
     out["wkv6_scan_mt"] = {"max_abs_err": close(f"wkv6_scan_mt {shape}", yd, yd_ref,
                                                 torch.float32), "path": route}
     err, rel = close_jvps(f"wkv6_scan_mt_jvps {shape}", jv, jv_ref, mag)
-    out["wkv6_scan_mt_jvps"] = {"max_abs_err": err, "err_over_terms": rel}
+    out["wkv6_scan_mt_jvps"] = {"max_abs_err": err, "err_over_terms": rel, "path": jroute}
     del yd_ref
+    if jroute == "chunk":    # the tangents contracted are row 8's, in fp64
+        out["wkv6_scan_mt_jvps"].update(fp64_contraction(
+            f"wkv6_scan_mt_jvps {shape}",
+            lambda: ops.wkv6_scan_mt_jvps(*prim, *tang, gy, uds), jv, yd, gy))
     if route == "chunk" and T <= 8:     # the kernel's own algorithm, in plain torch
         out["wkv6_scan_mt"]["max_abs_err_chunked"] = close(
             f"wkv6_scan_mt {shape} vs wkv6_chunked_ref", yd,
@@ -962,6 +1021,9 @@ def phase_kernels():
     def note(name, dtype, res):         # the largest err / sum|terms| seen
         key = f"{name} {dtype}"
         worst[key] = max(worst.get(key, 0.0), res["err_over_terms"])
+        if "err_over_terms_fp64" in res:
+            key += " vs fp64"
+            worst[key] = max(worst.get(key, 0.0), res["err_over_terms_fp64"])
         return res
 
     for dtype in (torch.float32, torch.bfloat16):
@@ -1050,20 +1112,27 @@ def phase_kernels():
     # B=8, S=32, H=64, hd=N=64, one 32-token chunk), one token past the chunk
     # (S=33), a ragged shape (odd S; hd, N and B*H*hd not multiples of 32 or
     # of 16) and N > 64, three chunks with hd=40 (the chunk carry); T in
-    # {1, 8, 64}. Then zamba2's widths at S=1024 (32 chunks), T in {1, 8}
+    # {1, 8, 64}, timed at zamba2's shapes (T=1 and T=64: each plain version
+    # in one call). Then zamba2's widths at S=1024 (32 chunks), T in {1, 8}
     for (B, S, H, hd, N) in ((8, 32, 64, 64, 64), (2, 33, 64, 64, 64),
                              (3, 37, 5, 24, 20), (2, 19, 3, 40, 100),
                              (2, 70, 3, 40, 64)):
         for T in (1, 8, 64):
-            timed = (B, T) == (8, 8)
-            res = mamba2_cases(B, S, H, hd, N, T, gen, timed)
+            timed = B == 8
+            res = mamba2_cases(B, S, H, hd, N, T, gen, timed, plain_once=T != 8)
             note("mamba2_scan_mt_jvps", torch.float32, res["mamba2_scan_mt_jvps"])
             if timed:
+                extra[f"mamba2_scan_mt_jvps B={B} S={S} H={H} hd={hd} N={N} T={T}"] = \
+                    res["mamba2_scan_mt_jvps"]
+            if (B, T) == (8, 8):
                 main.update(res)
     for T in (1, 8):
         res = mamba2_cases(1, 1024, 64, 64, 64, T, gen, timed=True, plain_once=True)
         note("mamba2_scan_mt_jvps", torch.float32, res["mamba2_scan_mt_jvps"])
+        extra[f"mamba2_scan_mt_jvps B=1 S=1024 H=64 hd=64 N=64 T={T}"] = \
+            res["mamba2_scan_mt_jvps"]
     mamba2_lanes_and_repeats(8, 32, 64, 64, 64, gen)
+    mamba2_lanes_and_repeats(3, 29, 5, 24, 20, gen)
     mamba2_lanes_and_repeats(3, 37, 5, 24, 20, gen)
     mamba2_lanes_and_repeats(2, 70, 3, 40, 64, gen)
     # the wkv6 recurrence (fp32 only): rwkv6-1.6b's shapes (one client
@@ -1078,6 +1147,8 @@ def phase_kernels():
             for has_ud in (False, True):
                 res = wkv6_cases(B, S, H, hd, T, has_ud, gen)
                 note("wkv6_scan_mt_jvps", torch.float32, res["wkv6_scan_mt_jvps"])
+                extra[f"wkv6_scan_mt_jvps B={B} S={S} H={H} hd={hd} T={T} ud={has_ud}"] = \
+                    res["wkv6_scan_mt_jvps"]
                 if (B, T, has_ud) == (8, 8, False):
                     main.update(res)
     for has_ud in (False, True):
@@ -1100,8 +1171,10 @@ def phase_kernels():
                               (7, 1000, 136, 3, 2)):
             lora_multi_case(M, K, N, P, r, dtype, gen, timed=False)
     log(f"[kernels] contraction epilogues, largest err / sum|terms| (limit "
-        f"{JVPS_RTOL}): " + json.dumps(worst))
-    log("[kernels] redesigned rows 1-5, every timed bf16 case: " + json.dumps(extra))
+        f"{JVPS_RTOL}; 'vs fp64': the scan epilogues' chunk route against the "
+        f"fp64 contraction of the tangents, limit {FP64_RTOL}): " + json.dumps(worst))
+    log("[kernels] redesigned rows 1-5 (every timed bf16 case), 9 and 12 (every "
+        "timed case): " + json.dumps(extra))
     # release what the timing holds (the side stream and the cuBLAS
     # workspaces), so the later phases' memory peaks do not depend on
     # whether this phase ran
@@ -1254,8 +1327,9 @@ def check_paths(what, paths, path_totals):
     aligned widths and must take a tensor-core route (``lora_dual_mt``: tc,
     or store where no input tangent exists; the ``swa_attention`` primal,
     tangents and contraction and the LoRA contraction: tc), never simt
-    (training launches no row 6), and every row-8 launch (S=32) the chunk
-    route, never rec. Adds ``paths`` into ``path_totals``."""
+    (training launches no row 6), and every launch of rows 8, 9 and 12 (S=32:
+    the wkv6 tangents and the wkv6 and mamba2 contraction epilogues) the
+    chunk route, never rec. Adds ``paths`` into ``path_totals``."""
     for k, by in paths.items():
         for off in ("simt", "rec"):
             if by.get(off):
@@ -1757,7 +1831,8 @@ def log_serve_profile(cfg, engine, fns, P, n=3):
 
 # the tensor-core kernels: (library, a name fragment of each kernel's
 # instantiations, the SASS instruction that proves tensor-core use; DMMA:
-# the fp64 tensor cores)
+# the fp64 tensor cores). Every instantiation is counted: the mamba2 and
+# wkv6 kernels' tangent-store and contraction (JVPS) modes alike
 TENSOR_CORE_KERNELS = (("lora_dual", "lora_mt_tc_kernel", "HGMMA"),
                        ("lora_dual", "lora_jvps_tc_kernel", "HGMMA"),
                        ("swa_attention", "swa_tc_kernel", "HMMA"),
@@ -1876,7 +1951,7 @@ def main(argv=None):
                     for r in results if r["arch"] == arch}
             log(f"[train] {arch} peak device memory GiB of a round ({what}, batch "
                 f"8 x 32 tokens): " + json.dumps(peak))
-        log("[train] launches of rows 1-5 and 8 by route over the site and "
+        log("[train] launches of rows 1-5, 8, 9 and 12 by route over the site and "
             "train phases (simt and rec must be 0): " + json.dumps(path_totals))
     log(f"[phase] site and train {time.time() - tp:.1f}s")
     tp = time.time()

@@ -7,7 +7,7 @@
 // (TMA) loads, mbarriers and thread-block-cluster operations that feed them
 // (barriers, ranks and reads of another block's shared memory); and, for the
 // contraction epilogues, a programmatic dependent launch and the fixed-order
-// sum of per-block partials.
+// sums of per-block partials (fp32, and fp64 rounded once).
 #pragma once
 
 #include <cuda.h>
@@ -301,6 +301,28 @@ sum_parts_kernel(const float* __restrict__ parts, float* __restrict__ out, int n
 #pragma unroll
   for (int o = WARP / 2; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
   if (threadIdx.x == 0) out[blockIdx.x] = s;
+}
+
+// The same over fp64 partials (the scan epilogues'), summed in fp64 and
+// rounded to fp32 once into out[t].
+template <int WARP = 32>
+__global__ void __launch_bounds__(WARP)
+sum_parts_f64_kernel(const double* __restrict__ parts, float* __restrict__ out, int n) {
+  grid_wait_previous();
+  const double* p = parts + (size_t)blockIdx.x * n;
+  double s = 0.0;
+  for (int i = threadIdx.x; i < n; i += WARP) s = __dadd_rn(s, p[i]);
+#pragma unroll
+  for (int o = WARP / 2; o > 0; o >>= 1) s = __dadd_rn(s, __shfl_xor_sync(0xffffffffu, s, o));
+  if (threadIdx.x == 0) out[blockIdx.x] = __double2float_rn(s);
+}
+
+// A warp's fp64 sum by a fixed shuffle tree; the same value in every lane
+// (both partners of each exchange add the same pair)
+__device__ __forceinline__ double warp_sum_f64(double v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = __dadd_rn(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
 }
 
 }  // namespace hopper

@@ -6,10 +6,10 @@
 //   yd_s = hd_s C_s + h_s Cd_s,   jvps_t = <gy, yd_t>
 //
 // Replaces the TPU kernels repro/kernels/mamba2_scan/kernel.py::
-// mamba2_scan_kernel and mamba2_scan_mt_jvps_kernel (the multi-tangent pass
-// is in mamba2_ssd.cu, in the chunked state-space-dual form). Every operand
-// and output is fp32 (the reference's ops.py casts all of them to fp32
-// before its kernels).
+// mamba2_scan_kernel and, for S > 32, mamba2_scan_mt_jvps_kernel (the
+// multi-tangent pass, and the contraction at S <= 32, are in mamba2_ssd.cu,
+// in the chunked state-space-dual form). Every operand and output is fp32
+// (the reference's ops.py casts all of them to fp32 before its kernels).
 //
 // The primal (mamba2_primal_kernel) keeps the recurrence because the
 // estimator's card-vs-CPU parity needs it: the CPU reference rounds the
@@ -30,9 +30,11 @@
 // its operations (5 hd N flops a token and head: 0.34 GFLOP at zamba2's
 // shape, 5.0 us at 67 TFLOP/s; its 8.6 MB take 2.6 us).
 //
-// The contraction epilogue (mamba2_jvps_kernel) is the first port's: bound by
-// operations in this recurrent form, 11 hd N flops a (b, h, token, tangent)
-// of fp32 FMAs and warp reductions (8 launches on the main path).
+// The recurrent contraction epilogue (mamba2_jvps_kernel, route rec) serves
+// S > 32 until the chunked one carries its state across chunks; every
+// main-path launch (S = 32) takes mamba2_ssd.cu's. It is bound by operations
+// in this form, 11 hd N flops a (b, h, token, tangent) of fp32 FMAs and warp
+// reductions.
 //
 // Layout (the public one, no transposes): x (B, S, H, hd), bm/cm (B, S, N),
 // dec (B, S, H); tangents lead with T: xd (T, B, S, H, hd), bd/cd

@@ -1,16 +1,18 @@
 // Mamba2 state recurrence for Hopper (sm_90a): the multi-tangent pass in the
-// chunked state-space-dual (SSD) form; plain C interface.
+// chunked state-space-dual (SSD) form, and at S <= 32 its contraction
+// epilogue; plain C interface.
 //
 //   h_s = d_s h_{s-1} + x_s B_s^T,   y_s = h_s C_s          (h: hd x N a head)
-//   and per tangent t its jvp, yd_s = d(h_s C_s)
+//   and per tangent t its jvp, yd_s = d(h_s C_s), or jvps_t = <gy, yd_t>
 //
-// Replaces the TPU kernel repro/kernels/mamba2_scan/kernel.py::
-// mamba2_scan_mt_kernel (emit_primal=False); the primal and the contraction
-// epilogue are in mamba2_scan.cu, in the recurrent form. Every operand and
-// output is fp32 (the reference's ops.py casts them all). Layout (the public
-// one, no transposes): x (B, S, H, hd), bm/cm (B, S, N), dec (B, S, H);
-// tangents lead with T: xd (T, B, S, H, hd), bd/cd (T, B, S, N), dd (T, B, S,
-// H); yd (T, B, S, H, hd).
+// Replaces the TPU kernels repro/kernels/mamba2_scan/kernel.py::
+// mamba2_scan_mt_kernel (emit_primal=False) and, for S <= 32 (every
+// main-path launch), mamba2_scan_mt_jvps_kernel; the primal, and the
+// contraction at S > 32, are in mamba2_scan.cu, in the recurrent form. Every
+// operand and output is fp32 (the reference's ops.py casts them all). Layout
+// (the public one, no transposes): x (B, S, H, hd), bm/cm (B, S, N), dec (B,
+// S, H); tangents lead with T: xd (T, B, S, H, hd), bd/cd (T, B, S, N), dd
+// (T, B, S, H); yd (T, B, S, H, hd); gy (B, S, H, hd).
 //
 // The algorithm (Dao & Gu 2024, "Transformers are SSMs", section 6), per
 // batch row b, head h and chunk of Q = 32 tokens s, s' (chunk-local):
@@ -71,6 +73,21 @@
 // tangent chunk are, and nothing is summed across blocks (no atomics), so a
 // tangent's output from a T = 8 launch is bit for bit its T = 1 output. Any
 // B, S, H, hd; N <= 128; ragged edges read as zero and are not stored.
+//
+// The contraction epilogue (template JVPS, one chunk) is the same walk with
+// a contraction finish in place of the tangent store: each thread loads the
+// 16 gy values at its accumulator fragment's positions into registers once
+// a block, and per tangent rounds each accumulator to fp32 (bitwise the yd
+// the tangent pass stores), multiplies it by its gy in fp64 (exact) and sums
+// the 16 products in a fixed order, the warp by a fixed shuffle tree and the
+// warps in warp order into one fp64 partial per (tangent, block);
+// sum_parts_f64_kernel adds the partials in a fixed order and rounds once to
+// fp32. No yd leaves the block and no atomics are used: at zamba2's shape
+// the launch moves 43.7 MB instead of 73 (13.0 us at 3.35 TB/s), and the
+// block plan and every sum's order depend on B, H, hd and N alone, so a
+// tangent's jvp from a T = 8 launch is bit for bit its T = 1 jvp. (On the
+// H100, summing the thread partials on the warp with the fewest Gd units,
+// after the tangent's last barrier, read no faster.)
 #include <cuda_runtime.h>
 #include <stddef.h>
 #include <stdint.h>
@@ -112,6 +129,7 @@ struct Layout {
   int l, ld;                         // L, Ld: one a head
   int h, hdt;                        // carried states (CARRY: one head)
   int vec;                           // CARRY: Lc, Lcd by row, Ll, Lld by column
+  int red;                           // JVPS: the warps' fp64 partials
   int total;
 };
 
@@ -136,6 +154,7 @@ __host__ __device__ inline Layout layout(bool carry, int HG, int HW, int XS, int
   L.h = o;   o += carry ? HW * NS : 0;
   L.hdt = o; o += carry ? HW * NS : 0;
   L.vec = o; o += carry ? HG * 4 * Q : 0;
+  L.red = o; o += 2 * WARPS_MAX;
   L.total = o;
   return L;
 }
@@ -404,12 +423,43 @@ __device__ __forceinline__ void put_acc(float* o, const double (&acc)[4][4], int
   }
 }
 
+// JVPS: the cotangent at the positions of the warp's accumulator tile (the
+// ones put_acc writes): token 8 j + 2 t (+1), column c0 + g (+8) of head h;
+// zero outside S, H and hd
+__device__ __forceinline__ void load_gy(float (&gyr)[4][4], const float* gy, const Args& a,
+                                        int b, int h, int c0, int g, int t) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int s = 8 * j + 2 * t + (e & 1), c = c0 + g + 8 * (e >> 1);
+      const bool ok = s < a.S && h < a.H && c < a.hd;
+      gyr[j][e] = ok ? gy[(((size_t)b * a.S + s) * a.H + h) * a.hd + c] : 0.f;
+    }
+}
+
+// JVPS, the contraction finish in place of put_acc: each accumulator rounded
+// to fp32 (the value put_acc would store), times its gy in fp64 (exact), the
+// thread's 16 products summed in a fixed order
+__device__ __forceinline__ double contract(const double (&acc)[4][4], const float (&gyr)[4][4]) {
+  double p = 0.0;
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      p = __fma_rn((double)__double2float_rn(acc[j][e]), (double)gyr[j][e], p);
+  return p;
+}
+
 // ---- the kernel ------------------------------------------------------------
 
-// (CARRY: one head, at most 4 warps)
-template <bool CARRY>
+// (CARRY: one head, at most 4 warps; JVPS: one chunk, the tangents contracted
+// with gy (B, S, H, hd) into parts (T, B ngroups nhdc: one fp64 partial a
+// (tangent, block)) instead of stored)
+template <bool CARRY, bool JVPS>
 __global__ void __launch_bounds__(CARRY ? 128 : WARPS_MAX * 32)
-mamba2_ssd_kernel(const Args a) {
+mamba2_ssd_kernel(const Args a, const float* __restrict__ gy, double* __restrict__ parts) {
+  static_assert(!(CARRY && JVPS), "the contraction serves one chunk");
   extern __shared__ float4 smem4[];
   float* sm = reinterpret_cast<float*>(smem4);
   const Layout Ly = layout(CARRY, a.HG, a.HW, a.XS, a.NS);
@@ -434,7 +484,13 @@ mamba2_ssd_kernel(const Args a) {
   float* hs = sm + Ly.h + ws * 16 * a.NS;     // CARRY: the warp's rows of the states
   float* hds = sm + Ly.hdt + ws * 16 * a.NS;
   const float* vec = sm + Ly.vec;
+  double* red = reinterpret_cast<double*>(sm + Ly.red);
   double acc[4][4];
+  float gyr[4][4];
+  if constexpr (JVPS) {
+    hopper::grid_launch_dependents();   // the partials' sum may launch; it waits for this grid
+    load_gy(gyr, gy, a, b, h0 + hh, i0 + ws * 16, g, t);
+  }
 
   auto stage_primal = [&](int s0) {   // a chunk's x, B, C and decays
     stage_x(sx, a.x, a, xp, s0);
@@ -491,12 +547,27 @@ mamba2_ssd_kernel(const Args a) {
         chunk_product<true, false>(acc, sxd + col0, a.XS, mt, g, t);
         __syncthreads();
         chunk_product<false, true>(acc, sx + col0, a.XS, mt, g, t);
-        __syncwarp();   // the warp's own columns of xd are read; yd takes their place
-        put_acc(sxd + col0, acc, a.XS, g, t);
-        __syncthreads();
-        store_x(a.out + (tb + it) * xstride, sxd, a, xp, 0);
+        if constexpr (JVPS) {
+          const double p = hopper::warp_sum_f64(contract(acc, gyr));
+          if (lane == 0) red[warp] = p;
+        } else {
+          __syncwarp();   // the warp's own columns of xd are read; yd takes their place
+          put_acc(sxd + col0, acc, a.XS, g, t);
+          __syncthreads();
+          store_x(a.out + (tb + it) * xstride, sxd, a, xp, 0);
+        }
         arrived();   // tangent it + 1
         __syncthreads();
+        if constexpr (JVPS) {
+          // the block's partial: the warps in warp order (read before any
+          // warp passes the next tangent's first barrier)
+          if (threadIdx.x == 0) {
+            double p = 0.0;
+            for (int w = 0; w < W; ++w) p = __dadd_rn(p, red[w]);
+            parts[(size_t)(tb + it) * gridDim.x * gridDim.y + (size_t)b * gridDim.x +
+                  blockIdx.x] = p;
+          }
+        }
       }
     } else {
       // CARRY: each tangent through every chunk, the primal carry redone with it
@@ -551,12 +622,12 @@ int sm_count() {
 
 bool aligned16(const void* p) { return p == nullptr || ((uintptr_t)p & 15) == 0; }
 
-template <bool CARRY>
-int launch_t(const Args& a, cudaStream_t stream) {
+template <bool CARRY, bool JVPS>
+int launch_t(const Args& a, const float* gy, double* parts, cudaStream_t stream) {
   const Layout Ly = layout(CARRY, a.HG, a.HW, a.XS, a.NS);
   const size_t smem = (size_t)Ly.total * sizeof(float);
   if (smem > SMEM_LIMIT) return (int)cudaErrorInvalidValue;
-  auto kern = mamba2_ssd_kernel<CARRY>;
+  auto kern = mamba2_ssd_kernel<CARRY, JVPS>;
   static bool attr = false;
   if (!attr) {
     cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -565,9 +636,12 @@ int launch_t(const Args& a, cudaStream_t stream) {
     attr = true;
   }
   const dim3 grid(a.ngroups * a.nhdc, a.B, (a.T + a.TC - 1) / a.TC);
-  kern<<<grid, 32 * a.HG * a.WPH, smem, stream>>>(a);
+  kern<<<grid, 32 * a.HG * a.WPH, smem, stream>>>(a, gy, parts);
   return (int)cudaGetLastError();
 }
+
+// The block partials of a contraction launch: a (tangent, block) each
+long long n_parts(const Args& a) { return (long long)a.B * a.ngroups * a.nhdc; }
 
 bool bad_args(int B, int S, int H, int hd, int N, int T) {
   return B < 1 || B > 65535 || S < 1 || H < 1 || hd < 1 || N < 1 || N > N_MAX || T < 1 ||
@@ -628,5 +702,32 @@ extern "C" int mamba2_scan_mt_tangents(const void* x, const void* bm,
   if (bad_args(B, S, H, hd, N, T)) return (int)cudaErrorInvalidValue;
   const Args a = make_args(x, bm, cm, dec, xd, bd, cd, dd, yd, B, S, H, hd, N, T);
   cudaStream_t s = (cudaStream_t)stream;
-  return S > Q ? launch_t<true>(a, s) : launch_t<false>(a, s);
+  return S > Q ? launch_t<true, false>(a, nullptr, nullptr, s)
+               : launch_t<false, false>(a, nullptr, nullptr, s);
+}
+
+// The contraction epilogue at S <= 32 (one chunk): per-block fp64 partials
+// of a launch, for each tangent (the plan depends on B, H, hd and N only);
+// -1 for shapes it does not take.
+extern "C" long long mamba2_ssd_jvps_parts(int B, int S, int H, int hd, int N) {
+  if (bad_args(B, S, H, hd, N, 1) || S > Q) return -1;
+  return n_parts(make_args(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                           nullptr, nullptr, B, S, H, hd, N, 1));
+}
+
+// jvps_t = <gy, yd_t> for S <= 32: gy (B, S, H, hd); parts: fp64 scratch
+// (T, mamba2_ssd_jvps_parts(...)); jvps: fp32 (T,). Returns
+// cudaGetLastError() after its launches.
+extern "C" int mamba2_ssd_jvps(const void* x, const void* bm, const void* cm,
+                               const void* dec, const void* xd, const void* bd,
+                               const void* cd, const void* dd, const void* gy, void* parts,
+                               void* jvps, int B, int S, int H, int hd, int N, int T,
+                               void* stream) {
+  if (bad_args(B, S, H, hd, N, T) || S > Q) return (int)cudaErrorInvalidValue;
+  const Args a = make_args(x, bm, cm, dec, xd, bd, cd, dd, nullptr, B, S, H, hd, N, T);
+  cudaStream_t s = (cudaStream_t)stream;
+  const int err = launch_t<false, true>(a, (const float*)gy, (double*)parts, s);
+  if (err != 0) return err;
+  return hopper::launch_dependent(hopper::sum_parts_f64_kernel<32>, dim3(T), 32, 0, s,
+                                  (const double*)parts, (float*)jvps, (int)n_parts(a));
 }

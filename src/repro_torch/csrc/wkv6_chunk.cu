@@ -1,6 +1,7 @@
-// RWKV6 WKV recurrence for Hopper (sm_90a): the multi-tangent pass for
-// S <= 32 in the chunked form, its sums over channels and its token products
-// in fp64 on the fp64 tensor cores; plain C interface.
+// RWKV6 WKV recurrence for Hopper (sm_90a): the multi-tangent pass and its
+// contraction epilogue for S <= 32 in the chunked form, their sums over
+// channels and their token products in fp64 on the fp64 tensor cores; plain
+// C interface.
 //
 // Per head, tokens s, s' < Q = 32 and channel c (the recurrence from a fresh
 // state, S_t = diag(w_t) S_{t-1} + k_t v_t^T, y_t = r_t^T (S_{t-1} + (u * k_t) v_t^T)):
@@ -14,12 +15,13 @@
 //   Ad[s][s]   = sum_c (u (rd_s k_s + r_s kd_s) + ud r_s k_s)
 //   yd         = Ad v + A vd
 //
-// Replaces the TPU kernel repro/kernels/wkv6_scan/kernel.py::wkv6_scan_mt_kernel
-// (emit_primal=False) for S <= 32, every launch of the training path; longer
-// S take the recurrent kernel in wkv6_scan.cu. Every operand and output is
-// fp32 (the reference's ops.py casts them all). Layout (the public one, no
-// transposes): r, k, v, w (B, S, H, hd), u (H, hd); tangents lead with T:
-// rd, kd, vd, wd (T, B, S, H, hd), ud (T, H, hd) or null; yd (T, B, S, H, hd).
+// Replaces the TPU kernels repro/kernels/wkv6_scan/kernel.py::
+// wkv6_scan_mt_kernel (emit_primal=False) and wkv6_scan_mt_jvps_kernel for
+// S <= 32, every launch of the training path; longer S take the recurrent
+// kernels in wkv6_scan.cu. Every operand and output is fp32 (the reference's
+// ops.py casts them all). Layout (the public one, no transposes): r, k, v, w,
+// gy (B, S, H, hd), u (H, hd); tangents lead with T: rd, kd, vd, wd (T, B, S,
+// H, hd), ud (T, H, hd) or null; yd (T, B, S, H, hd).
 //
 // What bounds it on the H100: bytes, in this form. At rwkv6-1.6b's shape
 // (B=8, S=32, H=32, hd=64, T=8) it must move 92 MB (the T tangent inputs
@@ -60,6 +62,25 @@
 // summed across blocks (no atomics), so a tangent's output from a T = 8
 // launch is bit for bit its T = 1 output. Any B, H; S <= 32, hd <= 64;
 // ragged edges read as zero and are not stored.
+//
+// The contraction epilogue (template JVPS) is the same walk with a
+// contraction finish where the tangent pass forms y = Ad v + A vd and stores
+// it: each output warp loads the 8 gy values at its accumulators' positions
+// into registers once a block (no shared memory: the block already holds 219
+// KB and a staged gy tile would not fit), and per tangent rounds each y to
+// fp32 (bitwise the yd the tangent pass stores), multiplies it by its gy in
+// fp64 (exact), sums the products in a fixed order, the warp by a fixed
+// shuffle tree and the warps in warp order into one fp64 partial per
+// (tangent, (b, h) block); sum_parts_f64_kernel adds the partials in a
+// fixed order and rounds once to fp32. No yd leaves the block and no
+// atomics are used: at rwkv6-1.6b's shape the launch moves 77.6 MB instead
+// of 92 (23.2 us at 3.35 TB/s), and a tangent's jvp from a T = 8 launch is
+// bit for bit its T = 1 jvp. What the store cost the tangent pass is little
+// (its 16-byte stores overlap the next tangent), so the epilogue reads about
+// the tangent pass's time plus the partials' sum, a dependent launch. (On
+// the H100, summing the thread partials on one warp with slack, after the
+// tangent's last barrier or during the next tangent's cross blocks, and
+// deferring the shuffle tree into the next tangent's walk read no faster.)
 #include <cuda_runtime.h>
 #include <stddef.h>
 #include <stdint.h>
@@ -107,9 +128,10 @@ constexpr int A_OFF = (1 + STAGES) * SET;    // fp64 A, Ad (Q, MS) each
 constexpr int KH_OFF = A_OFF + 4 * Q * MS;   // fp64 K, Kd (KROWS, XS) each
 constexpr int RH_OFF = KH_OFF + 4 * KROWS * XS;  // Rj, Rdj (RH) each
 constexpr int PART_OFF = RH_OFF + 2 * RH;    // fp64 (2, NSUB, NVAL): the halves' sums
-constexpr int TOTAL = PART_OFF + 4 * NSUB * NVAL;
+constexpr int RED_OFF = PART_OFF + 4 * NSUB * NVAL;   // JVPS: fp64, a warp's partial each
+constexpr int TOTAL = RED_OFF + 2 * WARPS;
 static_assert(SET % 4 == 0 && A_OFF % 4 == 0 && KH_OFF % 4 == 0 && RH_OFF % 4 == 0 &&
-                  PART_OFF % 4 == 0,
+                  PART_OFF % 4 == 0 && RED_OFF % 4 == 0,
               "16-byte aligned tiles");
 static_assert((size_t)TOTAL * sizeof(float) <= SMEM_LIMIT, "shared memory");
 
@@ -343,9 +365,30 @@ __device__ __forceinline__ void token_product(double (&acc)[2][4], const double*
   }
 }
 
+// JVPS: the cotangent of head row (b, h) at the positions of an output
+// warp's accumulators (token 16 m + g (+8), column 8 n + 2 t (+1)); zero
+// outside S and hd
+__device__ __forceinline__ void load_gy(float (&gyr)[2][4], const float* gy, const Args& a,
+                                        int b, int h, int n, int g, int t) {
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int s = 16 * m + g + 8 * (q >> 1), c = 8 * n + 2 * t + (q & 1);
+      const bool ok = s < a.S && c < a.hd;
+      gyr[m][q] = ok ? gy[(((size_t)b * a.S + s) * a.H + h) * a.hd + c] : 0.f;
+    }
+}
+
 // ---- the kernel ------------------------------------------------------------
 
-__global__ void __launch_bounds__(THREADS, 1) wkv6_chunk_kernel(const Args a) {
+// JVPS: the tangents contracted with gy (B, S, H, hd) into parts (T, B H:
+// one fp64 partial a (tangent, (b, h) block)) instead of stored. (gy and
+// parts are parameters of their own: Args stays at the tangent pass's size,
+// whose loads the compiler keeps in registers.)
+template <bool JVPS>
+__global__ void __launch_bounds__(THREADS, 1)
+wkv6_chunk_kernel(const Args a, const float* __restrict__ gy, double* __restrict__ parts) {
   extern __shared__ float4 smem4[];
   float* sm = reinterpret_cast<float*>(smem4);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -362,7 +405,13 @@ __global__ void __launch_bounds__(THREADS, 1) wkv6_chunk_kernel(const Args a) {
   float* rh = sm + RH_OFF;
   float* rdh = rh + RH;
   double* part = reinterpret_cast<double*>(sm + PART_OFF);
+  double* red = reinterpret_cast<double*>(sm + RED_OFF);
   const int sub = warp % NSUB, half = warp / NSUB;
+  float gyr[2][4];
+  if constexpr (JVPS) {
+    hopper::grid_launch_dependents();   // the partials' sum may launch; it waits for this grid
+    load_gy(gyr, gy, a, b, h, warp, g, t);
+  }
 
   auto stage_tangent = [&](int tt, int st) {   // tangent tt's tiles into stage st
     float* G = sm + (1 + st) * SET;
@@ -413,34 +462,61 @@ __global__ void __launch_bounds__(THREADS, 1) wkv6_chunk_kernel(const Args a) {
     double acc[2][4] = {}, accd[2][4] = {};
     if (warp < nk) token_product(acc, sA, G + V_OFF, warp, g, t);
     __syncthreads();
-    if (warp < nk) {
-      token_product(accd, sAd, P + V_OFF, warp, g, t);
-      float* o = G + R_OFF;   // rd is read: yd takes its place
+    if constexpr (JVPS) {
+      // the contraction finish in place of the store: y rounded to fp32
+      // (bitwise the yd the tangent pass stores), times gy in fp64 (exact),
+      // the thread's 8 products in a fixed order
+      double p = 0.0;
+      if (warp < nk) {
+        token_product(accd, sAd, P + V_OFF, warp, g, t);
 #pragma unroll
-      for (int m = 0; m < 2; ++m) {
-        const int s = 16 * m + g, i = 8 * warp + 2 * t;
-        double y[4];
+        for (int m = 0; m < 2; ++m)
 #pragma unroll
-        for (int q = 0; q < 4; ++q) y[q] = __dadd_rn(accd[m][q], acc[m][q]);
-        st2(o + s * XS + i, __double2float_rn(y[0]), __double2float_rn(y[1]));
-        st2(o + (s + 8) * XS + i, __double2float_rn(y[2]), __double2float_rn(y[3]));
+          for (int q = 0; q < 4; ++q)
+            p = __fma_rn((double)__double2float_rn(__dadd_rn(accd[m][q], acc[m][q])),
+                         (double)gyr[m][q], p);
       }
-    }
-    __syncthreads();
-    float* out = a.out + (size_t)(tb + it) * tstride + ((size_t)b * a.S * a.H + h) * a.hd;
-    const size_t ts = (size_t)a.H * a.hd;
-    for (int e = threadIdx.x; e < Q * HD / 4; e += THREADS) {
-      const int s = e / (HD / 4), c = (e % (HD / 4)) * 4;
-      if (s >= a.S || c >= a.hd) continue;
-      const float* src = G + R_OFF + s * XS + c;
-      if (a.vec) {
-        *reinterpret_cast<float4*>(out + s * ts + c) = *reinterpret_cast<const float4*>(src);
-      } else {
-        for (int q = 0; q < 4 && c + q < a.hd; ++q) out[s * ts + c + q] = src[q];
+      p = hopper::warp_sum_f64(p);
+      if (lane == 0) red[warp] = p;
+    } else {
+      if (warp < nk) {
+        token_product(accd, sAd, P + V_OFF, warp, g, t);
+        float* o = G + R_OFF;   // rd is read: yd takes its place
+#pragma unroll
+        for (int m = 0; m < 2; ++m) {
+          const int s = 16 * m + g, i = 8 * warp + 2 * t;
+          double y[4];
+#pragma unroll
+          for (int q = 0; q < 4; ++q) y[q] = __dadd_rn(accd[m][q], acc[m][q]);
+          st2(o + s * XS + i, __double2float_rn(y[0]), __double2float_rn(y[1]));
+          st2(o + (s + 8) * XS + i, __double2float_rn(y[2]), __double2float_rn(y[3]));
+        }
+      }
+      __syncthreads();
+      float* out = a.out + (size_t)(tb + it) * tstride + ((size_t)b * a.S * a.H + h) * a.hd;
+      const size_t ts = (size_t)a.H * a.hd;
+      for (int e = threadIdx.x; e < Q * HD / 4; e += THREADS) {
+        const int s = e / (HD / 4), c = (e % (HD / 4)) * 4;
+        if (s >= a.S || c >= a.hd) continue;
+        const float* src = G + R_OFF + s * XS + c;
+        if (a.vec) {
+          *reinterpret_cast<float4*>(out + s * ts + c) = *reinterpret_cast<const float4*>(src);
+        } else {
+          for (int q = 0; q < 4 && c + q < a.hd; ++q) out[s * ts + c + q] = src[q];
+        }
       }
     }
     hopper::cp_async_wait<1>();   // tangent it + 1 (it + 2 may still be in flight)
     __syncthreads();
+    if constexpr (JVPS) {
+      // the block's partial: the warps in warp order (read before any warp
+      // passes the next tangent's first barrier)
+      if (threadIdx.x == 0) {
+        double p = 0.0;
+        for (int w = 0; w < WARPS; ++w) p = __dadd_rn(p, red[w]);
+        parts[(size_t)(tb + it) * gridDim.x + blockIdx.x] = p;
+      }
+    }
   }
 }
 
@@ -459,6 +535,46 @@ int sm_count() {
 
 bool aligned16(const void* p) { return p == nullptr || ((uintptr_t)p & 15) == 0; }
 
+bool bad_args(int B, int S, int H, int hd, int T) {
+  return B < 1 || S < 1 || S > Q || H < 1 || hd < 1 || hd > HD || T < 1 || T > 65535 ||
+         (long long)B * H > 2147483647LL;
+}
+
+Args make_args(const void* r, const void* k, const void* v, const void* w, const void* u,
+               const void* rd, const void* kd, const void* vd, const void* wd,
+               const void* ud, void* out, int B, int S, int H, int hd, int T) {
+  Args a;
+  a.r = (const float*)r; a.k = (const float*)k; a.v = (const float*)v;
+  a.w = (const float*)w; a.u = (const float*)u; a.rd = (const float*)rd;
+  a.kd = (const float*)kd; a.vd = (const float*)vd; a.wd = (const float*)wd;
+  a.ud = (const float*)ud; a.out = (float*)out;
+  a.B = B; a.S = S; a.H = H; a.hd = hd; a.T = T;
+  a.vec = hd % 4 == 0 && aligned16(r) && aligned16(k) && aligned16(v) && aligned16(w) &&
+          aligned16(u) && aligned16(rd) && aligned16(kd) && aligned16(vd) &&
+          aligned16(wd) && aligned16(ud) && aligned16(out);
+  // tangents a block: split over grid.z only until the blocks cover the SMs
+  const long long heads = (long long)B * H;
+  long long nz = sm_count() / heads;
+  nz = nz < 1 ? 1 : nz > T ? T : nz;
+  a.TC = (int)((T + nz - 1) / nz);
+  return a;
+}
+
+template <bool JVPS>
+int launch_t(const Args& a, const float* gy, double* parts, cudaStream_t stream) {
+  const size_t smem = (size_t)TOTAL * sizeof(float);
+  static bool attr = false;
+  if (!attr) {
+    cudaError_t e = cudaFuncSetAttribute(wkv6_chunk_kernel<JVPS>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    attr = true;
+  }
+  const dim3 grid((unsigned)((long long)a.B * a.H), 1, (unsigned)((a.T + a.TC - 1) / a.TC));
+  wkv6_chunk_kernel<JVPS><<<grid, THREADS, smem, stream>>>(a, gy, parts);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Returns cudaGetLastError() after its launch; ud may be null (u carries no
@@ -468,32 +584,30 @@ extern "C" int wkv6_chunk_tangents(const void* r, const void* k, const void* v,
                                    const void* kd, const void* vd, const void* wd,
                                    const void* ud, void* yd, int B, int S, int H,
                                    int hd, int T, void* stream) {
-  if (B < 1 || S < 1 || S > Q || H < 1 || hd < 1 || hd > HD || T < 1 || T > 65535 ||
-      (long long)B * H > 2147483647LL)
-    return (int)cudaErrorInvalidValue;
-  Args a;
-  a.r = (const float*)r; a.k = (const float*)k; a.v = (const float*)v;
-  a.w = (const float*)w; a.u = (const float*)u; a.rd = (const float*)rd;
-  a.kd = (const float*)kd; a.vd = (const float*)vd; a.wd = (const float*)wd;
-  a.ud = (const float*)ud; a.out = (float*)yd;
-  a.B = B; a.S = S; a.H = H; a.hd = hd; a.T = T;
-  a.vec = hd % 4 == 0 && aligned16(r) && aligned16(k) && aligned16(v) && aligned16(w) &&
-          aligned16(u) && aligned16(rd) && aligned16(kd) && aligned16(vd) &&
-          aligned16(wd) && aligned16(ud) && aligned16(yd);
-  // tangents a block: split over grid.z only until the blocks cover the SMs
-  const long long heads = (long long)B * H;
-  long long nz = sm_count() / heads;
-  nz = nz < 1 ? 1 : nz > T ? T : nz;
-  a.TC = (int)((T + nz - 1) / nz);
-  const size_t smem = (size_t)TOTAL * sizeof(float);
-  static bool attr = false;
-  if (!attr) {
-    cudaError_t e = cudaFuncSetAttribute(wkv6_chunk_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-    attr = true;
-  }
-  const dim3 grid((unsigned)heads, 1, (unsigned)((T + a.TC - 1) / a.TC));
-  wkv6_chunk_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(a);
-  return (int)cudaGetLastError();
+  if (bad_args(B, S, H, hd, T)) return (int)cudaErrorInvalidValue;
+  return launch_t<false>(make_args(r, k, v, w, u, rd, kd, vd, wd, ud, yd, B, S, H, hd, T),
+                         nullptr, nullptr, (cudaStream_t)stream);
+}
+
+// The contraction epilogue's fp64 partials of a launch, for each tangent: one
+// a (b, h) block; -1 for shapes it does not take.
+extern "C" long long wkv6_chunk_jvps_parts(int B, int S, int H, int hd) {
+  return bad_args(B, S, H, hd, 1) ? -1 : (long long)B * H;
+}
+
+// jvps_t = <gy, yd_t>: gy (B, S, H, hd); parts: fp64 scratch (T,
+// wkv6_chunk_jvps_parts(...)); jvps: fp32 (T,); ud may be null. Returns
+// cudaGetLastError() after its launches.
+extern "C" int wkv6_chunk_jvps(const void* r, const void* k, const void* v, const void* w,
+                               const void* u, const void* rd, const void* kd,
+                               const void* vd, const void* wd, const void* ud,
+                               const void* gy, void* parts, void* jvps, int B, int S,
+                               int H, int hd, int T, void* stream) {
+  if (bad_args(B, S, H, hd, T)) return (int)cudaErrorInvalidValue;
+  const Args a = make_args(r, k, v, w, u, rd, kd, vd, wd, ud, nullptr, B, S, H, hd, T);
+  cudaStream_t s = (cudaStream_t)stream;
+  const int err = launch_t<true>(a, (const float*)gy, (double*)parts, s);
+  if (err != 0) return err;
+  return hopper::launch_dependent(hopper::sum_parts_f64_kernel<32>, dim3(T), 32, 0, s,
+                                  (const double*)parts, (float*)jvps, B * H);
 }

@@ -22,8 +22,8 @@ Each kernel module keeps a plain PyTorch version beside its wrapper (CPU
 tensors take it) and a launch counter that only a kernel launch moves; the
 wrappers with more than one kernel route (``lora_dual_mt`` and its
 contraction epilogue, ``lora_dual_multi``, the ``swa_attention`` primal,
-tangents and contraction epilogue, and ``wkv6_scan_mt_tangents``) also
-count their calls by route.
+tangents and contraction epilogue, ``wkv6_scan_mt_tangents``, and the
+mamba2 and wkv6 contraction epilogues) also count their calls by route.
 """
 from repro_torch.kernels.lora_dual import ops as _lora_ops
 from repro_torch.kernels.mamba2_scan import ops as _mamba2_ops
@@ -33,7 +33,7 @@ from repro_torch.kernels.wkv6_scan import ops as _wkv6_ops
 _COUNTERS = (_lora_ops.launches, _swa_ops.launches, _mamba2_ops.launches,
              _wkv6_ops.launches)
 _PATH_COUNTERS = (_lora_ops.launches_by_path, _swa_ops.launches_by_path,
-                  _wkv6_ops.launches_by_path)
+                  _mamba2_ops.launches_by_path, _wkv6_ops.launches_by_path)
 
 
 def launch_counts() -> dict:

@@ -10,11 +10,12 @@ carries hd_s = dd_s h_{s-1} + d_s hd_{s-1} + xdtd_s B_s^T + xdt_s Bd_s^T
 and emits yd_s = hd_s C_s + h_s Cd_s.
 
 Replaces three TPU kernels of ``repro/kernels/mamba2_scan/kernel.py``:
-``mamba2_scan_kernel`` (every mamba2 layer's primal inside the estimator)
-and ``mamba2_scan_mt_jvps_kernel`` (the hybrid family's final site on the
-fused route), both in ``csrc/mamba2_scan.cu``, and ``mamba2_scan_mt_kernel``
-in its ``emit_primal=False`` route (all K tangents of every mamba2 layer) in
-``csrc/mamba2_ssd.cu``. Layouts are the reference's public ones: xdt
+``mamba2_scan_kernel`` (every mamba2 layer's primal inside the estimator,
+``csrc/mamba2_scan.cu``), ``mamba2_scan_mt_kernel`` in its
+``emit_primal=False`` route (all K tangents of every mamba2 layer,
+``csrc/mamba2_ssd.cu``) and ``mamba2_scan_mt_jvps_kernel`` (the hybrid
+family's final site on the fused route: ``csrc/mamba2_ssd.cu`` at S <= 32,
+``csrc/mamba2_scan.cu`` above). Layouts are the reference's public ones: xdt
 (B,S,H,hd), B/C (B,S,N), decay (B,S,H), and tangents with a leading T.
 Every operand is fp32 (the reference's ``ops._layout`` casts them all), so
 the kernels take and give fp32 only.
@@ -39,12 +40,19 @@ The primal keeps the recurrence, one thread a state row with its N columns
 in registers, in the reference's order of fp32 operations: the estimator's
 card-vs-CPU parity follows the primal's rounding, and the reference rounds
 the state at every token (a primal exact in fp64 misses the zamba2 limit:
-``scripts/parity_plain_on_card.py``, PERF.md). The contraction epilogue keeps
-the recurrent kernel of the first port: one warp a state row, a
-fixed-order partial per (tangent, block) and a second small kernel that
-sums them, no atomics. In every kernel a tangent runs the same instruction
-sequence for any T, so a T=8 launch equals eight T=1 launches bit for bit.
-N <= 128.
+``scripts/parity_plain_on_card.py``, PERF.md). The contraction epilogue
+takes a route by sequence length (``mamba2_jvps_path``): at S <= 32, every
+main-path launch, the tangent pass's chunked kernel with a contraction
+finish in place of the yd store (route ``chunk``): each accumulator rounded
+to fp32, so the tangents contracted are bitwise the ones the tangent pass
+stores, times gy in fp64, summed in a fixed order into one fp64 partial
+per (tangent, block), which a one-warp kernel sums in a fixed order and
+rounds once to fp32 (``mamba2_scan_mt_jvps_chunked_ref`` is its plain
+version). Longer S keep the recurrent kernel of the first port (route
+``rec``: one warp a state row, fp32 partials); carrying the chunk state
+through the contraction is not written yet. No route uses atomics, and in
+every kernel a tangent runs the same instruction sequence for any T, so a
+T=8 launch equals eight T=1 launches bit for bit. N <= 128.
 
 CPU tensors take the plain versions below; CUDA tensors launch a kernel
 or raise.
@@ -58,7 +66,16 @@ import torch
 from repro_torch.kernels import build
 
 N_MAX = 128
+CHUNK = 32          # tokens of the chunked contraction route; longer S: recurrent
 launches = {"mamba2_scan": 0, "mamba2_scan_mt": 0, "mamba2_scan_mt_jvps": 0}
+launches_by_path = {"mamba2_scan_mt_jvps": {"chunk": 0, "rec": 0}}
+
+
+def mamba2_jvps_path(S):
+    """Route of a ``mamba2_scan_mt_jvps`` launch: 'chunk' (the chunked
+    tangent kernel with a contraction finish, one chunk) for S <= CHUNK,
+    else 'rec' (the recurrent kernel)."""
+    return "chunk" if S <= CHUNK else "rec"
 
 
 def mamba2_scan_ref(xdt, bmat, cmat, decay, state=None):
@@ -160,10 +177,20 @@ def mamba2_scan_mt_jvps_ref(xdt, bmat, cmat, decay, xdtds, bds, cds, decayds,
     return torch.einsum("bshd,tbshd->t", gy.float(), yds.float())
 
 
+def mamba2_scan_mt_jvps_chunked_ref(xdt, bmat, cmat, decay, xdtds, bds, cds,
+                                    decayds, gy):
+    """Plain version of the chunk route's contraction, for the tests: the
+    chunked form's tangents (``mamba2_chunked_ref``) in fp32, contracted
+    with gy in fp64 and rounded once to fp32 -> (T,)."""
+    yds = mamba2_chunked_ref(xdt, bmat, cmat, decay, xdtds, bds, cds, decayds)[1]
+    return torch.einsum("bshd,tbshd->t", gy.double(), yds.float().double()).float()
+
+
 # (library, pointers, ints), then the stream
 _ARGS = {"mamba2_scan_fwd": ("mamba2_scan", 5, 5),
          "mamba2_scan_mt_tangents": ("mamba2_ssd", 9, 6),
-         "mamba2_scan_mt_jvps": ("mamba2_scan", 11, 6)}
+         "mamba2_scan_mt_jvps": ("mamba2_scan", 11, 6),
+         "mamba2_ssd_jvps": ("mamba2_ssd", 11, 6)}
 
 
 def _fn(symbol):
@@ -262,19 +289,29 @@ def mamba2_scan_mt_tangents(xdt, bmat, cmat, decay, xdtds, bds, cds, decayds):
     return out
 
 
-def _parts(B, H, hd):
-    """Per-block partials a contraction launch writes for each tangent."""
-    fn = build.load("mamba2_scan").mamba2_scan_mt_jvps_parts
+def _parts(path, B, S, H, hd, N):
+    """(per-block partials a contraction launch of route ``path`` writes
+    for each tangent, their dtype), from the route's own library."""
+    if path == "chunk":
+        lib, symbol, dtype, dims = ("mamba2_ssd", "mamba2_ssd_jvps_parts",
+                                    torch.float64, (B, S, H, hd, N))
+    else:
+        lib, symbol, dtype, dims = ("mamba2_scan", "mamba2_scan_mt_jvps_parts",
+                                    torch.float32, (B, H, hd))
+    fn = getattr(build.load(lib), symbol)
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_int] * 3
+        fn.argtypes = [ctypes.c_int] * len(dims)
         fn.restype = ctypes.c_longlong
-    return fn(B, H, hd)
+    n = fn(*dims)
+    if n < 1:
+        raise ValueError(f"mamba2_scan_mt_jvps: route {path} does not take {dims}")
+    return n, dtype
 
 
 def mamba2_scan_mt_jvps(xdt, bmat, cmat, decay, xdtds, bds, cds, decayds, gy):
     """jvps (T,) fp32 = <gy, ydot_t>: operands as ``mamba2_scan_mt_tangents``
     plus the output cotangent gy (B,S,H,hd); no (T,B,S,H,hd) output is
-    formed."""
+    formed. The route is ``mamba2_jvps_path(S)``."""
     if xdt.device.type == "cpu":
         return mamba2_scan_mt_jvps_ref(xdt, bmat, cmat, decay, xdtds, bds, cds,
                                        decayds, gy)
@@ -286,16 +323,20 @@ def mamba2_scan_mt_jvps(xdt, bmat, cmat, decay, xdtds, bds, cds, decayds, gy):
     if gy.shape != xdt.shape:
         raise ValueError(f"mamba2_scan_mt_jvps: gy{tuple(gy.shape)} is not "
                          f"xdt{tuple(xdt.shape)}")
+    path = mamba2_jvps_path(S)
     if xdt.numel() == 0:
         return torch.zeros(T, dtype=torch.float32, device=xdt.device)
-    parts = torch.empty((T, _parts(B, H, hd)), dtype=torch.float32,
-                        device=xdt.device)
+    n, dtype = _parts(path, B, S, H, hd, N)
+    parts = torch.empty((T, n), dtype=dtype, device=xdt.device)
     jvps = torch.empty(T, dtype=torch.float32, device=xdt.device)
-    err = _fn("mamba2_scan_mt_jvps")(
-        xdt.data_ptr(), bmat.data_ptr(), cmat.data_ptr(), decay.data_ptr(),
-        xdtds.data_ptr(), bds.data_ptr(), cds.data_ptr(), decayds.data_ptr(),
-        gy.data_ptr(), parts.data_ptr(), jvps.data_ptr(), B, S, H, hd, N, T,
-        _stream(xdt))
+    ptrs = (xdt.data_ptr(), bmat.data_ptr(), cmat.data_ptr(), decay.data_ptr(),
+            xdtds.data_ptr(), bds.data_ptr(), cds.data_ptr(), decayds.data_ptr(),
+            gy.data_ptr(), parts.data_ptr(), jvps.data_ptr())
+    if path == "chunk":
+        err = _fn("mamba2_ssd_jvps")(*ptrs, B, S, H, hd, N, T, _stream(xdt))
+    else:
+        err = _fn("mamba2_scan_mt_jvps")(*ptrs, B, S, H, hd, N, T, _stream(xdt))
     build.check(err, "mamba2_scan_mt_jvps")
     launches["mamba2_scan_mt_jvps"] += 1
+    launches_by_path["mamba2_scan_mt_jvps"][path] += 1
     return jvps

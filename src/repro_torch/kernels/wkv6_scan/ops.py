@@ -50,17 +50,23 @@ hd=64. The port computes each function in the form that bounds it least:
   in fp64, the products on the fp64 tensor cores (``mma.sync`` f64). S >
   32 keeps the recurrent kernel of the first port (``launches_by_path``
   counts both routes, by ``wkv6_mt_path``).
-- The contraction epilogue keeps the recurrent kernel of the first port:
-  G = 8 lanes own a value column, each lane hd/8 of its rows, so a
-  column's primal state and its TC tangent states stay in registers; a
-  block takes 32 columns of one (b, h) row and stages each 8-token chunk
-  in shared memory; tangents go in chunks of TC <= 8 over grid.z. Each
-  lane's partial is multiplied by gy as it goes and the block summed in a
-  fixed order into one fp32 partial per (tangent, block), which a second
-  small kernel sums in a fixed order: no atomics.
+- The contraction epilogue takes the same routes (``wkv6_jvps_path``). At
+  S <= 32, every main-path launch, it is the chunked tangent kernel with a
+  contraction finish in place of the yd store (``csrc/wkv6_chunk.cu``,
+  route ``chunk``): each y rounded to fp32, so the tangents contracted are
+  bitwise the ones the tangent pass stores, times gy in fp64, summed in a
+  fixed order into one fp64 partial per (tangent, (b, h) block), which a
+  one-warp kernel sums in a fixed order and rounds once to fp32
+  (``wkv6_scan_mt_jvps_chunked_ref`` is its plain version). S > 32 keeps
+  the recurrent kernel of the first port (route ``rec``): G = 8 lanes own
+  a value column, each lane hd/8 of its rows, so a column's primal state
+  and its TC tangent states stay in registers; each lane's partial is
+  multiplied by gy as it goes and the block summed in a fixed order into
+  one fp32 partial per (tangent, block). Neither uses atomics; the chunk
+  carry for S > 32 is not written yet.
 
 Every tangent runs the same instruction sequence for any T, so a T=8
-launch equals eight T=1 launches bit for bit, on either route. hd <= 64.
+launch equals eight T=1 launches bit for bit, on every route. hd <= 64.
 
 CPU tensors take the plain versions below; CUDA tensors launch a kernel
 or raise.
@@ -76,7 +82,8 @@ from repro_torch.kernels import build
 HD_MAX = 64
 CHUNK = 32          # tokens of the chunked tangent route; longer S: recurrent
 launches = {"wkv6_scan": 0, "wkv6_scan_mt": 0, "wkv6_scan_mt_jvps": 0}
-launches_by_path = {"wkv6_scan_mt": {"chunk": 0, "rec": 0}}
+launches_by_path = {"wkv6_scan_mt": {"chunk": 0, "rec": 0},
+                    "wkv6_scan_mt_jvps": {"chunk": 0, "rec": 0}}
 
 
 def wkv6_mt_path(S):
@@ -84,6 +91,11 @@ def wkv6_mt_path(S):
     form on the fp64 tensor cores, one chunk) for S <= CHUNK, else 'rec'
     (the recurrent kernel)."""
     return "chunk" if S <= CHUNK else "rec"
+
+
+# Route of a ``wkv6_scan_mt_jvps`` launch: the chunked tangent kernel with a
+# contraction finish for S <= CHUNK, else the recurrent kernel
+wkv6_jvps_path = wkv6_mt_path
 
 
 def wkv6_scan_ref(r, k, v, w, u, state=None):
@@ -203,6 +215,15 @@ def wkv6_scan_mt_jvps_ref(r, k, v, w, u, rds, kds, vds, wds, gy, uds=None):
     return torch.einsum("bshd,tbshd->t", gy.float(), yds.float())
 
 
+def wkv6_scan_mt_jvps_chunked_ref(r, k, v, w, u, rds, kds, vds, wds, gy,
+                                  uds=None):
+    """Plain version of the chunk route's contraction, for the tests: the
+    chunked form's tangents (``wkv6_chunked_ref``) in fp32, contracted with
+    gy in fp64 and rounded once to fp32 -> (T,)."""
+    yds = wkv6_chunked_ref(r, k, v, w, u, rds, kds, vds, wds, uds)[1]
+    return torch.einsum("bshd,tbshd->t", gy.double(), yds.float().double()).float()
+
+
 def _f32(*ts):
     """The reference's layout casts: every operand fp32 and contiguous."""
     return tuple(None if t is None else t.float().contiguous() for t in ts)
@@ -212,7 +233,8 @@ def _f32(*ts):
 _ARGS = {"wkv6_scan_fwd": ("wkv6_scan", 6, 4),
          "wkv6_scan_mt_tangents": ("wkv6_scan", 11, 5),
          "wkv6_chunk_tangents": ("wkv6_chunk", 11, 5),
-         "wkv6_scan_mt_jvps": ("wkv6_scan", 13, 5)}
+         "wkv6_scan_mt_jvps": ("wkv6_scan", 13, 5),
+         "wkv6_chunk_jvps": ("wkv6_chunk", 13, 5)}
 
 
 def _fn(symbol):
@@ -317,19 +339,29 @@ def wkv6_scan_mt_tangents(r, k, v, w, u, rds, kds, vds, wds, uds=None):
     return out
 
 
-def _parts(B, H, hd):
-    """Per-block partials a contraction launch writes for each tangent."""
-    fn = build.load("wkv6_scan").wkv6_scan_mt_jvps_parts
+def _parts(path, B, S, H, hd):
+    """(per-block partials a contraction launch of route ``path`` writes
+    for each tangent, their dtype), from the route's own library."""
+    if path == "chunk":
+        lib, symbol, dtype, dims = ("wkv6_chunk", "wkv6_chunk_jvps_parts",
+                                    torch.float64, (B, S, H, hd))
+    else:
+        lib, symbol, dtype, dims = ("wkv6_scan", "wkv6_scan_mt_jvps_parts",
+                                    torch.float32, (B, H, hd))
+    fn = getattr(build.load(lib), symbol)
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_int] * 3
+        fn.argtypes = [ctypes.c_int] * len(dims)
         fn.restype = ctypes.c_longlong
-    return fn(B, H, hd)
+    n = fn(*dims)
+    if n < 1:
+        raise ValueError(f"wkv6_scan_mt_jvps: route {path} does not take {dims}")
+    return n, dtype
 
 
 def wkv6_scan_mt_jvps(r, k, v, w, u, rds, kds, vds, wds, gy, uds=None):
     """jvps (T,) fp32 = <gy, ydot_t>: operands as ``wkv6_scan_mt_tangents``
     plus the output cotangent gy (B,S,H,hd); no (T,B,S,H,hd) output is
-    formed."""
+    formed. The route is ``wkv6_jvps_path(S)``."""
     r, k, v, w, u, rds, kds, vds, wds, gy, uds = _f32(r, k, v, w, u, rds, kds,
                                                       vds, wds, gy, uds)
     if r.device.type == "cpu":
@@ -341,16 +373,20 @@ def wkv6_scan_mt_jvps(r, k, v, w, u, rds, kds, vds, wds, gy, uds=None):
     if gy.shape != r.shape:
         raise ValueError(f"wkv6_scan_mt_jvps: gy{tuple(gy.shape)} is not "
                          f"r{tuple(r.shape)}")
+    path = wkv6_jvps_path(S)
     if r.numel() == 0:
         return torch.zeros(T, dtype=torch.float32, device=r.device)
-    parts = torch.empty((T, _parts(B, H, hd)), dtype=torch.float32,
-                        device=r.device)
+    n, dtype = _parts(path, B, S, H, hd)
+    parts = torch.empty((T, n), dtype=dtype, device=r.device)
     jvps = torch.empty(T, dtype=torch.float32, device=r.device)
-    err = _fn("wkv6_scan_mt_jvps")(
-        r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
-        rds.data_ptr(), kds.data_ptr(), vds.data_ptr(), wds.data_ptr(),
-        _ptr(uds), gy.data_ptr(), parts.data_ptr(), jvps.data_ptr(),
-        B, S, H, hd, T, _stream(r))
+    ptrs = (r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
+            rds.data_ptr(), kds.data_ptr(), vds.data_ptr(), wds.data_ptr(),
+            _ptr(uds), gy.data_ptr(), parts.data_ptr(), jvps.data_ptr())
+    if path == "chunk":
+        err = _fn("wkv6_chunk_jvps")(*ptrs, B, S, H, hd, T, _stream(r))
+    else:
+        err = _fn("wkv6_scan_mt_jvps")(*ptrs, B, S, H, hd, T, _stream(r))
     build.check(err, "wkv6_scan_mt_jvps")
     launches["wkv6_scan_mt_jvps"] += 1
+    launches_by_path["wkv6_scan_mt_jvps"][path] += 1
     return jvps

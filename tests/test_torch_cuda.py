@@ -3,8 +3,10 @@
 Each kernel is held against its plain PyTorch version on the card (the
 mamba2 and wkv6 kernels and the bf16 LoRA and attention contraction
 epilogues also lane by lane: a T=8 launch is eight T=1 launches bit for
-bit), one reduced estimate per estimator route and family shows
-one multi-tangent launch per site (standard) or one contraction epilogue
+bit; the mamba2 and wkv6 contraction epilogues' chunk route also against
+the fp64 contraction of the tangent pass's output), one reduced estimate
+per estimator route and family shows one multi-tangent launch per site
+(standard) or one contraction epilogue
 at the final site (fused) for all K tangents, and a reduced serving engine
 makes ``chip_smoke.serve_launches`` multi-adapter launches and the ids of
 the same engine on the CPU. This file imports no JAX (the machine with the card has none);
@@ -267,6 +269,20 @@ def _jvps_close(got, want, mag):
     assert bool((err <= 1e-6 * mag).all()), (err, mag)
 
 
+def _fp64_contraction_close(jv, gy, yd):
+    """The scan epilogues' chunk route sums exact fp64 products of the fp32
+    tangents ``yd`` and gy, and rounds once to fp32: jv within 1e-12 x
+    sum|terms| of ``einsum(gy.double(), yd.double())`` plus half an fp32
+    ulp of jv."""
+    y64, g64 = yd.double(), gy.double()
+    want = torch.einsum("bshd,tbshd->t", g64, y64)
+    mag = (g64[None] * y64).abs().sum(dim=(1, 2, 3, 4))
+    a = jv.abs()
+    half_ulp = (torch.nextafter(a, torch.full_like(a, float("inf"))) - a).double() / 2
+    err = (jv.double() - want).abs()
+    assert bool((err <= 1e-12 * mag + half_ulp).all()), (err, mag, half_ulp)
+
+
 def _lora_jvps_inputs(M, K, N, r, T, has_xd, dtype, dev, seed):
     g = torch.Generator(device=dev)
     g.manual_seed(seed)
@@ -433,12 +449,17 @@ def _m2_inputs(B, S, H, hd, N, T, dev, seed):
     (2, 33, 4, 64, 64, 4),           # one token past it
 ])
 def test_mamba2_kernels_match_plain(dev, B, S, H, hd, N, T):
+    """Each kernel against its plain version, the contraction on the route
+    ``mamba2_jvps_path`` gives (chunk for S <= 32)."""
     from repro_torch.kernels.mamba2_scan import ops
     prim, tang, gy = _m2_inputs(B, S, H, hd, N, T, dev, 4)
     before = dict(ops.launches)
     y = ops.mamba2_scan(*prim)
     yd = ops.mamba2_scan_mt_tangents(*prim, *tang)
-    jv = ops.mamba2_scan_mt_jvps(*prim, *tang, gy)
+    route = ops.mamba2_jvps_path(S)
+    assert route == ("chunk" if S <= 32 else "rec")
+    jv = _one_launch_by(ops.launches_by_path["mamba2_scan_mt_jvps"], route,
+                        lambda: ops.mamba2_scan_mt_jvps(*prim, *tang, gy))
     torch.cuda.synchronize()
     assert {k: n - before[k] for k, n in ops.launches.items()} == \
         {"mamba2_scan": 1, "mamba2_scan_mt": 1, "mamba2_scan_mt_jvps": 1}
@@ -447,20 +468,43 @@ def test_mamba2_kernels_match_plain(dev, B, S, H, hd, N, T):
     _close(yd, yd_ref, torch.float32)
     mag = (gy[None] * yd_ref).abs().sum(dim=(1, 2, 3, 4))
     _jvps_close(jv, torch.einsum("bshd,tbshd->t", gy, yd_ref), mag)
+    if route == "chunk":
+        _jvps_close(jv, ops.mamba2_scan_mt_jvps_chunked_ref(*prim, *tang, gy), mag)
 
 
-def test_mamba2_lanes_bitwise_and_jvps_repeat(dev):
+@pytest.mark.parametrize("S", [32, 37], ids=["chunk", "rec"])
+def test_mamba2_lanes_bitwise_and_jvps_repeat(dev, S):
     """Each tangent of a T=8 launch equals its own T=1 launch bit for bit
-    (tangents and contraction), and two contraction launches on the same
-    inputs give the same jvps (no atomics)."""
+    (tangents and contraction, on both contraction routes), and two
+    contraction launches on the same inputs give the same jvps (no
+    atomics)."""
     from repro_torch.kernels.mamba2_scan import ops
-    prim, tang, gy = _m2_inputs(3, 37, 5, 24, 20, 8, dev, 5)
+    prim, tang, gy = _m2_inputs(3, S, 5, 24, 20, 8, dev, 5)
     yd = ops.mamba2_scan_mt_tangents(*prim, *tang)
     jv = ops.mamba2_scan_mt_jvps(*prim, *tang, gy)
     for t in range(8):
         one = tuple(x[t:t + 1].contiguous() for x in tang)
         assert torch.equal(ops.mamba2_scan_mt_tangents(*prim, *one)[0], yd[t])
         assert torch.equal(ops.mamba2_scan_mt_jvps(*prim, *one, gy)[0], jv[t])
+    assert torch.equal(ops.mamba2_scan_mt_jvps(*prim, *tang, gy), jv)
+
+
+@pytest.mark.parametrize("B,S,H,hd,N,T", [
+    (8, 32, 64, 64, 64, 8),          # zamba2 shapes
+    (2, 19, 3, 40, 100, 64),         # ragged, N > 64, 64 tangents
+    (3, 29, 5, 24, 20, 3),
+])
+def test_mamba2_jvps_chunk_route_is_the_fp64_contraction_of_the_tangents(
+        dev, B, S, H, hd, N, T):
+    """On the chunk route the contraction is row 11's stored tangents
+    contracted with gy in fp64 (``_fp64_contraction_close``), and a repeat
+    launch gives the same jvps."""
+    from repro_torch.kernels.mamba2_scan import ops
+    prim, tang, gy = _m2_inputs(B, S, H, hd, N, T, dev, 10)
+    assert ops.mamba2_jvps_path(S) == "chunk"
+    yd = ops.mamba2_scan_mt_tangents(*prim, *tang)
+    jv = ops.mamba2_scan_mt_jvps(*prim, *tang, gy)
+    _fp64_contraction_close(jv, gy, yd)
     assert torch.equal(ops.mamba2_scan_mt_jvps(*prim, *tang, gy), jv)
 
 
@@ -527,9 +571,10 @@ def _wkv6_inputs(B, S, H, hd, T, has_ud, dev, seed):
     (2, 70, 3, 24, 2),               # the primal's ring of chunks, hd % 4 == 0
 ])
 def test_wkv6_kernels_match_plain(dev, B, S, H, hd, T, has_ud):
-    """Each kernel against its plain version, the tangents on the route
-    ``wkv6_mt_path`` gives (chunk for S <= 32) and, on the chunk route, also
-    against the plain chunked form (``wkv6_chunked_ref``)."""
+    """Each kernel against its plain version, the tangents and the
+    contraction on the routes ``wkv6_mt_path`` and ``wkv6_jvps_path`` give
+    (chunk for S <= 32) and, on the chunk route, the tangents also against
+    the plain chunked form (``wkv6_chunked_ref``)."""
     from repro_torch.kernels.wkv6_scan import ops
     prim, tang, uds, gy = _wkv6_inputs(B, S, H, hd, T, has_ud, dev, 7)
     before = dict(ops.launches)
@@ -538,7 +583,9 @@ def test_wkv6_kernels_match_plain(dev, B, S, H, hd, T, has_ud):
     assert route == ("chunk" if S <= 32 else "rec")
     yd = _one_launch_by(ops.launches_by_path["wkv6_scan_mt"], route,
                         lambda: ops.wkv6_scan_mt_tangents(*prim, *tang, uds))
-    jv = ops.wkv6_scan_mt_jvps(*prim, *tang, gy, uds)
+    assert ops.wkv6_jvps_path(S) == route
+    jv = _one_launch_by(ops.launches_by_path["wkv6_scan_mt_jvps"], route,
+                        lambda: ops.wkv6_scan_mt_jvps(*prim, *tang, gy, uds))
     torch.cuda.synchronize()
     assert {k: n - before[k] for k, n in ops.launches.items()} == \
         {"wkv6_scan": 1, "wkv6_scan_mt": 1, "wkv6_scan_mt_jvps": 1}
@@ -549,10 +596,12 @@ def test_wkv6_kernels_match_plain(dev, B, S, H, hd, T, has_ud):
         _close(yd, ops.wkv6_chunked_ref(*prim, *tang, uds)[1], torch.float32)
     mag = (gy[None] * yd_ref).abs().sum(dim=(1, 2, 3, 4))
     _jvps_close(jv, torch.einsum("bshd,tbshd->t", gy, yd_ref), mag)
+    if route == "chunk":
+        _jvps_close(jv, ops.wkv6_scan_mt_jvps_chunked_ref(*prim, *tang, gy, uds), mag)
 
 
 @pytest.mark.parametrize("has_ud", [False, True], ids=["no_ud", "ud"])
-@pytest.mark.parametrize("S", [29, 37], ids=["chunk", "rec"])
+@pytest.mark.parametrize("S", [29, 32, 37], ids=["chunk", "chunk_full", "rec"])
 def test_wkv6_lanes_bitwise_and_jvps_repeat(dev, S, has_ud):
     """Each tangent of a T=8 launch equals its own T=1 launch bit for bit
     (tangents on both routes, and the contraction), and two contraction
@@ -566,6 +615,26 @@ def test_wkv6_lanes_bitwise_and_jvps_repeat(dev, S, has_ud):
         ud1 = None if uds is None else uds[t:t + 1].contiguous()
         assert torch.equal(ops.wkv6_scan_mt_tangents(*prim, *one, ud1)[0], yd[t])
         assert torch.equal(ops.wkv6_scan_mt_jvps(*prim, *one, gy, ud1)[0], jv[t])
+    assert torch.equal(ops.wkv6_scan_mt_jvps(*prim, *tang, gy, uds), jv)
+
+
+@pytest.mark.parametrize("has_ud", [False, True], ids=["no_ud", "ud"])
+@pytest.mark.parametrize("B,S,H,hd,T", [
+    (8, 32, 32, 64, 8),              # rwkv6-1.6b shapes
+    (3, 29, 5, 40, 64),              # ragged, 64 tangents
+    (2, 19, 3, 16, 3),
+])
+def test_wkv6_jvps_chunk_route_is_the_fp64_contraction_of_the_tangents(
+        dev, B, S, H, hd, T, has_ud):
+    """On the chunk route the contraction is row 8's stored tangents
+    contracted with gy in fp64 (``_fp64_contraction_close``), and a repeat
+    launch gives the same jvps."""
+    from repro_torch.kernels.wkv6_scan import ops
+    prim, tang, uds, gy = _wkv6_inputs(B, S, H, hd, T, has_ud, dev, 11)
+    assert ops.wkv6_jvps_path(S) == "chunk"
+    yd = ops.wkv6_scan_mt_tangents(*prim, *tang, uds)
+    jv = ops.wkv6_scan_mt_jvps(*prim, *tang, gy, uds)
+    _fp64_contraction_close(jv, gy, yd)
     assert torch.equal(ops.wkv6_scan_mt_jvps(*prim, *tang, gy, uds), jv)
 
 

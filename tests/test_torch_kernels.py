@@ -6,7 +6,10 @@ on the CPU. The plain versions are held against the JAX oracles
 ``lora_dual_mt_jvps_ref``, ``swa_attention_mt_jvps_ref``,
 ``mamba2_scan_ref``, ``mamba2_scan_mt_ref``, ``mamba2_scan_mt_jvps_ref``, and
 the reference's ``lora_dual_mt_jvps(impl='reassoc')``) at fp32 rel 1e-5, as is
-the chunked form the mamba2 kernels compute (``mamba2_chunked_ref``), and
+the chunked form the mamba2 kernels compute (``mamba2_chunked_ref``); the
+plain versions of the scan epilogues' chunk route
+(``mamba2_scan_mt_jvps_chunked_ref``, ``wkv6_scan_mt_jvps_chunked_ref``)
+against the jvps oracles at 1e-6 x sum|terms|; and
 one small case of each against the Pallas kernels in interpret mode, as
 tests/test_kernels.py, tests/test_jvps_epilogue.py and
 tests/test_mamba2_mt.py run them. The CUDA
@@ -45,10 +48,12 @@ from repro.kernels.swa_attention.ref import (
     swa_attention_mt_jvps_ref,
     swa_attention_mt_ref,
 )
+from repro.kernels.wkv6_scan import ref as jax_w6_ref
 from repro_torch.kernels import dispatch
 from repro_torch.kernels.lora_dual import ops as lora_ops
 from repro_torch.kernels.mamba2_scan import ops as m2_ops
 from repro_torch.kernels.swa_attention import ops as swa_ops
+from repro_torch.kernels.wkv6_scan import ops as w6_ops
 
 torch.set_num_threads(1)
 RTOL = 1e-5
@@ -534,6 +539,67 @@ def test_mamba2_mt_jvps_plain_matches_jax_ref(B, S, H, hd, N, T):
     assert _rel(got, want) <= RTOL
 
 
+def _jvps_within(got, want, gy, yds, rtol=1e-6):
+    """A contraction of n products against the oracle's: |err| <= rtol x
+    sum|terms| per tangent, the terms gy * yds of the oracle's tangents."""
+    mag = np.abs(np.asarray(gy, np.float64)[None] * np.asarray(yds, np.float64)).sum(
+        axis=(1, 2, 3, 4))
+    err = np.abs(np.asarray(got, np.float64) - np.asarray(want, np.float64))
+    assert got.shape == want.shape and (err <= rtol * mag).all(), (err, mag)
+
+
+# one chunk: the main path's S = 32, S = 31 and small and ragged S, hd, N
+M2_JVPS_CHUNK_CASES = [(2, 32, 3, 8, 16, 3), (1, 31, 2, 12, 5, 2)] + M2_CASES
+
+
+@pytest.mark.parametrize("B,S,H,hd,N,T", M2_JVPS_CHUNK_CASES)
+def test_mamba2_jvps_chunked_plain_matches_jax_ref(B, S, H, hd, N, T):
+    """The chunk route's plain version (the chunked form's fp32 tangents
+    contracted with gy in fp64, rounded once) against the JAX oracle
+    ``mamba2_scan_mt_jvps_ref`` at S <= 32: 1e-6 x sum|terms|, the terms
+    from the oracle's own tangents."""
+    prim, tang, gy = _m2_inputs(36, B, S, H, hd, N, T)
+    assert m2_ops.mamba2_jvps_path(S) == "chunk"
+    want = jax_m2_jvps_ref(*map(jnp.asarray, prim + tang + (gy,)))
+    _, yds = jax_m2_mt_ref(*map(jnp.asarray, prim + tang))
+    got = m2_ops.mamba2_scan_mt_jvps_chunked_ref(*map(_t, prim + tang + (gy,)))
+    assert got.dtype == torch.float32
+    _jvps_within(got.numpy(), np.asarray(want), gy, yds)
+
+
+def _w6_inputs(seed, B, S, H, hd, T):
+    """Operands at rwkv6's scales (w = exp(-exp(0.5 + z / 2)) in (0, 1)),
+    a tangent of u and a cotangent gy."""
+    rng = np.random.default_rng(seed)
+    f = lambda *s: rng.standard_normal(s).astype(np.float32)  # noqa: E731
+    w = np.exp(-np.exp(0.5 + 0.5 * f(B, S, H, hd))).astype(np.float32)
+    prim = (f(B, S, H, hd) * 0.5, f(B, S, H, hd) * 0.5, f(B, S, H, hd) * 0.5, w,
+            f(H, hd) * 0.3)
+    tang = (f(T, B, S, H, hd) * 0.3, f(T, B, S, H, hd) * 0.3, f(T, B, S, H, hd) * 0.3,
+            f(T, B, S, H, hd) * 0.05)
+    return prim, tang, f(T, H, hd) * 0.3, f(B, S, H, hd)
+
+
+@pytest.mark.parametrize("has_ud", [False, True], ids=["no_ud", "ud"])
+@pytest.mark.parametrize("B,S,H,hd,T", [(2, 32, 2, 8, 3), (1, 29, 3, 12, 2),
+                                        (2, 7, 1, 5, 1)])
+def test_wkv6_jvps_chunked_plain_matches_jax_ref(B, S, H, hd, T, has_ud):
+    """The chunk route's plain version (``wkv6_chunked_ref``'s fp32
+    tangents contracted with gy in fp64, rounded once) against the JAX
+    oracle ``wkv6_scan_mt_jvps_ref`` at S <= 32, with and without a tangent
+    of u: 1e-6 x sum|terms|, the terms from the oracle's own tangents."""
+    prim, tang, uds, gy = _w6_inputs(37, B, S, H, hd, T)
+    assert w6_ops.wkv6_jvps_path(S) == "chunk"
+    ju = jnp.asarray(uds) if has_ud else None
+    jp, jt = tuple(map(jnp.asarray, prim)), tuple(map(jnp.asarray, tang))
+    want = jax_w6_ref.wkv6_scan_mt_jvps_ref(*jp, *jt, jnp.asarray(gy), ju)
+    _, yds = jax_w6_ref.wkv6_scan_mt_ref(*jp, *jt, ju)
+    got = w6_ops.wkv6_scan_mt_jvps_chunked_ref(*map(_t, prim + tang + (gy,)),
+                                               _t(uds) if has_ud else None)
+    assert got.dtype == torch.float32
+    _jvps_within(got.numpy(), np.asarray(want), gy, yds)
+
+
 def test_mamba2_plain_matches_pallas_interpret():
     """One tiny case of each plain version against the Pallas kernels in
     interpret mode (ragged S against block_s, as tests/test_mamba2_mt.py)."""
@@ -622,7 +688,8 @@ def test_mamba2_wrappers_check_and_never_take_the_plain_version(monkeypatch):
 
     def plain_reached(*a, **k):
         pytest.fail("a CUDA tensor reached the plain version")
-    for n in ("mamba2_scan_ref", "mamba2_scan_mt_ref", "mamba2_scan_mt_jvps_ref"):
+    for n in ("mamba2_scan_ref", "mamba2_scan_mt_ref", "mamba2_scan_mt_jvps_ref",
+              "mamba2_chunked_ref", "mamba2_scan_mt_jvps_chunked_ref"):
         monkeypatch.setattr(m2_ops, n, plain_reached)
     monkeypatch.setattr(m2_ops, "_check", lambda *a, **k: (1, 4, 2, 8, 4))
     monkeypatch.setattr(m2_ops, "_check_tangents", lambda *a, **k: (1, 4, 2, 8, 4, 2))
@@ -640,10 +707,69 @@ def test_mamba2_wrappers_check_and_never_take_the_plain_version(monkeypatch):
         m2_ops.mamba2_scan(t, t, t, t)
     with pytest.raises(Exception):
         m2_ops.mamba2_scan_mt_tangents(t, t, t, t, t, t, t, t)
-    with pytest.raises(Exception):
-        m2_ops.mamba2_scan_mt_jvps(t, t, t, t, t, t, t, t, t)
+    for S in (4, 40):                 # the contraction on either route
+        assert m2_ops.mamba2_jvps_path(S) == ("chunk" if S <= 32 else "rec")
+        monkeypatch.setattr(m2_ops, "_check_tangents",
+                            lambda *a, S=S, **k: (1, S, 2, 8, 4, 2))
+        with pytest.raises(Exception):
+            m2_ops.mamba2_scan_mt_jvps(t, t, t, t, t, t, t, t, t)
     assert m2_ops.launches == {"mamba2_scan": 0, "mamba2_scan_mt": 0,
                                "mamba2_scan_mt_jvps": 0}
+    assert m2_ops.launches_by_path == {"mamba2_scan_mt_jvps": {"chunk": 0, "rec": 0}}
+
+
+def test_wkv6_wrappers_check_and_never_take_the_plain_version(monkeypatch):
+    """The wrappers reject what the kernels do not take (hd <= 64,
+    agreeing shapes), and a CUDA tensor never reaches a plain version on
+    either route of the tangents or the contraction (no card here: they
+    raise without moving a counter)."""
+    prim, tang, uds, gy = _w6_inputs(38, 1, 4, 2, 8, 2)
+    tp, tt = tuple(map(_t, prim)), tuple(map(_t, tang))
+    assert w6_ops._check_tangents("w6", *tp, *tt, _t(uds)) == (1, 4, 2, 8, 2)
+    with pytest.raises(TypeError, match="fp32"):
+        w6_ops._check("w6", tp[0].double(), *tp[1:])
+    with pytest.raises(ValueError, match="hd <= 64"):
+        wide = torch.zeros(1, 4, 1, 80)
+        w6_ops._check("w6", wide, wide, wide, wide, torch.zeros(1, 80))
+    with pytest.raises(ValueError, match="tangent stacks"):
+        w6_ops._check_tangents("w6", *tp, tt[0][:1], *tt[1:], None)
+
+    def plain_reached(*a, **k):
+        pytest.fail("a CUDA tensor reached the plain version")
+    for n in ("wkv6_scan_ref", "wkv6_scan_mt_ref", "wkv6_scan_mt_jvps_ref",
+              "wkv6_chunked_ref", "wkv6_scan_mt_jvps_chunked_ref"):
+        monkeypatch.setattr(w6_ops, n, plain_reached)
+
+    class OnCuda:
+        """Stands in for a CUDA tensor (this torch has no CUDA)."""
+        device = torch.device("cuda")
+        dtype = torch.float32
+        shape = (1, 4, 2, 8)
+
+        def float(self):
+            return self
+
+        def contiguous(self):
+            return self
+
+        def numel(self):
+            return 64
+    t = OnCuda()
+    for S in (4, 40):                 # either route of the tangents and the contraction
+        assert w6_ops.wkv6_mt_path(S) == w6_ops.wkv6_jvps_path(S) == \
+            ("chunk" if S <= 32 else "rec")
+        monkeypatch.setattr(w6_ops, "_check_tangents", lambda *a, S=S, **k: (1, S, 2, 8, 2))
+        for ud in (None, t):
+            with pytest.raises(Exception):    # no CUDA in this torch
+                w6_ops.wkv6_scan_mt_tangents(t, t, t, t, t, t, t, t, t, ud)
+            with pytest.raises(Exception):
+                w6_ops.wkv6_scan_mt_jvps(t, t, t, t, t, t, t, t, t, t, ud)
+    monkeypatch.setattr(w6_ops, "_check", lambda *a, **k: (1, 4, 2, 8))
+    with pytest.raises(Exception):
+        w6_ops.wkv6_scan(t, t, t, t, t)
+    assert w6_ops.launches == {"wkv6_scan": 0, "wkv6_scan_mt": 0, "wkv6_scan_mt_jvps": 0}
+    assert w6_ops.launches_by_path == {"wkv6_scan_mt": {"chunk": 0, "rec": 0},
+                                       "wkv6_scan_mt_jvps": {"chunk": 0, "rec": 0}}
 
 
 # ---------------------------------------------------------------------------
@@ -719,6 +845,17 @@ def test_lora_multi_path_rule(dtype, M, K, N, aligned, want):
     assert lora_ops.lora_multi_path(dtype, M, K, N, aligned) == want
 
 
+@pytest.mark.parametrize("S,want", [(1, "chunk"), (31, "chunk"), (32, "chunk"),
+                                    (33, "rec"), (1024, "rec")])
+@pytest.mark.parametrize("rule", ["mamba2", "wkv6"])
+def test_scan_jvps_path_rule(rule, S, want):
+    """The scan contraction epilogues' route is the sequence length alone:
+    the chunked kernel with a contraction finish serves one chunk (S <= 32,
+    every main-path launch), the recurrent kernel longer S."""
+    path = m2_ops.mamba2_jvps_path if rule == "mamba2" else w6_ops.wkv6_jvps_path
+    assert path(S) == want
+
+
 def test_engine_decode_takes_the_stream_route():
     """Every adapted projection of llama2-7b's batched decode (bf16, rows up
     to the engine's batch) streams W; the reduced fp32 engine takes simt."""
@@ -761,15 +898,22 @@ def test_route_counters_reset_with_the_launch_counters():
     swa_ops.launches_by_path["swa_attention"]["simt"] += 1
     lora_ops.launches_by_path["lora_dual_mt_jvps"]["tc"] += 1
     swa_ops.launches_by_path["swa_attention_mt_jvps"]["simt"] += 1
+    m2_ops.launches_by_path["mamba2_scan_mt_jvps"]["chunk"] += 1
+    w6_ops.launches_by_path["wkv6_scan_mt_jvps"]["rec"] += 1
     try:
         assert launch_paths()["lora_dual_mt"]["tc"] >= 2
         assert launch_paths()["lora_dual_mt_jvps"]["tc"] >= 1
         assert launch_paths()["swa_attention_mt_jvps"]["simt"] >= 1
+        assert launch_paths()["mamba2_scan_mt_jvps"]["chunk"] >= 1
+        assert launch_paths()["wkv6_scan_mt_jvps"]["rec"] >= 1
         assert set(launch_paths()) == {"lora_dual_mt", "swa_attention",
                                        "swa_attention_mt", "lora_dual_multi",
                                        "wkv6_scan_mt", "lora_dual_mt_jvps",
-                                       "swa_attention_mt_jvps"}
+                                       "swa_attention_mt_jvps", "mamba2_scan_mt_jvps",
+                                       "wkv6_scan_mt_jvps"}
         assert set(launch_paths()["wkv6_scan_mt"]) == {"chunk", "rec"}
+        assert set(launch_paths()["mamba2_scan_mt_jvps"]) == {"chunk", "rec"}
+        assert set(launch_paths()["wkv6_scan_mt_jvps"]) == {"chunk", "rec"}
         assert set(launch_paths()["swa_attention_mt"]) == {"tc", "simt"}
         assert set(launch_paths()["lora_dual_mt_jvps"]) == {"tc", "simt"}
         assert set(launch_paths()["swa_attention_mt_jvps"]) == {"tc", "simt"}
