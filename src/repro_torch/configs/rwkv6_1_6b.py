@@ -1,6 +1,6 @@
 """rwkv6-1.6b (Finch): attention-free RNN with data-dependent decay.
 [arXiv:2404.05892] As ``repro/configs/rwkv6_1_6b.py``. Its family (ssm)
-is ported for training; its serving functions raise until their slice."""
+is ported for training and serving."""
 from repro_torch.configs.base import ModelConfig, SSMConfig
 
 CONFIG = ModelConfig(

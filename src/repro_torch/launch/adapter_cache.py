@@ -23,6 +23,7 @@ import torch
 
 from repro_torch.configs import SpryConfig
 from repro_torch.core.forward_grad import fold_in
+from repro_torch.launch.train import resolve_device
 from repro_torch.obs import NULL
 from repro_torch.peft import init_peft
 from repro_torch.utils.pytree import tree_leaves, tree_paths, tree_unflatten_like
@@ -32,17 +33,18 @@ _STACKED_GROUPS = ("layers", "enc_layers")
 
 
 class SyntheticAdapterStore:
-    """Deterministic fabricated adapters on ``device``: adapter ``aid`` is
+    """Deterministic fabricated adapters on ``device`` (the card unless the
+    caller asks for the CPU; CUDA without a card raises): adapter ``aid`` is
     ``init_peft`` from a generator seeded with ``fold_in(seed, aid)``, with
     its B factors drawn as 0.05*N(0,1) (``init_peft`` zeros them; identity
     adapters would make every tenant identical and hide routing bugs). The
     same (seed, aid) gives the same tree on every call."""
 
-    def __init__(self, cfg, spry_cfg=None, seed: int = 0, device="cpu"):
+    def __init__(self, cfg, spry_cfg=None, seed: int = 0, device="cuda"):
         self.cfg = cfg
         self.spry_cfg = spry_cfg or SpryConfig()
         self.seed = seed
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
 
     def template(self):
         return self.load(0)

@@ -7,8 +7,8 @@ Port of ``repro/launch/serve.py``: the single-tenant greedy loop and, with
 ``--engine N``, the multi-tenant continuous-batching ``ServingEngine``
 (``launch/serving.py``) over a paged ``AdapterCache``
 (``launch/adapter_cache.py``). Runs on CUDA unless ``--device cpu`` is
-given; asking for CUDA without a card raises. The dense family serves; the
-other families raise until their slices.
+given; asking for CUDA without a card raises. The dense, hybrid (zamba2)
+and ssm (rwkv6, the default) families serve.
 """
 from __future__ import annotations
 

@@ -1,5 +1,6 @@
-"""GQA attention: the train/prefill half and the dense family's decode.
-Port of ``repro/models/attention.py``.
+"""GQA attention: train and prefill, and one-token decode (the dense
+family's ``attn_block_decode_nocopy``, the hybrid family's cache-writing
+``attn_block_decode``). Port of ``repro/models/attention.py``.
 
 Outside the estimator (eval, ``cls_logits``, serving's prefill and decode)
 attention is plain torch ops, as in the reference (its
@@ -140,6 +141,26 @@ def attn_block_prefill(cfg, p, x, peft_layer, lora_scale, *, is_global=True,
                        rope_cs=None):
     return attn_block_prefill_kv(cfg, p, x, peft_layer, lora_scale,
                                  is_global=is_global, rope_cs=rope_cs)[0]
+
+
+def attn_block_decode(cfg, p, x, peft_layer, lora_scale, k_cache, v_cache, pos,
+                      *, is_global=True):
+    """x (B,1,D), caches (B,Sc,KV,hd) -> (out, k_cache, v_cache): the
+    cache-writing decode. Attends as ``attn_block_decode_nocopy`` (which masks
+    the slot the new row replaces), then writes the new token's roped K/V row
+    into ring slot ``pos % Sc`` in place (per row when ``pos`` is a (B,)
+    tensor)."""
+    out, k, v = attn_block_decode_nocopy(cfg, p, x, peft_layer, lora_scale,
+                                         k_cache, v_cache, pos,
+                                         is_global=is_global)
+    Sc = k_cache.shape[1]
+    if isinstance(pos, torch.Tensor):
+        index = (torch.arange(x.shape[0], device=x.device), pos.long() % Sc)
+    else:
+        index = (slice(None), pos % Sc)
+    k_cache[index] = k[:, 0].to(k_cache.dtype)
+    v_cache[index] = v[:, 0].to(v_cache.dtype)
+    return out, k_cache, v_cache
 
 
 def _repeat_kv(t, rep):

@@ -2,13 +2,17 @@
 (its weights reused at every application) after every
 ``cfg.hybrid_attn_every``-th layer.
 
-Port of the training half of ``repro/models/hybrid.py``: ``init_base``,
-``embed_tokens``, ``unembed``, the train ``forward`` and its split pieces
-(``split_site``, ``mixer_site``, ``split_forward``, ``split_post``). The
+Port of ``repro/models/hybrid.py``: ``init_base``, ``embed_tokens``,
+``unembed``, the train ``forward`` and its split pieces (``split_site``,
+``mixer_site``, ``split_forward``, ``split_post``), the one-loop
+``forward_scanned`` (a test oracle, as in the reference), and serving
+(``n_attn_sites``, ``init_cache``, ``prefill``, ``decode_step``). The
 reference's ``lax.scan`` over stacked layers becomes a plain loop over
 layer slices, and its ``lax.cond`` on the layer index a plain ``if``.
-Serving (``forward_scanned``, ``init_cache``, ``prefill``, ``decode_step``)
-comes with the serving slice.
+
+Serving keeps a mamba2 state and conv tail a layer (threaded through the
+plain recurrence, ``mamba2_scan_ref``) and one K/V ring a shared-attention
+application site (``layer // hybrid_attn_every``), written in place.
 """
 from __future__ import annotations
 
@@ -30,6 +34,10 @@ from repro_torch.models.ssm import (
     mamba2_params,
     mamba2_preamble,
 )
+
+
+def n_attn_sites(cfg) -> int:
+    return cfg.n_layers // cfg.hybrid_attn_every
 
 
 def init_base(cfg, gen):
@@ -61,12 +69,18 @@ def unembed(cfg, base):
     return base["lm_head"]
 
 
+def _shared_tail(cfg, shared, h, a):
+    """The shared block after its attention output ``a``: the residual,
+    then the MLP."""
+    h = h + a
+    return h + mlp_block(cfg, shared["mlp"], apply_norm(cfg, h, shared["ln2"]))
+
+
 def _shared_block_prefill(cfg, shared, shared_peft, h, lora_scale, rope_cs=None):
     hn = apply_norm(cfg, h, shared["ln1"])
-    h = h + attn.attn_block_prefill(cfg, shared["attn"], hn, shared_peft,
-                                    lora_scale, is_global=False, rope_cs=rope_cs)
-    hn = apply_norm(cfg, h, shared["ln2"])
-    return h + mlp_block(cfg, shared["mlp"], hn)
+    return _shared_tail(cfg, shared, h, attn.attn_block_prefill(
+        cfg, shared["attn"], hn, shared_peft, lora_scale, is_global=False,
+        rope_cs=rope_cs))
 
 
 def _peft_parts(peft):
@@ -85,6 +99,18 @@ def _layer(cfg, base, peft_layers, shared_peft, lora_scale, rope_cs, h, i):
         h = _shared_block_prefill(cfg, base["shared"], shared_peft, h,
                                   lora_scale, rope_cs)
     return h
+
+
+def forward_scanned(cfg, base, peft, tokens, lora_scale=1.0):
+    """The train forward as ONE loop over all L layers (no split at the
+    final mixer): the reference keeps it as an oracle for ``forward``."""
+    h = embed_tokens(cfg, base, tokens)
+    peft_layers, shared_peft = _peft_parts(peft)
+    rope_cs = rope_tables_for(cfg, h)
+    for i in range(cfg.n_layers):
+        h = _layer(cfg, base, peft_layers, shared_peft, lora_scale, rope_cs, h, i)
+    h = apply_norm(cfg, h, base["final_norm"])
+    return h, torch.zeros((), dtype=torch.float32, device=h.device)
 
 
 def forward(cfg, base, peft, tokens, lora_scale=1.0):
@@ -163,3 +189,94 @@ def split_post(cfg, base, y, ctx, peft, lora_scale=1.0):
                               pl, lora_scale)
     h = apply_norm(cfg, h, base["final_norm"])
     return h, torch.zeros((), dtype=torch.float32, device=h.device)
+
+
+# ---------------------------------------------------------------------------
+# Serving: mamba2 (ssm, conv) state a layer, a K/V ring a shared-attention site
+# ---------------------------------------------------------------------------
+
+def init_cache(cfg, batch: int, seq_len: int, *, device):
+    """``ssm`` (L,B,H,hd,N) fp32, ``conv`` (L,B,K-1,d_inner) and the
+    shared block's rings ``attn_k`` / ``attn_v`` (sites,B,W,KV,hd) with W =
+    min(window, seq_len), in the model's dtype, on ``device``."""
+    s = cfg.ssm
+    d_inner = s.expand * cfg.d_model
+    L, W = cfg.n_layers, min(cfg.window, seq_len)
+    ring = (n_attn_sites(cfg), batch, W, cfg.n_kv_heads, cfg.hd)
+    return {
+        "ssm": torch.zeros((L, batch, d_inner // s.head_dim, s.head_dim,
+                            s.state_dim), dtype=torch.float32, device=device),
+        "conv": torch.zeros((L, batch, s.conv_kernel - 1, d_inner),
+                            dtype=cfg.dtype, device=device),
+        "attn_k": torch.zeros(ring, dtype=cfg.dtype, device=device),
+        "attn_v": torch.zeros(ring, dtype=cfg.dtype, device=device),
+    }
+
+
+def _stateful_layers(cfg, base, peft, cache, h, lora_scale, shared_block):
+    """All L layers over h (B,S,D) from the cache's mamba2 states, written
+    back in place; after each application site's mixer,
+    ``shared_block(h, site)`` runs the shared block and updates that site's
+    ring. Returns the final-normed hidden stream."""
+    peft_layers, _ = _peft_parts(peft)
+    every = cfg.hybrid_attn_every
+    for i in range(cfg.n_layers):
+        lp = layer_slice(base["layers"], i)
+        pl = layer_slice(peft_layers, i) or None
+        hn = apply_norm(cfg, h, lp["ln1"])
+        mix, ssm_s, conv_s = mamba2_mix(cfg, lp["mix"], hn, pl, lora_scale,
+                                        state=cache["ssm"][i],
+                                        conv_state=cache["conv"][i])
+        h = h + mix
+        cache["ssm"][i].copy_(ssm_s)
+        cache["conv"][i].copy_(conv_s)
+        if i % every == every - 1:
+            h = shared_block(h, i // every)
+    return apply_norm(cfg, h, base["final_norm"])
+
+
+def prefill(cfg, base, peft, cache, tokens, lora_scale=1.0):
+    """Fused prompt ingestion: one multi-token pass instead of P
+    ``decode_step`` calls. The mamba2 recurrence and conv are exact
+    per-token scans either way; each site runs chunked prefill attention
+    and captures the roped K/V rows the decode loop would have inserted,
+    slot s keeping the LAST prompt position p < P with p % W == s. Returns
+    (last-token logits (B,V) fp32, cache)."""
+    P = tokens.shape[1]
+    h = embed_tokens(cfg, base, tokens)
+    shared, shared_peft = base["shared"], _peft_parts(peft)[1]
+    rope_cs = rope_tables_for(cfg, h)
+    W = cache["attn_k"].shape[2]
+    slots = torch.arange(min(P, W), device=tokens.device)
+    gather = slots + W * ((P - 1 - slots) // W)
+
+    def shared_block(h, site):
+        hn = apply_norm(cfg, h, shared["ln1"])
+        a, k, v = attn.attn_block_prefill_kv(cfg, shared["attn"], hn, shared_peft,
+                                             lora_scale, is_global=False,
+                                             rope_cs=rope_cs)
+        cache["attn_k"][site, :, :len(slots)] = k[:, gather].to(cfg.dtype)
+        cache["attn_v"][site, :, :len(slots)] = v[:, gather].to(cfg.dtype)
+        return _shared_tail(cfg, shared, h, a)
+
+    h = _stateful_layers(cfg, base, peft, cache, h, lora_scale, shared_block)
+    return (h[:, -1, :] @ unembed(cfg, base)).float(), cache
+
+
+def decode_step(cfg, base, peft, cache, token, pos, lora_scale=1.0):
+    """token (B,1) int; ``pos`` an int or a (B,) tensor (continuous
+    batching: each row ropes at its own position and writes its own ring
+    slot). Returns (logits (B,V) fp32, cache)."""
+    shared, shared_peft = base["shared"], _peft_parts(peft)[1]
+
+    def shared_block(h, site):
+        hn = apply_norm(cfg, h, shared["ln1"])
+        a, _, _ = attn.attn_block_decode(cfg, shared["attn"], hn, shared_peft,
+                                         lora_scale, cache["attn_k"][site],
+                                         cache["attn_v"][site], pos,
+                                         is_global=False)
+        return _shared_tail(cfg, shared, h, a)
+
+    h = _stateful_layers(cfg, base, peft, cache, embed_tokens(cfg, base, token),
+                         lora_scale, shared_block)
+    return (h[:, 0, :] @ unembed(cfg, base)).float(), cache

@@ -9,8 +9,8 @@ entries of ``repro/models/registry.py``.
     cache = model.init_cache(cfg, batch, seq_len, device=dev)
     logits, cache = model.decode_step(cfg, base, peft, cache, token, pos)
 
-Serving is ported for the dense family; the hybrid and ssm families'
-serving functions raise ``NotImplementedError`` until their slices.
+Serving (``init_cache``, ``prefill``, ``decode_step``) is ported for all
+three families; only the dense family has an int8-KV cache.
 """
 from __future__ import annotations
 
@@ -90,14 +90,6 @@ def _rwkv_split_post(cfg, base, y, ctx, peft, batch, lora_scale=1.0):
     return rwkv_model.split_post(cfg, base, y, ctx, peft, lora_scale=lora_scale)
 
 
-def _serving_not_ported(module, name):
-    def not_ported(*args, **kwargs):
-        raise NotImplementedError(
-            f"{module}.{name} is not ported yet (a later serving slice); "
-            f"run it with python -m repro.launch.serve")
-    return not_ported
-
-
 _FAMILIES = {
     "dense": ModelFns(transformer.init_base, _tf_forward, transformer.unembed,
                       split_forward=_tf_split_forward,
@@ -112,24 +104,25 @@ _FAMILIES = {
                        split_post=_hybrid_split_post,
                        split_site=hybrid.split_site,
                        mixer_site=hybrid.mixer_site,
-                       init_cache=_serving_not_ported("hybrid", "init_cache"),
-                       decode_step=_serving_not_ported("hybrid", "decode_step"),
-                       prefill=_serving_not_ported("hybrid", "prefill")),
+                       init_cache=hybrid.init_cache,
+                       decode_step=hybrid.decode_step,
+                       prefill=hybrid.prefill),
     "ssm": ModelFns(rwkv_model.init_base, _rwkv_forward, rwkv_model.unembed,
                     split_forward=_rwkv_split_forward,
                     split_post=_rwkv_split_post,
                     split_site=rwkv_model.split_site,
                     mixer_site=rwkv_model.mixer_site,
-                    init_cache=_serving_not_ported("rwkv_model", "init_cache"),
-                    decode_step=_serving_not_ported("rwkv_model", "decode_step"),
-                    prefill=_serving_not_ported("rwkv_model", "prefill")),
+                    init_cache=rwkv_model.init_cache,
+                    decode_step=rwkv_model.decode_step,
+                    prefill=rwkv_model.prefill),
 }
 
 
 def get_model(cfg) -> ModelFns:
     if cfg.family not in _FAMILIES:
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (dense, hybrid and ssm only)")
+        raise ValueError(
+            f"family {cfg.family!r} has no model in repro_torch (dense, hybrid "
+            f"and ssm only)")
     return _FAMILIES[cfg.family]
 
 

@@ -1,6 +1,7 @@
-"""Recurrent sequence mixers: RWKV6 ("Finch") and Mamba2. Port of the
-training half of ``repro/models/ssm.py`` (the recurrences from a fresh
-state; the explicit-state decode paths come with the serving slices).
+"""Recurrent sequence mixers: RWKV6 ("Finch") and Mamba2. Port of
+``repro/models/ssm.py``: the recurrences from a fresh state (training) and
+from an explicit carried state (``state=``, ``shift_prev=``,
+``conv_state=``: serving's prefill and decode).
 
 RWKV6 (data-dependent decay):
     S_t = diag(w_t) S_{t-1} + k_t v_t^T        (per head, S in R^{hd x hd})
@@ -11,8 +12,8 @@ Mamba2 (scalar-per-head decay):
     h_t = exp(-softplus(a) * dt_t) h_{t-1} + dt_t * (x_t outer B_t)
     y_t = h_t C_t + D * x_t
 
-Outside the estimator (eval, backprop baselines) each recurrence is the
-plain sequential scan, as in the reference. Inside the estimator's
+Outside the estimator (eval, backprop baselines, serving) each recurrence
+is the plain sequential scan, as in the reference. Inside the estimator's
 forward-AD region, from a fresh state, it goes through the dispatched op
 (``dispatch.wkv6_mix`` / ``dispatch.mamba2_mix``): the scan kernel for the
 primal and the multi-tangent kernel for all K tangents.

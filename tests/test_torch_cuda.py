@@ -751,7 +751,7 @@ def test_engine_launches_per_decode_step(dev):
     from repro_torch.utils.pytree import tree_map
     cfg = reduce_config(get_config("llama2-7b"))
     base = get_model(cfg).init_base(cfg, torch.Generator().manual_seed(0))
-    store = SyntheticAdapterStore(cfg, seed=0)
+    store = SyntheticAdapterStore(cfg, seed=0, device="cpu")
 
     class CardStore:
         def template(self):

@@ -24,6 +24,7 @@ Each reference run is computed once per module (the ``ref`` fixture).
 """
 import ast
 import dataclasses
+import importlib.util
 import pathlib
 
 import jax
@@ -95,28 +96,40 @@ def ref():
     prompt = rng.integers(0, jc.vocab, (2, P_LEN)).astype(np.int32)
     r = dict(jc=jc, tc=tc, jbase=jbase, jpeft=jpeft, tbase=tbase, tpeft=tpeft,
              jstore=jstore, prompt=prompt)
+    r.update(serve_reference(jc, jbase, jpeft, jstore, prompt, NEW, int8=True))
+    return r
 
-    # prefill + one decode step: float cache with a scalar and a per-row pos,
-    # and an int8 cache
+
+def serve_reference(jc, jbase, jpeft, jstore, prompt, new, int8=False):
+    """The reference's serving runs of one config, which the port is held
+    to (shared by the families' serve test files):
+
+    - ``steps``: prefill of ``prompt`` (B=2) into a cache of P + ``new``,
+      then one decode step, with a scalar ``pos`` ('scalar'), a per-row
+      ``pos`` of [P, P-3] ('per_row') and, with ``int8``, an int8 KV cache:
+      (logits0, cache0, tok, pos, logits1, cache1) as numpy;
+    - ``greedy``: ``greedy_generate`` ids of ``prompt``, ``new`` steps;
+    - the engine on ``_requests`` (5 requests over 3 adapters, max_batch 2,
+      capacity 2: rows admitted mid-flight, pages evicted): its outputs,
+      adapter cache stats and decode steps."""
+    P = prompt.shape[1]
+    model = jget_model(jc)
     steps = {}
-    prefill = jax.jit(lambda c: jtf.prefill(jc, jbase, jpeft, c, prompt))
-    decode = jax.jit(lambda c, tok, pos: jtf.decode_step(jc, jbase, jpeft, c, tok, pos))
-    for name, int8, pos in (("scalar", False, P_LEN), ("per_row", False, None),
-                            ("int8", True, P_LEN)):
-        logits0, cache0 = prefill(jtf.init_cache(jc, 2, P_LEN + NEW, kv_int8=int8))
+    prefill = jax.jit(lambda c: model.prefill(jc, jbase, jpeft, c, prompt))
+    decode = jax.jit(lambda c, tok, pos: model.decode_step(jc, jbase, jpeft, c, tok, pos))
+    cases = (("scalar", False, P), ("per_row", False, None))
+    for name, q8, pos in cases + ((("int8", True, P),) if int8 else ()):
+        kw = {"kv_int8": True} if q8 else {}
+        logits0, cache0 = prefill(model.init_cache(jc, 2, P + new, **kw))
         jpos = (jnp.int32(pos) if pos is not None
-                else jnp.asarray([P_LEN, P_LEN - 3], jnp.int32))
+                else jnp.asarray([P, P - 3], jnp.int32))
         tok = jnp.argmax(logits0, -1)[:, None].astype(jnp.int32)
         logits1, cache1 = decode(cache0, tok, jpos)
         steps[name] = jax.tree.map(np.asarray, (logits0, cache0, tok, jpos, logits1,
                                                 cache1))
-    r["steps"] = steps
-    r["greedy"] = np.asarray(jserve.greedy_generate(jc, jbase, jpeft,
-                                                    jnp.asarray(prompt), NEW))
-
-    # the engine: 5 requests over 3 adapters, max_batch 2, capacity 2, so
-    # rows are admitted mid-flight and pages are evicted
-    r["requests"] = _requests(jc)
+    r = {"steps": steps, "new": new,
+         "greedy": np.asarray(jserve.greedy_generate(jc, jbase, jpeft,
+                                                     jnp.asarray(prompt), new))}
     jcache = jac.AdapterCache(jstore, capacity=2)
     jeng = jserving.ServingEngine(jc, jbase, jcache, max_batch=2,
                                   cache_len=P_LEN + NEW)
@@ -209,27 +222,39 @@ def _cache_close(got, want):
             assert _rel(g, w) <= 1e-5, name
 
 
-@pytest.mark.parametrize("case", ["scalar", "per_row", "int8"])
-def test_prefill_and_decode_match_reference(ref, case):
+def check_prefill_and_decode(ref, case):
+    """``init_cache`` shapes and dtypes equal the reference's; ``prefill``
+    logits and every cache leaf, then one ``decode_step`` from the
+    reference's own prefill cache, against ``serve_reference``'s run."""
     tc = ref["tc"]
+    model = tget_model(tc)
     logits0, cache0, tok, jpos, logits1, cache1 = ref["steps"][case]
-    cache = ttf.init_cache(tc, 2, P_LEN + NEW, kv_int8=case == "int8", device="cpu")
+    kw = {"kv_int8": True} if case == "int8" else {}
+    cache = model.init_cache(tc, 2, ref["prompt"].shape[1] + ref["new"],
+                             device="cpu", **kw)
     assert {k: tuple(v.shape) for k, v in cache.items()} == {
         k: v.shape for k, v in cache0.items()}
+    assert {k: str(v.dtype).split(".")[-1] for k, v in cache.items()} == {
+        k: v.dtype.name for k, v in cache0.items()}
     with torch.inference_mode():
-        got0, cache = ttf.prefill(tc, ref["tbase"], ref["tpeft"], cache,
-                                  torch.from_numpy(ref["prompt"]))
+        got0, cache = model.prefill(tc, ref["tbase"], ref["tpeft"], cache,
+                                    torch.from_numpy(ref["prompt"]))
         assert _rel(got0, logits0) <= 1e-5
         _cache_close(cache, cache0)
         # decode from the reference's own prefill cache: one int8 entry a
         # rounding boundary apart moves the logits by ~1e-4
         cache = {k: torch.from_numpy(v.copy()) for k, v in cache0.items()}
-        pos = int(jpos) if jpos.ndim == 0 else torch.from_numpy(jpos)
-        got1, cache = ttf.decode_step(tc, ref["tbase"], ref["tpeft"], cache,
-                                      torch.from_numpy(tok), pos)
+        pos = int(jpos) if jpos.ndim == 0 else torch.from_numpy(jpos.copy())
+        got1, cache = model.decode_step(tc, ref["tbase"], ref["tpeft"], cache,
+                                        torch.from_numpy(tok.copy()), pos)
     assert got1.shape == (2, tc.vocab) and got1.dtype == torch.float32
     assert _rel(got1, logits1) <= 1e-5
     _cache_close(cache, cache1)
+
+
+@pytest.mark.parametrize("case", ["scalar", "per_row", "int8"])
+def test_prefill_and_decode_match_reference(ref, case):
+    check_prefill_and_decode(ref, case)
 
 
 @pytest.mark.parametrize("pattern,window,Sc,P", [
@@ -275,14 +300,80 @@ def test_fused_ring_prefill_equals_token_loop():
         assert _rel(fused[name], loop[name].numpy()) <= 1e-5
 
 
-def test_greedy_ids_equal_reference(ref):
+def check_greedy(ref):
+    """Greedy ids, fused prefill and token loop alike, equal the
+    reference's."""
     ids = tserve.greedy_generate(ref["tc"], ref["tbase"], ref["tpeft"],
-                                 torch.from_numpy(ref["prompt"]), NEW)
+                                 torch.from_numpy(ref["prompt"]), ref["new"])
     np.testing.assert_array_equal(ids.numpy(), ref["greedy"])
     loop = tserve.greedy_generate(ref["tc"], ref["tbase"], ref["tpeft"],
-                                  torch.from_numpy(ref["prompt"]), NEW,
+                                  torch.from_numpy(ref["prompt"]), ref["new"],
                                   fused_prefill=False)
     np.testing.assert_array_equal(loop.numpy(), ref["greedy"])
+
+
+def test_greedy_ids_equal_reference(ref):
+    check_greedy(ref)
+
+
+def check_fused_prefill(ref, plen, new=NEW):
+    """A prompt of ``plen`` tokens: the fused prefill equals
+    ``tokenwise_prefill`` (logits and every cache leaf at rel 1e-5), and
+    greedy ids come out the same either way."""
+    tc = ref["tc"]
+    model = tget_model(tc)
+    prompt = torch.randint(0, tc.vocab, (2, plen),
+                           generator=torch.Generator().manual_seed(plen))
+    fused = model.init_cache(tc, 2, plen + new, device="cpu")
+    loop = model.init_cache(tc, 2, plen + new, device="cpu")
+    assert tserve.can_fuse_prefill(tc, model, fused, plen)
+    fns = tserve.build_serve_fns(tc, model)
+    lf, fused = fns["prefill"](ref["tbase"], ref["tpeft"], fused, prompt)
+    ll, loop = tserve.tokenwise_prefill(tc, model, ref["tbase"], ref["tpeft"],
+                                        loop, prompt)
+    assert _rel(lf, ll) <= 1e-5
+    for name, want in loop.items():
+        assert _rel(fused[name], want.float().numpy()) <= 1e-5, name
+    ids = [tserve.greedy_generate(tc, ref["tbase"], ref["tpeft"], prompt, 3,
+                                  fused_prefill=f, fns=fns) for f in (True, False)]
+    assert torch.equal(*ids)
+    return fused
+
+
+def check_scatter_axis(ref, leaves):
+    """Every cache leaf (named ``leaves``) carries batch on axis 1, as
+    ``serving._scatter_row`` assumes: a B=1 cache scattered into row 2 of a
+    B=3 cache lands there and nowhere else."""
+    model = tget_model(ref["tc"])
+    one = model.init_cache(ref["tc"], 1, 16, device="cpu")
+    big = model.init_cache(ref["tc"], 3, 16, device="cpu")
+    assert set(one) == set(leaves)
+    for name, leaf in one.items():
+        torch.nn.init.normal_(leaf)
+        want = list(leaf.shape)
+        want[1] = 3
+        assert list(big[name].shape) == want, name
+    tserving._scatter_row(big, one, 2)
+    for name, leaf in one.items():
+        assert torch.equal(big[name][:, 2], leaf[:, 0]), name
+        assert not big[name][:, :2].any(), name
+
+
+def check_forward_scanned(ref, tmod, jmod):
+    """``tmod.forward_scanned`` equals ``tmod.forward`` within the
+    reference's own tolerance (rtol = atol = 2e-5) and the reference's
+    ``jmod.forward_scanned`` at rel 1e-5."""
+    tc, jc = ref["tc"], ref["jc"]
+    tokens = np.random.default_rng(1).integers(0, jc.vocab, (2, 16)).astype(np.int32)
+    with torch.inference_mode():
+        h_scan, aux = tmod.forward_scanned(tc, ref["tbase"], ref["tpeft"],
+                                           torch.from_numpy(tokens))
+        h_split, _ = tmod.forward(tc, ref["tbase"], ref["tpeft"],
+                                  torch.from_numpy(tokens))
+    np.testing.assert_allclose(h_split.numpy(), h_scan.numpy(), rtol=2e-5, atol=2e-5)
+    assert float(aux) == 0.0
+    want, _ = jmod.forward_scanned(jc, ref["jbase"], ref["jpeft"], jnp.asarray(tokens))
+    assert _rel(h_scan, np.asarray(want)) <= 1e-5
 
 
 # ---------------------------------------------------------------------------
@@ -329,7 +420,7 @@ def test_adapter_cache_matches_reference(ref):
 
 def test_synthetic_store_is_deterministic_and_distinct():
     tc = tcfgs.reduce_config(tcfgs.get_config("llama2-7b"))
-    store = tac.SyntheticAdapterStore(tc, seed=3)
+    store = tac.SyntheticAdapterStore(tc, seed=3, device="cpu")
     a, again, other = store.load(1), store.load(1), store.load(2)
     for x, y, z in zip(*(tree_leaves(t["layers"]) for t in (a, again, other))):
         assert torch.equal(x, y) and not torch.equal(x, z)
@@ -337,7 +428,10 @@ def test_synthetic_store_is_deterministic_and_distinct():
     assert 0.03 < float(b.std()) < 0.07      # 0.05 * N(0, 1), not init's zeros
 
 
-def test_engine_ids_equal_reference_and_greedy(ref):
+def check_engine(ref):
+    """The port's engine on the reference's adapters and requests: ids,
+    adapter cache stats and decode steps equal the reference engine's, and
+    each request's ids equal its own greedy run."""
     tc = ref["tc"]
     store = _InjectedStore(ref["jstore"], tc)
     tcache = tac.AdapterCache(store, capacity=2)
@@ -357,6 +451,38 @@ def test_engine_ids_equal_reference_and_greedy(ref):
         assert out[req.request_id] == ids[0].tolist(), req.request_id
 
 
+def test_engine_ids_equal_reference_and_greedy(ref):
+    check_engine(ref)
+
+
+@pytest.mark.parametrize("arch,per_step", [("llama2-7b", 64), ("rwkv6-1.6b", 48),
+                                           ("zamba2-1.2b", 88)])
+def test_serve_launches_counts_every_adapted_projection(arch, per_step, monkeypatch):
+    """``chip_smoke.serve_launches`` against the multi-adapter calls an
+    engine really makes, at each arch's full depth and layer pattern
+    (reduced width, on the CPU): one a decode step per adapted projection,
+    none from the B=1 admission prefill."""
+    from repro_torch.kernels import dispatch
+    spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+    full = tcfgs.get_config(arch)
+    tc = dataclasses.replace(tcfgs.reduce_config(full), n_layers=full.n_layers,
+                             hybrid_attn_every=full.hybrid_attn_every)
+    calls = []
+    monkeypatch.setattr(dispatch, "lora_dual_multi",
+                        lambda *a: calls.append(a) or tops.lora_dual_multi(*a))
+    base = tget_model(tc).init_base(tc, torch.Generator().manual_seed(0))
+    eng = tserving.ServingEngine(
+        tc, base, tac.AdapterCache(tac.SyntheticAdapterStore(tc, device="cpu"), 2),
+        max_batch=2, cache_len=8)
+    eng.run([tserving.Request(f"r{i}", i, np.arange(4, dtype=np.int32), 3)
+             for i in range(3)])
+    want = chip_smoke.serve_launches(tc, eng.steps)
+    assert len(calls) == want["lora_dual_multi"] == per_step * eng.steps > 0
+    assert sum(want.values()) == want["lora_dual_multi"]
+
+
 def test_engine_rejects_overlong_request(ref):
     tc = ref["tc"]
     eng = tserving.ServingEngine(
@@ -372,10 +498,17 @@ def test_engine_rejects_overlong_request(ref):
 # the entry point and the port's isolation
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("engine", [False, True], ids=["greedy", "engine"])
-def test_serve_cli_runs_on_cpu(engine, capsys):
-    argv = ["--arch", "llama2-7b", "--device", "cpu", "--steps", "3",
-            "--prompt-len", "4", "--batch", "2"]
+@pytest.mark.parametrize("arch,engine", [
+    pytest.param("llama2-7b", False, id="greedy"),
+    pytest.param("llama2-7b", True, id="engine"),
+    pytest.param(None, False, id="rwkv6-1.6b-greedy"),     # the default arch
+    pytest.param(None, True, id="rwkv6-1.6b-engine"),
+    pytest.param("zamba2-1.2b", False, id="zamba2-1.2b-greedy"),
+    pytest.param("zamba2-1.2b", True, id="zamba2-1.2b-engine"),
+])
+def test_serve_cli_runs_on_cpu(arch, engine, capsys):
+    argv = ["--device", "cpu", "--steps", "3", "--prompt-len", "4", "--batch", "2"]
+    argv += ["--arch", arch] if arch else []
     if engine:
         argv += ["--engine", "3", "--cache-capacity", "2"]
     tserve.main(argv)
@@ -383,15 +516,14 @@ def test_serve_cli_runs_on_cpu(engine, capsys):
     if engine:
         assert "[serve] engine: 3 requests drained in" in out and "'evictions': 1" in out
     else:
-        assert "[serve] llama2-7b: generated (2, 3)" in out and "steady-state" in out
+        assert (f"[serve] {arch or 'rwkv6-1.6b'}: generated (2, 3)" in out
+                and "steady-state" in out)
 
 
 @pytest.mark.parametrize("argv,error", [
     (["--arch", "llama2-7b", "--telemetry", "x.jsonl"], SystemExit),
     (["--arch", "llama2-7b", "--trace-out", "t.json"], SystemExit),
-    (["--device", "cpu"], NotImplementedError),            # rwkv6: a later slice
-    (["--arch", "zamba2-1.2b", "--device", "cpu"], NotImplementedError),
-], ids=["telemetry", "trace-out", "rwkv6", "hybrid"])
+], ids=["telemetry", "trace-out"])
 def test_serve_cli_rejects_later_slices(argv, error, capsys):
     with pytest.raises(error):
         tserve.main(argv)
@@ -404,6 +536,22 @@ def test_serve_cli_raises_without_a_card():
         pytest.skip("a card is present")
     with pytest.raises(RuntimeError, match="cuda"):
         tserve.main(["--arch", "llama2-7b"])
+
+
+@pytest.mark.parametrize("argv", [[], ["--arch", "zamba2-1.2b"], ["--engine", "2"]],
+                         ids=["rwkv6-1.6b", "zamba2-1.2b", "rwkv6-1.6b-engine"])
+def test_serve_cli_families_raise_without_a_card(argv):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    with pytest.raises(RuntimeError, match="cuda"):
+        tserve.main(argv)
+
+
+def test_synthetic_store_defaults_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    with pytest.raises(RuntimeError, match="cuda"):
+        tac.SyntheticAdapterStore(tcfgs.reduce_config(tcfgs.get_config("llama2-7b")))
 
 
 def _port_sources():
