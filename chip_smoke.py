@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py                 # every phase, as a check
     python3 chip_smoke.py --only kernels  # one phase while iterating
-                                          # (kernels|parity|train|serve)
+                                          # (kernels|parity|train|serve|runtime)
 
 Phases, in order (any failure raises and exits non-zero):
   1. device   the card's name and power limit (nvidia-smi), torch's name
@@ -161,7 +161,30 @@ Phases, in order (any failure raises and exits non-zero):
               Prints end-to-end and steady-state decode tokens/s, decode
               steps, the adapter cache's stats, peak device memory and a
               profiled decode step (device busy share).
-Every kernel must have launched over phases 5, 6 and 7 (the main path). The
+  8. runtime the federation runtime (``repro_torch.fl.runtime``,
+              ``repro_torch.checkpoint``) at full published width and depth,
+              bf16: (a) roberta-large-lora, 4 clients, K=8, standard route:
+              ``FederationEngine.run_ideal`` with no wire and with an fp32
+              wire bitwise equal to the in-process round step (new PEFT,
+              server state, metrics), both comm modes, each making exactly
+              ``round_launches`` on tensor-core routes; the bf16 wire's
+              largest relative PEFT difference printed. (b)
+              ``run_training(runtime=True)`` with everything on (8 clients a
+              round from 64 over-selected 1.5x, a deadline, dropout 0.25,
+              the streaming executor, wire simulation, the mild fault
+              preset, quorum 0.5): 3 rounds straight against 2 rounds, a
+              checkpoint every round, killed and resumed to 3, the final
+              state's content hash and the history equal, for spry,
+              spry_periter and the async engine (buffer 4, concurrency 8,
+              max staleness 2); each synchronous round exactly
+              ``round_launches`` for its cohort; prints s/round, bytes up
+              and down beside Table 2's count, the wire health, survivors
+              and round peaks. (c) llama2-7b, spry K=4, the streaming
+              executor: the cohort-16 round's peak within 4 |peft| (~8
+              MiB) of the cohort-4 round's. (d) one reduced fp32 chaos round on the card
+              and on the CPU: equal wire health, survivors and dropped
+              frames, the new PEFT within 1e-5
+Every kernel must have launched over phases 5 to 8 (the main path). The
 line before the last is the ``kernels`` JSON; the last line is
 ``{"ok": true, "device": {...}}``. Without a card, or without the repo
 beside it, the script exits non-zero and prints no result.
@@ -173,6 +196,7 @@ import gc
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -2016,6 +2040,383 @@ def log_serve_profile(cfg, engine, fns, P, n=3):
 # instantiations, the SASS instruction that proves tensor-core use; DMMA:
 # the fp64 tensor cores). Every instantiation is counted: the mamba2 and
 # wkv6 kernels' tangent-store and contraction (JVPS) modes alike
+# ---------------------------------------------------------------------------
+# phase 8: the federation runtime (engines, wire, faults, checkpoints)
+# ---------------------------------------------------------------------------
+
+RUNTIME_RTOL = 1e-5              # (d) card vs CPU chaos round, fp32: new PEFT
+CHAOS_SEED = 3                   # (d): a crash, a corrupt frame, a duplicate,
+                                 # a retry and a requorum of 2 (host CPU run)
+STREAM_PEAK_PEFTS = 4            # (c) cohort 16's round peak over cohort 4's, in
+                                 # |peft| (fp32 payload bytes): a stacked cohort
+                                 # would add 12 |peft| more
+_TIMING = ("t", "round_s", "round_peak_bytes")
+
+
+def _round_equal(a_state, a_met, b_state, b_met):
+    """Bitwise: new PEFT, server state (count, moments), round index and
+    every metric."""
+    import torch
+    from repro_torch.utils.pytree import tree_leaves
+
+    def leaves(s):
+        return (tree_leaves(s.peft) + tree_leaves(s.server.m)
+                + tree_leaves(s.server.v))
+    return (a_state.round_idx == b_state.round_idx
+            and a_state.server.count == b_state.server.count
+            and sorted(a_met) == sorted(b_met)
+            and all(torch.equal(x, y) for x, y in zip(leaves(a_state), leaves(b_state)))
+            and all(torch.equal(a_met[k], b_met[k].to(a_met[k].device)) for k in a_met))
+
+
+def _counted(what, fn, want, totals, path_totals):
+    """``fn()`` with every launch counter zeroed just before and read just
+    after; the launches must equal ``want`` (None: not checked) and every
+    route a tensor-core one (``check_paths``). Adds them to the totals."""
+    import torch
+    from repro_torch.kernels import launch_counts, launch_paths, reset_launch_counts
+    reset_launch_counts()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t
+    counts, paths = launch_counts(), launch_paths()
+    if want is not None and counts != want:
+        raise AssertionError(f"runtime {what}: launches {counts} != {want}")
+    check_paths(f"runtime {what}", paths, path_totals)
+    for k, n in counts.items():
+        totals[k] += n
+    return out, secs, counts, paths
+
+
+def _live_peft(cfg, gen, sc, device):
+    """``init_peft`` with every LoRA B drawn non-zero (B = 0 at init), so
+    the LoRA path is live."""
+    import torch
+    from repro_torch.peft import init_peft
+    peft = init_peft(cfg, gen, sc)
+    for t in peft["layers"].values():
+        t["B"] = 0.1 * torch.randn(t["B"].shape, generator=gen, device=device)
+    return peft
+
+
+def runtime_bit_identity(totals, path_totals):
+    """(a) roberta-large-lora at full width and depth (bf16), 4 clients,
+    K=8, standard route: ``FederationEngine.run_ideal`` against the
+    in-process round step, both comm modes, with no wire and with an fp32
+    wire bitwise, each making exactly ``round_launches``; the bf16 wire's
+    largest relative PEFT difference printed."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import SpryConfig, get_config
+    from repro_torch.core import init_state, make_round_step, make_round_step_per_iteration
+    from repro_torch.fl.runtime import FederationEngine, WireConfig
+    from repro_torch.models import get_model
+    from repro_torch.utils.pytree import tree_leaves
+
+    cfg = dataclasses.replace(get_config("roberta-large-lora"), n_classes=2)
+    M, K = 4, 8
+    sc = SpryConfig(n_clients_per_round=M, k_perturbations=K, local_lr=5e-3,
+                    server_lr=1e-2, seed=0)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    state = init_state(get_model(cfg).init_base(cfg, gen),
+                       _live_peft(cfg, gen, sc, "cuda"))
+    rng = np.random.default_rng(0)
+    batch = {"tokens": torch.as_tensor(rng.integers(0, cfg.vocab, (M, 8, 32)),
+                                       device="cuda"),
+             "labels": torch.as_tensor(rng.integers(0, 2, (M, 8)), device="cuda")}
+    want = round_launches(cfg, "standard", M)
+    for mode in ("per_epoch", "per_iteration"):
+        step = (make_round_step if mode == "per_epoch"
+                else make_round_step_per_iteration)(cfg, sc)
+        (rs, rm), step_s, _, _ = _counted(f"round step {mode}", lambda: step(state, batch),
+                                          want, totals, path_totals)
+        res = {"mode": mode, "round_step_s": step_s}
+        for wire in ("none", "fp32", "bf16"):
+            eng = FederationEngine(cfg, sc, comm_mode=mode, wire=WireConfig(
+                simulate=wire != "none", dtype="fp32" if wire == "none" else wire))
+            (es, em), secs, counts, paths = _counted(
+                f"run_ideal {mode} wire {wire}", lambda: eng.run_ideal(state, batch),
+                want, totals, path_totals)
+            res[f"wire_{wire}_s"] = secs
+            if wire == "bf16":
+                res["bf16_wire_max_rel_peft_diff"] = max(
+                    float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+                    for a, b in zip(tree_leaves(es.peft), tree_leaves(rs.peft)))
+            else:
+                res[f"wire_{wire}_bitwise"] = _round_equal(rs, rm, es, em)
+        res.update(launches=counts, paths=paths)
+        log(f"[runtime] (a) roberta-large-lora bf16, {M} clients K={K}, standard route, "
+            f"run_ideal vs the in-process round step: " + json.dumps(res))
+        if not (res["wire_none_bitwise"] and res["wire_fp32_bitwise"]):
+            raise AssertionError(f"runtime (a) {mode}: the engine's round differs from "
+                                 f"the round step's: {res}")
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _history(h):
+    return json.dumps([{k: v for k, v in e.items() if k not in _TIMING} for e in h],
+                      sort_keys=True)
+
+
+_HOST_SPLIT = (
+    ("checkpoint_writes", re.compile(r"checkpoint state_\d+\.npz written \(([\d.]+)s\)")),
+    ("checkpoint_loads", re.compile(r"resumed from .* \(load ([\d.]+)s\)")),
+    ("personalized_accuracy", re.compile(r"personalized_acc=\S+ \(([\d.]+)s\)")))
+
+
+def _host_split(lines):
+    """(calls, seconds) of the checkpoint writes, loads and personalized
+    evals that ``run_training`` logged."""
+    out = {}
+    for name, pat in _HOST_SPLIT:
+        secs = [float(m.group(1)) for m in map(pat.search, lines) if m]
+        out[name] = {"calls": len(secs), "s": sum(secs)}
+    return out
+
+
+def runtime_entry_point(totals, path_totals):
+    """(b) ``run_training(runtime=True)`` at roberta-large-lora's full width
+    and depth (bf16) with everything on: spry K=8, 8 clients a round from
+    64 over-selected 1.5x, a 30 s deadline, dropout 0.25, the streaming
+    executor (2 clients a chunk), wire simulation, the mild fault preset,
+    quorum 0.5, a checkpoint every round. 3 rounds straight (its final
+    state's content hash is the reference), then 2 rounds, killed, and
+    resumed to 3 in another directory: the final state's content hash and
+    the history (timings aside) must be equal, and the runs must have
+    logged 6 checkpoint writes. The same for spry_periter and for the async
+    engine (buffer 4, concurrency 8, max staleness 2, 3 versions). A
+    synchronous round must make exactly ``round_launches`` for its cohort
+    (12 clients, each one estimate). The host seconds of the checkpoint
+    writes, loads and personalized evals are read from ``run_training``'s
+    log lines."""
+    import dataclasses
+    import shutil
+    import tempfile
+    from repro_torch.checkpoint import read_manifest
+    from repro_torch.configs import get_config
+    from repro_torch.fl import comm_cost
+    from repro_torch.launch.train import run_training
+
+    cfg = dataclasses.replace(get_config("roberta-large-lora"), n_classes=2)
+    n_units, w_l, cohort = 2 * cfg.n_layers, 2 * cfg.d_model, 12
+    root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    lines = []
+
+    def run_log(line):
+        lines.append(line)
+        log("  " + line)
+    try:
+        for name, kw in (("spry", {"method": "spry"}),
+                         ("spry_periter", {"method": "spry_periter"}),
+                         ("async", {"method": "spry", "async_mode": True,
+                                    "buffer_size": 4, "async_concurrency": 8,
+                                    "max_staleness": 2})):
+            common = dict(arch="roberta-large-lora", task="sst2", rounds=3,
+                          clients_per_round=8, total_clients=64, batch_size=8,
+                          k_perturbations=8, eval_every=1, reduced=False,
+                          device="cuda", runtime=True, over_select=1.5,
+                          deadline=30.0, dropout_rate=0.25, runtime_microbatch=2,
+                          wire_simulate=True, faults="mild", quorum=0.5,
+                          checkpoint_every=1, log=run_log, **kw)
+            a, b = os.path.join(root, name + "_straight"), os.path.join(root, name + "_killed")
+            full, straight_s, _, _ = _counted(f"{name} straight", lambda: run_training(
+                checkpoint_dir=a, **common), None, totals, path_totals)
+            _, killed_s, _, _ = _counted(f"{name} killed", lambda: run_training(
+                checkpoint_dir=b, **dict(common, rounds=2)), None, totals, path_totals)
+            resumed, resumed_s, _, _ = _counted(f"{name} resumed", lambda: run_training(
+                checkpoint_dir=b, resume=True, **common), None, totals, path_totals)
+            host_s = _host_split(lines)
+            lines.clear()
+            ma, mb = read_manifest(a), read_manifest(b)
+            mode = "per_iteration" if name == "spry_periter" else "per_epoch"
+            table2 = comm_cost("spry", mode, w_l, n_units, cohort)
+            rounds, prev_up, prev_down = [], 0, 0
+            for e in full:
+                r = {"round": e["round"], "round_s": e["round_s"],
+                     "round_peak_GiB": e["round_peak_bytes"] / 2 ** 30,
+                     "loss": e["loss"], "health": e["health"]}
+                if name == "async":
+                    r.update(bytes_up=e["bytes_up"] - prev_up,
+                             bytes_down=e["bytes_down"] - prev_down,
+                             staleness=e["staleness"], sim_time_s=e["sim_time_s"])
+                    prev_up, prev_down = e["bytes_up"], e["bytes_down"]
+                else:
+                    r.update(bytes_up=e["round_bytes_up"], bytes_down=e["round_bytes_down"],
+                             survivors=e["survivors"], cohort=e["cohort"],
+                             dropped_frame_ids=e["dropped_frame_ids"],
+                             round_skipped=e["round_skipped"])
+                    want = round_launches(cfg, "standard", e["cohort"])
+                    if e["launches"] != want:
+                        raise AssertionError(f"runtime (b) {name} round {e['round']}: "
+                                             f"launches {e['launches']} != {want}")
+                h = e["health"]
+                r["bytes_up_per_transmission"] = (r["bytes_up"] / h["transmissions"]
+                                                  if h["transmissions"] else None)
+                rounds.append(r)
+            res = {"run": name, "straight_s": straight_s, "killed_s": killed_s,
+                   "resumed_s": resumed_s,
+                   "checkpoints_written": host_s["checkpoint_writes"]["calls"],
+                   "host_split_of_the_three_runs": host_s,
+                   "table2_payload_bytes_a_frame": 4 * table2.client_to_server,
+                   "table2_note": "fp32 scalars of the assigned units (per_epoch, "
+                                  "the head's 2050 more not counted) or the K jvps "
+                                  "(per_iteration: Table 2's 1 scalar a perturbation)",
+                   "rounds": rounds,
+                   "state_file_bytes": os.path.getsize(os.path.join(a, ma.state_file)),
+                   "content_hash": [ma.content_hash[:16], mb.content_hash[:16]],
+                   "history_equal": _history(full) == _history(resumed)}
+            if name == "spry_periter":
+                res["table2_payload_bytes_a_frame"] = 4 * 8    # K=8 jvps
+            log(f"[runtime] (b) run_training roberta-large-lora {name}, everything on, "
+                f"3 rounds straight vs killed at 2 and resumed: " + json.dumps(res))
+            # a checkpoint every round: 3 straight, 2 killed, 1 resumed
+            if not (ma.content_hash == mb.content_hash and res["history_equal"]
+                    and ma.round_idx == mb.round_idx == 3
+                    and res["checkpoints_written"] == 6):
+                raise AssertionError(f"runtime (b) {name}: the resumed run differs from "
+                                     f"the straight one: {res}")
+            shutil.rmtree(a)
+            shutil.rmtree(b)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def runtime_streaming_memory(totals, path_totals):
+    """(c) llama2-7b at full width and depth (bf16), spry K=4, the streaming
+    executor (2 clients a chunk): one round at cohort 4 and one at cohort 16
+    from the same state; the cohort-16 round's peak (weights included) must
+    stay within STREAM_PEAK_PEFTS·|peft| (~8 MiB) of the cohort-4 round's:
+    the accumulator is (m+1)·|peft| at any cohort, while payloads kept
+    alive across the cohort would add |peft| a client."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import SpryConfig, get_config
+    from repro_torch.core import enumerate_units, init_state
+    from repro_torch.core.assignment import assignment_matrix
+    from repro_torch.fl.runtime import CohortPlan, FederationEngine, SerialExecutor
+    from repro_torch.models import get_model
+    from repro_torch.utils.pytree import tree_leaves
+
+    cfg = dataclasses.replace(get_config("llama2-7b"), n_classes=2)
+    sc = SpryConfig(n_clients_per_round=16, k_perturbations=4, local_lr=5e-3,
+                    server_lr=1e-2, seed=0)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    state = init_state(get_model(cfg).init_base(cfg, gen),
+                       _live_peft(cfg, gen, sc, "cuda"))
+    n_units = enumerate_units(state.peft).n_units
+    peft_bytes = 4 * sum(x.numel() for x in tree_leaves(state.peft))
+    slack = STREAM_PEAK_PEFTS * peft_bytes
+    eng = FederationEngine(cfg, sc, executor=SerialExecutor(microbatch=2))
+    rng = np.random.default_rng(0)
+    res = {}
+    for C in (4, 16):
+        plan = CohortPlan(round_idx=0, client_ids=np.arange(C), seed_ids=np.arange(
+            C, dtype=np.int32), mask_matrix=assignment_matrix(n_units, C, 0).numpy(),
+            latencies=np.zeros(C), deadline=float("inf"), keep=np.ones(C, bool),
+            assignments=[], n_requested=C)
+        batch = {"tokens": torch.as_tensor(rng.integers(0, cfg.vocab, (C, 8, 32)),
+                                           device="cuda"),
+                 "labels": torch.as_tensor(rng.integers(0, 2, (C, 8)), device="cuda")}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        (_, metrics, rep), secs, _, _ = _counted(
+            f"streaming cohort {C}", lambda: eng.run_round(state, plan, batch),
+            round_launches(cfg, "standard", C), totals, path_totals)
+        res[C] = {"round_s": secs, "round_peak_GiB": torch.cuda.max_memory_allocated() / 2 ** 30,
+                  "loss": float(metrics["loss"]),
+                  "agg_bytes_streaming": rep.agg_bytes_streaming,
+                  "agg_bytes_stacked": rep.agg_bytes_stacked}
+    grew = (res[16]["round_peak_GiB"] - res[4]["round_peak_GiB"]) * 2 ** 30
+    log(f"[runtime] (c) llama2-7b bf16 spry K=4, streaming executor (2 clients a "
+        f"chunk), round peak at cohort 4 and 16 (weights included; limit "
+        f"{STREAM_PEAK_PEFTS} |peft| = {slack / 2 ** 20:.2f} MiB more): "
+        + json.dumps({"cohort_4": res[4], "cohort_16": res[16], "peft_bytes": peft_bytes,
+                      "peak_growth_MiB": grew / 2 ** 20}))
+    if not (grew <= slack and math.isfinite(res[16]["loss"])
+            and res[4]["agg_bytes_streaming"] == res[16]["agg_bytes_streaming"]
+            == 3 * peft_bytes):
+        raise AssertionError(f"runtime (c): cohort 16's round peak grew {grew} bytes "
+                             f"(limit {slack}): {res}")
+    del state, eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def runtime_card_vs_cpu():
+    """(d) one reduced fp32 chaos round (6 clients, 2 of them in the
+    over-selection pool, quorum 4, crashes, corruption, loss and NaN
+    poisoning) on the card (kernels) and on the CPU (plain versions), the
+    same weights, batch, perturbations and fault seed: equal WireHealth,
+    survivors and dropped frame ids, the new PEFT within RUNTIME_RTOL."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import SpryConfig, get_config, reduce_config
+    from repro_torch.core import enumerate_units, init_state, stacked_perturbations
+    from repro_torch.core.assignment import assignment_matrix
+    from repro_torch.fl.runtime import CohortPlan, FaultConfig, FederationEngine, WireConfig
+    from repro_torch.models import get_model
+    from repro_torch.utils.pytree import tree_leaves, tree_map
+
+    cfg = dataclasses.replace(reduce_config(get_config("roberta-large-lora")), n_classes=2)
+    M, K = 6, 4
+    sc = SpryConfig(n_clients_per_round=M, k_perturbations=K, local_lr=5e-3,
+                    server_lr=1e-2, seed=0)
+    gen = torch.Generator(device="cpu")
+    gen.manual_seed(0)
+    base, peft = get_model(cfg).init_base(cfg, gen), _live_peft(cfg, gen, sc, "cpu")
+    rng = np.random.default_rng(0)
+    batch = {"tokens": torch.as_tensor(rng.integers(0, cfg.vocab, (M, 4, 32))),
+             "labels": torch.as_tensor(rng.integers(0, 2, (M, 4)))}
+    perts = [[stacked_perturbations(1000 + m, peft, list(range(K)))] for m in range(M)]
+    n_units = enumerate_units(peft).n_units
+    plan = CohortPlan(round_idx=0, client_ids=np.arange(M), seed_ids=np.arange(
+        M, dtype=np.int32), mask_matrix=assignment_matrix(n_units, M, 0).numpy(),
+        latencies=np.arange(1.0, M + 1), deadline=4.5,
+        keep=np.arange(M) < 4, assignments=[], n_requested=M)
+    faults = dict(crash_rate=0.15, corrupt_rate=0.3, loss_rate=0.2, nan_rate=0.15,
+                  seed=CHAOS_SEED)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        to = lambda t: tree_map(lambda x: x.to(dev), t)  # noqa: E731
+        eng = FederationEngine(cfg, sc, wire=WireConfig(simulate=True),
+                               faults=FaultConfig(**faults), quorum=4)
+        out[dev] = eng.run_round(init_state(to(base), to(peft)), plan, to(batch),
+                                 [[to(p[0])] for p in perts])
+    torch.cuda.synchronize()
+    (cs, cm, cr), (gs, gm, gr) = out["cpu"], out["cuda"]
+    rel = max(float((g.cpu() - c).abs().max() / c.abs().max().clamp(min=1e-30))
+              for g, c in zip(tree_leaves(gs.peft), tree_leaves(cs.peft)))
+    res = {"health_cpu": dataclasses.asdict(cr.health),
+           "health_card": dataclasses.asdict(gr.health),
+           "survivors": [cr.n_validated, gr.n_validated],
+           "dropped_frame_ids": [cr.dropped_frame_ids, gr.dropped_frame_ids],
+           "loss": [float(cm["loss"]), float(gm["loss"])], "peft_rel_err": rel}
+    log(f"[runtime] (d) reduced roberta fp32 chaos round, card (kernels) vs cpu "
+        f"(limit {RUNTIME_RTOL}): " + json.dumps(res))
+    if not (res["health_cpu"] == res["health_card"] and cr.n_validated == gr.n_validated
+            and cr.dropped_frame_ids == gr.dropped_frame_ids and not cr.round_skipped
+            and rel <= RUNTIME_RTOL):
+        raise AssertionError(f"runtime (d): card and cpu chaos rounds disagree: {res}")
+
+
+def phase_runtime(totals, path_totals):
+    for name, part in (("(a) bit identity", runtime_bit_identity),
+                       ("(b) entry point", runtime_entry_point),
+                       ("(c) streaming memory", runtime_streaming_memory),
+                       ("(d) card vs cpu", lambda *_: runtime_card_vs_cpu())):
+        tp = time.time()
+        part(totals, path_totals)
+        log(f"[runtime] {name} {time.time() - tp:.1f}s")
+
+
 TENSOR_CORE_KERNELS = (("lora_dual", "lora_mt_tc_kernel", "HGMMA"),
                        ("lora_dual", "lora_jvps_tc_kernel", "HGMMA"),
                        ("swa_attention", "swa_tc_kernel", "HMMA"),
@@ -2052,7 +2453,7 @@ def log_tensor_core_sass(build):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description="On-card smoke test of repro_torch")
-    ap.add_argument("--only", choices=("kernels", "parity", "train", "serve"),
+    ap.add_argument("--only", choices=("kernels", "parity", "train", "serve", "runtime"),
                     default=None,
                     help="run one phase; 'train' covers the site and train phases")
     args = ap.parse_args(argv)
@@ -2151,10 +2552,14 @@ def main(argv=None):
             "engines (simt must be 0): " + json.dumps(
                 {r: n - before[r] for r, n in path_totals["lora_dual_multi"].items()}))
     log(f"[phase] serve {time.time() - tp:.1f}s")
+    tp = time.time()
+    if args.only in (None, "runtime"):
+        phase_runtime(totals, path_totals)
+    log(f"[phase] runtime {time.time() - tp:.1f}s")
     if args.only is None:
         missing = [k for k, n in totals.items() if n == 0]
         if missing:
-            raise AssertionError(f"main path never launched {missing}")
+            raise AssertionError(f"main path (phases 5-8) never launched {missing}")
     log(f"[done] {time.time() - t0:.1f}s")
     kernels = []
     for name in KERNELS:

@@ -82,10 +82,10 @@ class SpryConfig:
     server_lr: float = 1e-2              # eta
     server_opt: str = "fedyogi"          # fedyogi | fedadam | fedavg | fedsgd | fedadagrad
     client_opt: str = "sgd"              # sgd | adamw (backprop baselines)
-    comm_mode: str = "per_epoch"         # per_epoch | per_iteration: read only
-                                         # by the reference's runtime engines,
-                                         # not ported; make_round_step raises
-                                         # on per_iteration
+    comm_mode: str = "per_epoch"         # per_epoch | per_iteration: the
+                                         # runtime engines' default mode
+                                         # (fl.runtime); make_round_step
+                                         # raises on per_iteration
     local_iters: int = 1
     microbatch_size: int | None = None   # grad-accumulation chunk (None = full batch)
     jvp_clip: float | None = None

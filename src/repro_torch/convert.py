@@ -19,7 +19,7 @@ from repro_torch.utils.pytree import tree_map, tree_paths
 
 def _to_torch(a, device):
     a = np.asarray(a)
-    if a.dtype.name == "bfloat16":   # ml_dtypes bfloat16 has no torch view
+    if a.dtype.name == "bfloat16":   # the reference's numpy bfloat16 has no torch view
         return torch.from_numpy(a.astype(np.float32)).to(device, torch.bfloat16)
     return torch.from_numpy(np.array(a)).to(device)   # a writable copy
 

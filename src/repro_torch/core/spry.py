@@ -225,7 +225,7 @@ def make_round_step(cfg, spry_cfg, task: str = "cls", split: bool = True):
         raise NotImplementedError(
             f"comm_mode {spry_cfg.comm_mode!r}: make_round_step runs per-epoch "
             f"rounds; the per-iteration round is make_round_step_per_iteration, "
-            f"and the runtime engines that read comm_mode are not ported")
+            f"and fl.runtime.FederationEngine runs either comm_mode")
     M = spry_cfg.n_clients_per_round
     client_update = make_client_update_fn(cfg, spry_cfg, task)
 

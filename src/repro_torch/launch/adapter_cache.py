@@ -1,6 +1,6 @@
 """Paged multi-tenant LoRA adapter cache for serving. Port of
 ``repro/launch/adapter_cache.py`` (``SyntheticAdapterStore``,
-``AdapterCache``).
+``CheckpointAdapterStore``, ``AdapterCache``).
 
 A deployment finetunes one PEFT tree per client (the paper's federated
 personalisation); serving then decodes requests from many clients against
@@ -11,16 +11,18 @@ recently used unpinned page on overflow. Where the reference rebinds its
 buffers functionally, a page is written here in place.
 
 Stores supply the per-client trees: ``SyntheticAdapterStore`` fabricates
-deterministic distinct adapters. Reading adapters from per-client
-checkpoints (the reference's ``CheckpointAdapterStore``) waits for the
-port's checkpoint module.
+deterministic distinct adapters; ``CheckpointAdapterStore`` reads the npz
+pytrees that ``checkpoint.io.save_pytree`` wrote for each client's
+finetuned peft state (bf16 adapters bit for bit).
 """
 from __future__ import annotations
 
 from collections import OrderedDict
+from pathlib import Path
 
 import torch
 
+from repro_torch.checkpoint.io import load_pytree, save_pytree
 from repro_torch.configs import SpryConfig
 from repro_torch.core.forward_grad import fold_in
 from repro_torch.launch.train import resolve_device
@@ -62,6 +64,30 @@ class SyntheticAdapterStore:
                                            device=self.device)).to(leaf.dtype)
             leaves.append(leaf)
         return tree_unflatten_like(tree, leaves)
+
+
+class CheckpointAdapterStore:
+    """Adapters from per-client checkpoint files (``adapter_<aid>.npz``
+    pytrees in ``directory``, the format ``checkpoint.io`` writes).
+    ``template`` supplies the tree structure, and each leaf's device and
+    dtype, that npz restoration needs."""
+
+    def __init__(self, directory, template):
+        self.directory = Path(directory)
+        self._template = template
+
+    def template(self):
+        return self._template
+
+    def path(self, aid: int) -> str:
+        return str(self.directory / f"adapter_{aid}.npz")
+
+    def save(self, aid: int, tree) -> None:
+        self.directory.mkdir(parents=True, exist_ok=True)
+        save_pytree(self.path(aid), tree)
+
+    def load(self, aid: int):
+        return load_pytree(self.path(aid), self._template)
 
 
 class AdapterCache:

@@ -1,4 +1,4 @@
-"""FL-simulation training driver of the port (in-process simulator path).
+"""FL-simulation training driver of the port.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch roberta-large-lora \
         --task sst2 --method spry --rounds 100 --clients 8 --out history.json
@@ -6,12 +6,18 @@
 ``--arch`` takes roberta-large-lora, llama2-7b, zamba2-1.2b or rwkv6-1.6b
 (reduced unless ``--full-size``).
 
-Port of ``repro/launch/train.py``'s in-process path: synthetic task ->
+Port of ``repro/launch/train.py``. The in-process path: synthetic task ->
 Dirichlet partition -> client sampling -> round step (SPRY on either
 estimator route, or a baseline) -> server update, with test accuracy at
-every eval round and the personalized accuracy at the end. Runs on CUDA
-unless ``--device cpu`` is given; asking for CUDA without a card raises.
-TF32 is switched off for matmuls and cuDNN: the reference is fp32-exact.
+every eval round and the personalized accuracy at the end. ``--runtime``
+drives spry / spry_periter rounds through the federation runtime instead
+(a lazy client population, the cohort scheduler with over-selection,
+deadline and dropout, the round engine with wire frames, faults and
+quorum); ``--async`` through the FedBuff engine. ``--checkpoint-dir``
+writes crash-safe checkpoints and ``--resume`` continues from one, bit
+for bit. Runs on CUDA unless ``--device cpu`` is given; asking for CUDA
+without a card raises. TF32 is switched off for matmuls and cuDNN: the
+reference is fp32-exact.
 """
 from __future__ import annotations
 
@@ -23,8 +29,15 @@ import time
 import numpy as np
 import torch
 
+from repro_torch.checkpoint import (
+    decode_async_snapshot,
+    encode_async_snapshot,
+    load_checkpoint,
+    save_checkpoint,
+)
 from repro_torch.configs import SpryConfig, get_config, reduce_config
 from repro_torch.core import (
+    enumerate_units,
     estimator_route,
     forward_gradient,
     init_state,
@@ -40,6 +53,17 @@ from repro_torch.core.baselines import (
 from repro_torch.data import make_task
 from repro_torch.data.loader import ClientDataset, stack_client_batches
 from repro_torch.fl import dirichlet_partition, sample_clients
+from repro_torch.fl.runtime import (
+    AsyncConfig,
+    AsyncFederationEngine,
+    ClientPopulation,
+    CohortScheduler,
+    FaultConfig,
+    FederationEngine,
+    SerialExecutor,
+    ShardedExecutor,
+    WireConfig,
+)
 from repro_torch.kernels import launch_counts
 from repro_torch.kernels.dispatch import forward_ad_region
 from repro_torch.models import cls_logits, get_model
@@ -56,14 +80,8 @@ _LR_DEFAULTS = {
     "fedavgsplit": (5e-2, 1.0),
     "fedmezo": (5e-3, 1e-2), "baffle": (5e-3, 1e-2), "fwdllm": (5e-3, 1e-2),
 }
-# reference flags whose paths are later port slices
-_NOT_PORTED = ("--runtime", "--runtime-executor", "--runtime-microbatch",
-               "--async", "--buffer-size", "--staleness-decay",
-               "--async-concurrency", "--max-staleness", "--over-select",
-               "--deadline", "--dropout-rate", "--wire-dtype",
-               "--wire-simulate", "--faults", "--quorum", "--checkpoint-dir",
-               "--checkpoint-every", "--resume", "--telemetry", "--trace-out",
-               "--prom-out")
+# reference flags whose paths are a later port slice (telemetry sinks)
+_NOT_PORTED = ("--telemetry", "--trace-out", "--prom-out")
 
 
 def resolve_device(device: str) -> torch.device:
@@ -143,19 +161,61 @@ def build_round_step(cfg, sc: SpryConfig, method: str, task="cls"):
     raise ValueError(f"unknown method {method!r}; known: {METHODS}")
 
 
+def _engine_entry(report, async_mode):
+    """The engine report's fields an eval entry keeps (JSON-safe)."""
+    if async_mode:
+        return {"sim_time_s": report.sim_time_s, "staleness": report.staleness,
+                "utilization": report.utilization,
+                "health": dataclasses.asdict(report.health)}
+    return {"cohort": report.cohort_size, "survivors": report.n_validated,
+            "round_bytes_up": report.bytes_up,
+            "round_bytes_down": report.bytes_down,
+            "round_skipped": report.round_skipped,
+            "dropped_frame_ids": report.dropped_frame_ids,
+            "health": (None if report.health is None
+                       else dataclasses.asdict(report.health))}
+
+
 def run_training(arch="roberta-large-lora", task="sst2", method="spry",
                  rounds=100, clients_per_round=8, total_clients=32,
                  batch_size=8, local_iters=1, local_lr=None, server_lr=None,
                  dirichlet_alpha=0.1, seed=0, eval_every=10, reduced=True,
                  k_perturbations=1, jvp_clip=None, tangent_batch=None,
-                 fused_contraction=False, device="cuda", log=print):
+                 fused_contraction=False, device="cuda", log=print,
+                 runtime=False, runtime_executor="serial",
+                 runtime_microbatch=None, over_select=1.0, deadline=None,
+                 dropout_rate=0.0, wire_dtype="fp32", wire_simulate=False,
+                 faults=None, quorum=None, checkpoint_dir=None,
+                 checkpoint_every=1, resume=False, async_mode=False,
+                 buffer_size=4, staleness_decay=0.5, async_concurrency=None,
+                 max_staleness=None):
     """Run ``rounds`` rounds of ``method``; returns the eval history (one
     entry per eval round: round, acc, loss, round_s, round_peak_bytes (the
     round's peak device memory on CUDA, else None), the round's kernel
     launches, t, and the estimator route for the forward-gradient methods;
-    the last also carries personalized_acc)."""
+    on the runtime path also the byte totals and the engine's report; the
+    last also carries personalized_acc). The runtime and checkpoint
+    parameters are the reference's (``--faults`` implies wire simulation,
+    ``async_mode`` implies ``runtime``)."""
     if method not in METHODS:
         raise ValueError(f"unknown method {method!r}; known: {METHODS}")
+    if async_mode:
+        runtime = True          # the async engine is a runtime path
+    # fault injection rides the simulated wire (frames must exist to be
+    # corrupted), so faults imply wire simulation on the runtime path
+    if isinstance(faults, str):
+        faults = FaultConfig.parse(faults, seed=seed)
+    if faults is not None and not faults.any_faults:
+        faults = None
+    if faults is not None:
+        if not runtime:
+            raise ValueError("--faults requires --runtime (the chaotic wire "
+                             "lives in the federation engine)")
+        wire_simulate = True
+    if runtime and method not in ("spry", "spry_periter"):
+        raise ValueError(f"--runtime supports spry/spry_periter, not {method!r}")
+    if resume and not checkpoint_dir:
+        raise ValueError("--resume requires --checkpoint-dir")
     dev = resolve_device(device)
     cfg = get_config(arch)
     if reduced:
@@ -185,28 +245,135 @@ def run_training(arch="roberta-large-lora", task="sst2", method="spry",
     gen.manual_seed(seed)
     base = get_model(cfg).init_base(cfg, gen)
     state = init_state(base, init_peft(cfg, gen, sc))
-    parts = dirichlet_partition(y_tr, total_clients, dirichlet_alpha, seed=seed)
-    client_data = [ClientDataset(x_tr, y_tr, idx) for idx in parts]
-    step_fn, kind = build_round_step(cfg, sc, method)
-    if kind == "zo":
-        state = init_zo_state(state)
+
+    engine = scheduler = None
+    if runtime:
+        comm_mode = "per_epoch" if method == "spry" else "per_iteration"
+        population = ClientPopulation(x_tr, y_tr, n_clients=total_clients,
+                                      alpha=dirichlet_alpha, seed=seed)
+        wire = WireConfig(dtype=wire_dtype, simulate=wire_simulate or async_mode)
+        if async_mode:
+            engine = AsyncFederationEngine(
+                cfg, sc, population, task="cls", comm_mode=comm_mode,
+                async_cfg=AsyncConfig(
+                    buffer_size=buffer_size, staleness_decay=staleness_decay,
+                    concurrency=(async_concurrency if async_concurrency
+                                 else max(clients_per_round, buffer_size)),
+                    max_staleness=max_staleness, seed=seed),
+                wire=wire, faults=faults)
+        else:
+            scheduler = CohortScheduler(
+                population, clients_per_round, over_select=over_select,
+                deadline=deadline, dropout_rate=dropout_rate, seed=seed)
+            executor = (ShardedExecutor(microbatch=runtime_microbatch)
+                        if runtime_executor == "sharded"
+                        else SerialExecutor(microbatch=runtime_microbatch))
+            engine = FederationEngine(
+                cfg, sc, task="cls", comm_mode=comm_mode, executor=executor,
+                wire=wire, faults=faults, quorum=quorum)
+            n_units = enumerate_units(state.peft).n_units
+        client_data = [ClientDataset(x_tr, y_tr, population.shard(c))
+                       for c in range(min(total_clients, 8))]
+    else:
+        parts = dirichlet_partition(y_tr, total_clients, dirichlet_alpha,
+                                    seed=seed)
+        client_data = [ClientDataset(x_tr, y_tr, idx) for idx in parts]
+        step_fn, kind = build_round_step(cfg, sc, method)
+        if kind == "zo":
+            state = init_zo_state(state)
 
     def the_state(s):
         return s.inner if isinstance(s, ZOState) else s
 
     history = []
+    bytes_up_total = bytes_down_total = 0
+    start_round = 0
+    if resume:
+        # the manifest carries everything the loop consumes host-side (round
+        # index, host rng state, history, byte totals); the round key is
+        # fold_in(seed, round_idx) and every perturbation is drawn from a
+        # generator seeded per key, so restoring the state and round index
+        # replays the remaining rounds bit for bit
+        t_load = time.perf_counter()
+        state, man = load_checkpoint(checkpoint_dir, state)
+        load_s = time.perf_counter() - t_load
+        if man.algo_seed != seed:
+            raise ValueError(f"checkpoint seed {man.algo_seed} != run seed "
+                             f"{seed}: refusing to splice trajectories")
+        start_round = man.round_idx
+        history = list(man.history)
+        bytes_up_total = int(man.extra.get("bytes_up_total", 0))
+        bytes_down_total = int(man.extra.get("bytes_down_total", 0))
+        if man.rng_state is not None:
+            rng.bit_generator.state = man.rng_state
+        if async_mode:
+            # async determinism rides on the virtual-time snapshot: the event
+            # heap (in-flight frames byte for byte), the staleness buffer,
+            # the clock and the dispatch counter
+            if "async" not in man.extra:
+                raise ValueError("--async --resume needs a checkpoint written "
+                                 "by an async run (no snapshot in the manifest)")
+            engine.restore(decode_async_snapshot(man.extra["async"]))
+        log(f"[{method}] resumed from {checkpoint_dir} at round {start_round} "
+            f"(load {load_s:.2f}s)")
+
+    def maybe_checkpoint(r):
+        if not checkpoint_dir:
+            return
+        if (r + 1) % max(1, checkpoint_every) != 0 and r != rounds - 1:
+            return
+        extra = {"bytes_up_total": bytes_up_total,
+                 "bytes_down_total": bytes_down_total}
+        if async_mode:
+            extra["async"] = encode_async_snapshot(engine.snapshot())
+        t_save = time.perf_counter()
+        man = save_checkpoint(checkpoint_dir, state, round_idx=r + 1,
+                              algo_seed=seed, rng_state=rng.bit_generator.state,
+                              history=history, extra=extra)
+        log(f"[{method}] checkpoint {man.state_file} written "
+            f"({time.perf_counter() - t_save:.2f}s)")
+
+    def personalized():
+        t_p = time.perf_counter()
+        acc = personalized_accuracy(cfg, the_state(state), client_data, x_tr,
+                                    y_tr, rng, dev)
+        log(f"[{method}] personalized_acc={acc:.4f} "
+            f"({time.perf_counter() - t_p:.2f}s)")
+        return acc
+
     t0 = time.time()
-    for r in range(rounds):
-        chosen = sample_clients(rng, total_clients, clients_per_round)
-        bx, by = stack_client_batches([client_data[c] for c in chosen], rng,
-                                      batch_size)
+    if start_round >= rounds:
+        # the checkpoint covers the whole run; only the final personalized
+        # eval may be outstanding
+        if history and "personalized_acc" not in history[-1]:
+            history[-1]["personalized_acc"] = personalized()
+        return history
+    for r in range(start_round, rounds):
         before = launch_counts()
         if dev.type == "cuda":          # the round's own peak, not init's
             torch.cuda.reset_peak_memory_stats(dev)
         t_round = time.perf_counter()
-        state, metrics = step_fn(state, {
-            "tokens": torch.as_tensor(bx, device=dev),
-            "labels": torch.as_tensor(by, device=dev)})
+        report = None
+        if async_mode:
+            state, metrics, report = engine.run_version(state, batch_size)
+            # async reports carry engine-lifetime byte totals (restored
+            # across resume by the snapshot): assign, don't accumulate
+            bytes_up_total, bytes_down_total = report.bytes_up, report.bytes_down
+        elif engine is not None:
+            plan = scheduler.plan_round(r, n_units, sc.seed)
+            bx, by = scheduler.round_batch(plan, batch_size)
+            state, metrics, report = engine.run_round(state, plan, {
+                "tokens": torch.as_tensor(bx, device=dev),
+                "labels": torch.as_tensor(by, device=dev)})
+            bytes_up_total += report.bytes_up
+            bytes_down_total += report.bytes_down
+        else:
+            chosen = sample_clients(rng, total_clients, clients_per_round)
+            bx, by = stack_client_batches([client_data[c] for c in chosen],
+                                          rng, batch_size)
+            state, metrics = step_fn(state, {
+                "tokens": torch.as_tensor(bx, device=dev),
+                "labels": torch.as_tensor(by, device=dev)})
         _sync(dev)
         round_s = time.perf_counter() - t_round
         launches = {k: n - before[k] for k, n in launch_counts().items()}
@@ -227,20 +394,33 @@ def run_training(arch="roberta-large-lora", task="sst2", method="spry",
                      "launches": launches, "t": time.time() - t0}
             if "fused_route" in metrics:
                 entry["route"] = "fused" if float(metrics["fused_route"]) else "standard"
+            extra = ""
+            if report is not None:
+                entry.update(bytes_up=bytes_up_total, bytes_down=bytes_down_total,
+                             **_engine_entry(report, async_mode))
+                extra = f" up={bytes_up_total/1e6:.2f}MB down={bytes_down_total/1e6:.2f}MB"
+                if async_mode:
+                    extra += (f" sim_t={report.sim_time_s:.0f}s staleness="
+                              f"{np.mean(report.staleness):.1f} "
+                              f"util={report.utilization:.2f}")
+                else:
+                    extra += f" survivors={report.n_validated}/{report.cohort_size}"
+                    if report.round_skipped:
+                        extra += " [below quorum: round skipped]"
             history.append(entry)
             log(f"[{method}] round {r+1:4d} loss={loss:.4f} "
-                f"test_acc={acc:.4f} ({time.time()-t0:.0f}s)")
-    history[-1]["personalized_acc"] = personalized_accuracy(
-        cfg, the_state(state), client_data, x_tr, y_tr, rng, dev)
-    log(f"[{method}] personalized_acc={history[-1]['personalized_acc']:.4f}")
+                f"test_acc={acc:.4f} ({time.time()-t0:.0f}s){extra}")
+        maybe_checkpoint(r)
+    history[-1]["personalized_acc"] = personalized()
     return history
 
 
 def _not_ported(flag, entry="train"):
     class _Reject(argparse.Action):
         def __call__(self, parser, namespace, values, option_string=None):
-            parser.error(f"{flag} is not ported to repro_torch yet (later "
-                         f"slice); run it with python -m repro.launch.{entry}")
+            parser.error(f"{flag} is not ported to repro_torch yet (the "
+                         f"telemetry sinks are a later slice); run it with "
+                         f"python -m repro.launch.{entry}")
     return _Reject
 
 
@@ -276,6 +456,52 @@ def build_parser():
     ap.add_argument("--out", default=None,
                     help="write the eval history (one entry per eval round) "
                          "to this JSON file")
+    ap.add_argument("--runtime", action="store_true",
+                    help="drive rounds through the federation runtime "
+                         "(fl/runtime: scheduler -> executor -> engine)")
+    ap.add_argument("--runtime-executor", default="serial",
+                    choices=("serial", "sharded"),
+                    help="sharded (the reference's shard_map over TPU "
+                         "devices) has no one-GPU meaning and raises")
+    ap.add_argument("--runtime-microbatch", type=int, default=None,
+                    help="clients per executor chunk (None = whole cohort; "
+                         "finite = streaming aggregation)")
+    ap.add_argument("--async", dest="async_mode", action="store_true",
+                    help="event-driven FedBuff engine: clients stream updates "
+                         "as they finish; the server aggregates the first "
+                         "--buffer-size validated arrivals with staleness-"
+                         "weighted combination (implies --runtime)")
+    ap.add_argument("--buffer-size", type=int, default=4,
+                    help="async: validated arrivals per server step (B)")
+    ap.add_argument("--staleness-decay", type=float, default=0.5,
+                    help="async: a in w = 1/(1+s)^a (0 = ignore staleness)")
+    ap.add_argument("--async-concurrency", type=int, default=None,
+                    help="async: clients kept in flight (default: "
+                         "max(--clients, --buffer-size))")
+    ap.add_argument("--max-staleness", type=int, default=None,
+                    help="async: drop updates staler than this many versions")
+    ap.add_argument("--over-select", type=float, default=1.0)
+    ap.add_argument("--deadline", type=float, default=None,
+                    help="straggler cutoff seconds (None = 90%% quantile)")
+    ap.add_argument("--dropout-rate", type=float, default=0.0)
+    ap.add_argument("--wire-dtype", default="fp32",
+                    choices=("fp32", "bf16", "fp16"))
+    ap.add_argument("--wire-simulate", action="store_true",
+                    help="route every update through a serialized frame")
+    ap.add_argument("--faults", default=None,
+                    help="chaos schedule: 'mild'/'aggressive' preset or "
+                         "'crash_rate=0.1,corrupt_rate=0.2,...' (implies "
+                         "--wire-simulate; requires --runtime)")
+    ap.add_argument("--quorum", type=float, default=None,
+                    help="min validated survivors per round: fraction of the "
+                         "requested cohort if <= 1.0, else an absolute count")
+    ap.add_argument("--checkpoint-dir", default=None,
+                    help="crash-safe checkpoint directory (atomic state + "
+                         "manifest every --checkpoint-every rounds)")
+    ap.add_argument("--checkpoint-every", type=int, default=1)
+    ap.add_argument("--resume", action="store_true",
+                    help="resume from --checkpoint-dir's manifest, replaying "
+                         "the remaining rounds bit for bit")
     for flag in _NOT_PORTED:
         ap.add_argument(flag, nargs="?", action=_not_ported(flag),
                         help=argparse.SUPPRESS)
@@ -292,7 +518,18 @@ def main(argv=None):
                  seed=args.seed, reduced=not args.full_size,
                  k_perturbations=args.k, jvp_clip=args.jvp_clip,
                  tangent_batch=args.tangent_batch,
-                 fused_contraction=args.fused_contraction, device=args.device)
+                 fused_contraction=args.fused_contraction, device=args.device,
+                 runtime=args.runtime, runtime_executor=args.runtime_executor,
+                 runtime_microbatch=args.runtime_microbatch,
+                 over_select=args.over_select, deadline=args.deadline,
+                 dropout_rate=args.dropout_rate, wire_dtype=args.wire_dtype,
+                 wire_simulate=args.wire_simulate, faults=args.faults,
+                 quorum=args.quorum, checkpoint_dir=args.checkpoint_dir,
+                 checkpoint_every=args.checkpoint_every, resume=args.resume,
+                 async_mode=args.async_mode, buffer_size=args.buffer_size,
+                 staleness_decay=args.staleness_decay,
+                 async_concurrency=args.async_concurrency,
+                 max_staleness=args.max_staleness)
     if args.out:
         with open(args.out, "w") as f:
             json.dump(hist, f, indent=1)
