@@ -141,6 +141,11 @@ Phases, in order (any failure raises and exits non-zero):
               admissions mid-flight and an eviction): every decode step's
               logits within SERVE_RTOL, equal ids and cache stats, exactly
               ``serve_launches``, the smallest top-2 logit margin printed.
+              The reduced llama2 engine on the card with telemetry and
+              without (``serve_telemetry``): equal ids, the same
+              ``lora_dual_multi`` launches by route, one ``request`` event
+              a request with the reference's fields, the
+              ``adapter_cache.*`` counters equal to the cache's stats.
               Then llama2-7b, rwkv6-1.6b and zamba2-1.2b at full width and
               depth in bf16 through ``launch/serve.py``: ``run_engine`` (8
               requests on 6 adapters, max_batch 4, capacity 4, P=16, 32 new
@@ -179,7 +184,13 @@ Phases, in order (any failure raises and exits non-zero):
               max staleness 2); each synchronous round exactly
               ``round_launches`` for its cohort; prints s/round, bytes up
               and down beside Table 2's count, the wire health, survivors
-              and round peaks. (c) llama2-7b, spry K=4, the streaming
+              and round peaks. The straight runs record telemetry and the
+              others not, so the equalities hold it neutral; its JSONL,
+              Chrome trace and Prometheus file are checked
+              (``check_telemetry``: event kinds, a ``wire_health`` event a
+              round with health, ``fl.rounds``, the byte counters against
+              the history, 3 round spans, the ``post_round_1`` memory
+              event's peak equal to the first round's). (c) llama2-7b, spry K=4, the streaming
               executor: the cohort-16 round's peak within 4 |peft| (~8
               MiB) of the cohort-4 round's. (d) one reduced fp32 chaos round on the card
               and on the CPU: equal wire health, survivors and dropped
@@ -1678,6 +1689,54 @@ def phase_serve_parity(arch="llama2-7b", **overrides):
         raise AssertionError(f"serve parity {what}: card engine disagrees with cpu {res}")
 
 
+# the reference's ``request`` event (``repro/launch/serving.py``): envelope + fields
+REQUEST_EVENT_KEYS = {"ts", "run_id", "kind", "request_id", "adapter_id", "prompt_len",
+                      "gen_tokens", "ttft_s", "latency_s", "tok_per_sec"}
+
+
+def serve_telemetry(arch="llama2-7b"):
+    """The reduced ``arch`` engine on the card through ``run_engine``, with
+    telemetry (in memory) and without: 5 requests over 3 adapters, max_batch
+    2, capacity 2 (admissions mid-flight and evictions). Token ids
+    bitwise equal, the same ``lora_dual_multi`` launches by route, one
+    ``request`` event a request with the reference's fields, and the
+    ``adapter_cache.*`` counters equal to ``AdapterCache.stats()``."""
+    import torch
+    from repro_torch.configs import get_config, reduce_config
+    from repro_torch.kernels import launch_counts, launch_paths, reset_launch_counts
+    from repro_torch.launch.serve import run_engine
+    from repro_torch.obs import InMemorySink, Telemetry
+
+    cfg = reduce_config(get_config(arch))
+    runs = {}
+    for on in (False, True):
+        sink = InMemorySink()
+        tel = Telemetry(run_id=f"chip-smoke-serve-{arch}", sinks=[sink]) if on else None
+        reset_launch_counts()
+        out, eng = run_engine(cfg, 5, 8, 6, max_batch=2, cache_capacity=2,
+                              telemetry=tel, n_adapters=3, device="cuda")
+        torch.cuda.synchronize()
+        runs[on] = (out, launch_counts()["lora_dual_multi"],
+                    launch_paths()["lora_dual_multi"], eng.adapters.stats(), sink, tel)
+    (out_off, n_off, paths_off, _, _, _), (out_on, n_on, paths_on, stats, sink, tel) = (
+        runs[False], runs[True])
+    reqs = sink.by_kind("request")
+    counters = tel.metrics_snapshot()["counters"]
+    cache_counters = {k: int(counters[f"adapter_cache.{k}"])
+                      for k in ("hits", "misses", "evictions")}
+    res = {"ids_equal": out_on == out_off, "lora_dual_multi": [n_on, n_off],
+           "by_route": [paths_on, paths_off], "request_events": len(reqs),
+           "request_keys_equal": all(set(e) == REQUEST_EVENT_KEYS for e in reqs),
+           "adapter_cache_counters": cache_counters, "adapter_cache_stats": stats,
+           "serve.requests": counters["serve.requests"]}
+    log(f"[serve] reduced {arch} engine, telemetry on vs off: " + json.dumps(res))
+    if not (res["ids_equal"] and n_on == n_off > 0 and paths_on == paths_off
+            and len(reqs) == len(out_on) == 5 and res["request_keys_equal"]
+            and cache_counters == {k: stats[k] for k in cache_counters}
+            and counters["serve.requests"] == 5):
+        raise AssertionError(f"serve telemetry {arch}: {res}")
+
+
 # full-depth bf16 logits, engine vs greedy, per arch: about twice the largest
 # reading on the H100 (PERF.md, Findings). llama2-7b: 0.078-0.084 with the
 # kernel, of logits with max 4.5: the kernel rounds x@W + s*u@B once where
@@ -2193,7 +2252,10 @@ def runtime_entry_point(totals, path_totals):
     synchronous round must make exactly ``round_launches`` for its cohort
     (12 clients, each one estimate). The host seconds of the checkpoint
     writes, loads and personalized evals are read from ``run_training``'s
-    log lines."""
+    log lines. The straight runs record telemetry (JSONL, Prometheus file,
+    Chrome trace) and the killed and resumed runs do not, so the equalities
+    above also hold telemetry on to telemetry off; ``check_telemetry``
+    then reads the artifacts."""
     import dataclasses
     import shutil
     import tempfile
@@ -2201,6 +2263,7 @@ def runtime_entry_point(totals, path_totals):
     from repro_torch.configs import get_config
     from repro_torch.fl import comm_cost
     from repro_torch.launch.train import run_training
+    from repro_torch.obs import make_telemetry
 
     cfg = dataclasses.replace(get_config("roberta-large-lora"), n_classes=2)
     n_units, w_l, cohort = 2 * cfg.n_layers, 2 * cfg.d_model, 12
@@ -2224,9 +2287,15 @@ def runtime_entry_point(totals, path_totals):
                           wire_simulate=True, faults="mild", quorum=0.5,
                           checkpoint_every=1, log=run_log, **kw)
             a, b = os.path.join(root, name + "_straight"), os.path.join(root, name + "_killed")
+            art = {k: os.path.join(root, f"{name}_telemetry.{k}")
+                   for k in ("jsonl", "prom", "trace")}
+            tel = make_telemetry(jsonl=art["jsonl"], prometheus=art["prom"],
+                                 run_id=f"chip-smoke-{name}", workload="train")
             full, straight_s, _, _ = _counted(f"{name} straight", lambda: run_training(
-                checkpoint_dir=a, **common), None, totals, path_totals)
-            _, killed_s, _, _ = _counted(f"{name} killed", lambda: run_training(
+                checkpoint_dir=a, telemetry=tel, **common), None, totals, path_totals)
+            tel.export_chrome_trace(art["trace"])
+            tel.close()
+            killed, killed_s, _, _ = _counted(f"{name} killed", lambda: run_training(
                 checkpoint_dir=b, **dict(common, rounds=2)), None, totals, path_totals)
             resumed, resumed_s, _, _ = _counted(f"{name} resumed", lambda: run_training(
                 checkpoint_dir=b, resume=True, **common), None, totals, path_totals)
@@ -2280,10 +2349,67 @@ def runtime_entry_point(totals, path_totals):
                     and res["checkpoints_written"] == 6):
                 raise AssertionError(f"runtime (b) {name}: the resumed run differs from "
                                      f"the straight one: {res}")
+            check_telemetry(name, art, full, killed)
             shutil.rmtree(a)
             shutil.rmtree(b)
     finally:
         shutil.rmtree(root, ignore_errors=True)
+
+
+def check_telemetry(name, art, full, killed):
+    """(b)'s telemetry artifacts of one straight run (``full``: its
+    history): every JSONL line carries the envelope, the reference's event
+    kinds occur, a ``wire_health`` event for every synchronous round with
+    health, ``fl.rounds`` 3 and the byte counters equal to the history's
+    bytes (sync: the sum of its round bytes; async: its last totals), 3
+    round spans in the Chrome trace, ``fl_bytes_up`` in the Prometheus
+    file, and the ``post_round_1`` memory event's ``peak_bytes_in_use`` the
+    first round's ``round_peak_bytes``. Prints the event counts by kind,
+    the artifacts' bytes and ``round_s`` on (this run) vs off (``killed``,
+    its first two rounds)."""
+    from collections import Counter
+    from repro_torch.obs import load_chrome_trace
+
+    sync = name != "async"
+    with open(art["jsonl"]) as f:
+        events = [json.loads(line) for line in f if line.strip()]
+    kinds = Counter(e.get("kind") for e in events)
+    counters = [e for e in events if e.get("kind") == "metrics"][-1]["metrics"]["counters"]
+    mem = {e["label"]: e for e in events if e.get("kind") == "memory"}
+    spans = [e for e in load_chrome_trace(art["trace"])["traceEvents"]
+             if e["ph"] == "X" and e["name"] == ("fl.round" if sync else "fl.async.version")]
+    if sync:
+        want_up = sum(e["round_bytes_up"] for e in full)
+        want_down = sum(e["round_bytes_down"] for e in full)
+    else:
+        want_up, want_down = full[-1]["bytes_up"], full[-1]["bytes_down"]
+    health_rounds = sorted(e["round"] - 1 for e in full if sync and e["health"] is not None)
+    with open(art["prom"]) as f:
+        prom = f.read()
+    checks = {
+        "envelope": all({"ts", "run_id", "kind"} <= e.keys() for e in events),
+        "kinds": {"run_meta", "round" if sync else "async_round", "eval", "memory",
+                  "personalized_eval", "metrics"} <= kinds.keys(),
+        "wire_health": sorted(e["round"] for e in events
+                              if e.get("kind") == "wire_health") == health_rounds,
+        "fl.rounds": counters.get("fl.rounds") == (3 if sync else None),
+        "bytes": (counters["fl.bytes_up"], counters["fl.bytes_down"])
+        == (want_up, want_down),
+        "trace_spans": len(spans) == 3,
+        "prometheus": "fl_bytes_up" in prom,
+        "post_round_1_peak": mem["post_round_1"]["device_stats"]["cuda:0"][
+            "peak_bytes_in_use"] == full[0]["round_peak_bytes"]}
+    res = {"run": name, "events_by_kind": dict(kinds),
+           "artifact_bytes": {k: os.path.getsize(p) for k, p in art.items()},
+           "round_s_on": [e["round_s"] for e in full],
+           "round_s_off": [e["round_s"] for e in killed],
+           "bytes_up": [counters["fl.bytes_up"], want_up],
+           "post_round_1_peak_bytes": [mem["post_round_1"]["device_stats"]["cuda:0"][
+               "peak_bytes_in_use"], full[0]["round_peak_bytes"]],
+           "checks": checks}
+    log(f"[runtime] (b) telemetry {name}: " + json.dumps(res))
+    if not all(checks.values()):
+        raise AssertionError(f"runtime (b) telemetry {name}: {res}")
 
 
 def runtime_streaming_memory(totals, path_totals):
@@ -2543,6 +2669,7 @@ def main(argv=None):
         phase_serve_parity()
         phase_serve_parity("rwkv6-1.6b")
         phase_serve_parity("zamba2-1.2b", n_layers=3, hybrid_attn_every=2)
+        serve_telemetry()
         before = dict(path_totals["lora_dual_multi"])
         for arch in ("llama2-7b", "rwkv6-1.6b", "zamba2-1.2b"):
             phase_serve(arch, totals, path_totals, smi)

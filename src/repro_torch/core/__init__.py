@@ -27,4 +27,5 @@ from repro_torch.core.spry import (
     make_round_step,
     make_round_step_per_iteration,
     make_task_loss,
+    run_fields,
 )

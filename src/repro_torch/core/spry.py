@@ -69,6 +69,21 @@ def estimator_route(spry_cfg) -> str:
     return "fused" if spry_cfg.fused_contraction else "standard"
 
 
+def run_fields(spry_cfg) -> dict:
+    """Static estimator facts stamped on run artifacts (telemetry
+    ``run_meta`` events, report headers): the active route plus the knobs
+    that select it."""
+    return {
+        "route": estimator_route(spry_cfg),
+        "k_perturbations": int(spry_cfg.k_perturbations),
+        "tangent_batch": (int(spry_cfg.tangent_batch)
+                          if spry_cfg.tangent_batch is not None else None),
+        "local_iters": int(spry_cfg.local_iters),
+        "local_lr": float(spry_cfg.local_lr),
+        "server_lr": float(spry_cfg.server_lr),
+    }
+
+
 def _estimate(loss_of, peft, key, spry_cfg, mask_tree, injected):
     return forward_gradient(
         loss_of, peft, key, k_perturbations=spry_cfg.k_perturbations,

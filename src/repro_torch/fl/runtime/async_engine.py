@@ -38,10 +38,17 @@ As the sync engine, the engine takes the round steps' optional
 ``perturbations`` (``perturbations[seed_id][iter]``; the seed id is the
 global dispatch index, so each dispatch has its own), used by the clients
 and by the per-iteration rebuild, so tests can inject the reference's draws.
+
+Telemetry (``telemetry=``, default ``NULL``) records host-side: the
+``fl.async.version`` span, the ``fl.async.*`` and fault counters as events
+happen, the byte counters as each version's increment, and an
+``async_round`` event after each server step. It is never an input of a
+computation, so telemetry on is bitwise telemetry off.
 """
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -73,6 +80,7 @@ from repro_torch.fl.runtime.messages import (
     decode_frame,
 )
 from repro_torch.fl.server import server_update
+from repro_torch.obs import NULL
 from repro_torch.utils.pytree import tree_leaves, tree_map
 
 ASYNC_SNAPSHOT_SCHEMA = "repro.async/v1"
@@ -134,8 +142,9 @@ class AsyncFederationEngine:
     def __init__(self, cfg, spry_cfg, population, task: str = "cls",
                  comm_mode: Optional[str] = None,
                  async_cfg: Optional[AsyncConfig] = None,
-                 wire: Optional[WireConfig] = None, faults=None,
-                 norm_outlier_mult: float = 100.0, perturbations=None):
+                 wire: Optional[WireConfig] = None, telemetry=None,
+                 faults=None, norm_outlier_mult: float = 100.0,
+                 perturbations=None):
         self.cfg = cfg
         self.spry_cfg = spry_cfg
         self.population = population
@@ -172,6 +181,33 @@ class AsyncFederationEngine:
 
         self._n_units: Optional[int] = None
         self._assign_rows: Dict[int, np.ndarray] = {}
+        # cumulative totals already pushed to the byte counters (the report
+        # carries running totals; telemetry must only see each version's
+        # increment)
+        self._bytes_up_reported = 0
+        self._bytes_down_reported = 0
+
+        # host-side telemetry ONLY: no computation takes this object, so
+        # telemetry on computes the same versions
+        tel = telemetry if telemetry is not None else NULL
+        self.telemetry = tel
+        self._tc_steps = tel.counter("fl.async.server_steps")
+        self._tc_dispatches = tel.counter("fl.async.dispatches")
+        self._tc_used = tel.counter("fl.async.updates_used")
+        self._tc_discarded = tel.counter("fl.async.updates_discarded")
+        self._tc_useful_s = tel.counter("fl.async.useful_compute_s")
+        self._tc_wasted_s = tel.counter("fl.async.discarded_compute_s")
+        self._tc_bytes_up = tel.counter("fl.bytes_up")
+        self._tc_bytes_down = tel.counter("fl.bytes_down")
+        self._tg_buffer = tel.gauge("fl.async.buffer")
+        self._tg_loss = tel.gauge("fl.loss")
+        self._th_staleness = tel.histogram(
+            "fl.async.staleness", buckets=(0, 1, 2, 4, 8, 16, 32, 64, 128))
+        self._tc_quarantined = tel.counter("fl.quarantined")
+        self._tc_lost = tel.counter("fl.lost_updates")
+        self._tc_crashed = tel.counter("fl.crashed_clients")
+        self._tc_dups = tel.counter("fl.duplicate_frames")
+        self._tc_invalid = tel.counter("fl.invalid_payloads")
 
     # ------------------------------------------------------------------
     # dispatch / arrival
@@ -211,6 +247,7 @@ class AsyncFederationEngine:
             cohort_size=cfg.concurrency, seed=self.spry_cfg.seed,
             n_units=self._n_units, unit_ids=unit_ids, hparams={})
         self.bytes_down += assignment.byte_size()
+        self._tc_dispatches.inc()
 
         ev: Dict[str, Any] = {"client_id": cid, "dispatch_version":
                               self.version, "compute_s": float(comp),
@@ -272,10 +309,12 @@ class AsyncFederationEngine:
         if ev["crashed"]:
             health.crashed += 1
             self._waste(comp)
+            self._tc_crashed.inc()
             return
         if not ev["frames"]:
             health.lost += 1
             self._waste(comp)
+            self._tc_lost.inc()
             return
         buffered_ids = {e["update"].seed_id for e in self.buffer}
         landed = False
@@ -287,10 +326,12 @@ class AsyncFederationEngine:
                 health.quarantined += 1
                 health.failure_kinds[e.kind] = \
                     health.failure_kinds.get(e.kind, 0) + 1
+                self._tc_quarantined.inc()
                 continue
             if not isinstance(dec, ClientUpdate) \
                     or dec.seed_id in buffered_ids:
                 health.duplicates += 1
+                self._tc_dups.inc()
                 continue
             buffered_ids.add(dec.seed_id)
             health.accepted += 1
@@ -301,10 +342,13 @@ class AsyncFederationEngine:
             landed = True
         if not landed:
             self._waste(comp)
+        self._tg_buffer.set(len(self.buffer))
 
     def _waste(self, comp: float) -> None:
         self.discarded_compute_s += comp
         self.updates_discarded += 1
+        self._tc_discarded.inc()
+        self._tc_wasted_s.add(comp)
 
     # ------------------------------------------------------------------
     # aggregation
@@ -338,6 +382,7 @@ class AsyncFederationEngine:
             if len(valid) < B:
                 bad = set(range(B)) - valid
                 health.invalid += len(bad)
+                self._tc_invalid.add(len(bad))
                 for i in sorted(bad):
                     self._waste(head[i]["compute_s"])
                 self.buffer = [e for i, e in enumerate(self.buffer)
@@ -400,6 +445,11 @@ class AsyncFederationEngine:
         for e in entries:
             self.useful_compute_s += e["compute_s"]
             self.updates_used += 1
+            self._tc_used.inc()
+            self._tc_useful_s.add(e["compute_s"])
+        for s in stale.tolist():
+            self._th_staleness.observe(float(s))
+        self._tc_steps.inc()
 
         metrics = {
             "loss": torch.tensor(np.float32(np.average(losses, weights=w64))),
@@ -428,22 +478,26 @@ class AsyncFederationEngine:
                 f"engine version {self.version} out of step with "
                 f"state.round_idx {int(state.round_idx)} — restore() the "
                 f"matching snapshot when resuming")
+        tel = self.telemetry
+        t_wall = time.perf_counter()
         health = WireHealth()
         agg = None
         guard = 0
-        while agg is None:
-            guard += 1
-            if guard > self.async_cfg.max_events_per_step:
-                raise RuntimeError(
-                    f"no aggregation after {guard} events — buffer "
-                    f"cannot fill (check max_staleness / faults)")
-            while len(self.heap) < self.async_cfg.concurrency:
-                self._dispatch(state, batch_size, health)
-            t, _, ev = self.heap.pop()
-            self.clock = float(t)
-            self.events_processed += 1
-            self._on_arrival(ev, health)
-            state, agg = self._try_aggregate(state, health)
+        with tel.span("fl.async.version", version=self.version,
+                      comm_mode=self.comm_mode):
+            while agg is None:
+                guard += 1
+                if guard > self.async_cfg.max_events_per_step:
+                    raise RuntimeError(
+                        f"no aggregation after {guard} events — buffer "
+                        f"cannot fill (check max_staleness / faults)")
+                while len(self.heap) < self.async_cfg.concurrency:
+                    self._dispatch(state, batch_size, health)
+                t, _, ev = self.heap.pop()
+                self.clock = float(t)
+                self.events_processed += 1
+                self._on_arrival(ev, health)
+                state, agg = self._try_aggregate(state, health)
 
         report = AsyncRoundReport(
             version=self.version, sim_time_s=self.clock,
@@ -454,7 +508,41 @@ class AsyncFederationEngine:
             useful_compute_s=self.useful_compute_s,
             discarded_compute_s=self.discarded_compute_s,
             events_processed=self.events_processed, health=health)
-        return state, agg["metrics"], report
+        metrics = agg["metrics"]
+        if tel.enabled:
+            self._record_version(metrics, report,
+                                 time.perf_counter() - t_wall)
+        return state, metrics, report
+
+    def _record_version(self, metrics, report: AsyncRoundReport,
+                        wall_s: float) -> None:
+        """Host-side recording on the version's RETURNED values (the float()
+        conversions copy already-computed tensors to the host)."""
+        host = {k: float(v) for k, v in metrics.items()}
+        self._tg_loss.set(host["loss"])
+        self._tc_bytes_up.add(report.bytes_up - self._bytes_up_reported)
+        self._tc_bytes_down.add(report.bytes_down
+                                - self._bytes_down_reported)
+        self._bytes_up_reported = report.bytes_up
+        self._bytes_down_reported = report.bytes_down
+        self.telemetry.event(
+            "async_round",
+            version=report.version,
+            comm_mode=self.comm_mode,
+            loss=host["loss"],
+            delta_norm=host.get("delta_norm"),
+            staleness=report.staleness,
+            staleness_mean=host.get("staleness_mean"),
+            buffer_occupancy=report.buffer_occupancy,
+            in_flight=report.in_flight,
+            sim_time_s=round(report.sim_time_s, 6),
+            bytes_up=report.bytes_up,
+            bytes_down=report.bytes_down,
+            useful_compute_s=round(report.useful_compute_s, 6),
+            discarded_compute_s=round(report.discarded_compute_s, 6),
+            utilization=round(report.utilization, 6),
+            wall_s=round(wall_s, 6),
+        )
 
     # ------------------------------------------------------------------
     # checkpoint / resume
@@ -498,6 +586,9 @@ class AsyncFederationEngine:
         self.events_processed = int(snap["events_processed"])
         self.bytes_up = int(snap["bytes_up"])
         self.bytes_down = int(snap["bytes_down"])
+        # don't re-emit pre-snapshot traffic to this process's counters
+        self._bytes_up_reported = self.bytes_up
+        self._bytes_down_reported = self.bytes_down
         self.useful_compute_s = float(snap["useful_compute_s"])
         self.discarded_compute_s = float(snap["discarded_compute_s"])
         self.updates_used = int(snap["updates_used"])

@@ -42,11 +42,18 @@ updates were already computed) or skips the server step and carries the
 round forward. Dropout-corrected unit counts and all survivor metrics
 derive from the VALIDATED survivor set only. With faults disabled the
 engine takes the plain paths (bit-identity preserved).
+
+Telemetry (``telemetry=``, default ``NULL``) records host-side, after the
+round, on the values it returned: the ``fl.round`` span and its phases,
+the ``fl.*`` counters, gauges and histograms, and the ``round`` and
+``wire_health`` events. It is never an input of the round, so telemetry on
+is bitwise telemetry off.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
+import time
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -72,6 +79,7 @@ from repro_torch.fl.runtime.messages import (
 )
 from repro_torch.fl.runtime.population import CohortPlan
 from repro_torch.fl.server import server_update
+from repro_torch.obs import NULL
 from repro_torch.utils.pytree import tree_leaves, tree_map
 
 
@@ -216,8 +224,8 @@ def _metrics(spry_cfg, comm_mode, losses, jvps, keep, delta):
 class FederationEngine:
     def __init__(self, cfg, spry_cfg, task: str = "cls",
                  comm_mode: Optional[str] = None, executor=None,
-                 wire: Optional[WireConfig] = None, faults=None,
-                 quorum: Optional[float] = None,
+                 wire: Optional[WireConfig] = None, telemetry=None,
+                 faults=None, quorum: Optional[float] = None,
                  norm_outlier_mult: float = 100.0):
         self.cfg = cfg
         self.spry_cfg = spry_cfg
@@ -240,6 +248,31 @@ class FederationEngine:
         if self.comm_mode not in ("per_epoch", "per_iteration"):
             raise ValueError(self.comm_mode)
         self.executor = executor if executor is not None else SerialExecutor()
+        # host-side telemetry on already-returned values only: no round
+        # body takes this object, so telemetry on computes the same round
+        tel = telemetry if telemetry is not None else NULL
+        self.telemetry = tel
+        self._tc_rounds = tel.counter("fl.rounds")
+        self._tc_bytes_up = tel.counter("fl.bytes_up")
+        self._tc_bytes_down = tel.counter("fl.bytes_down")
+        self._tc_stragglers = tel.counter("fl.stragglers")
+        self._tg_survivors = tel.gauge("fl.survivors")
+        self._tg_mask_units = tel.gauge("fl.surviving_mask_units")
+        self._tg_loss = tel.gauge("fl.loss")
+        self._tg_jvp = tel.gauge("fl.jvp_abs_mean")
+        self._tg_delta = tel.gauge("fl.delta_norm")
+        self._th_round_s = tel.histogram("fl.round_seconds")
+        # fault-tolerance observability (host-side, zero-cost when clean)
+        self._tc_quarantined = tel.counter("fl.quarantined")
+        self._tc_corrupt = tel.counter("fl.corrupt_frames")
+        self._tc_lost = tel.counter("fl.lost_updates")
+        self._tc_crashed = tel.counter("fl.crashed_clients")
+        self._tc_dups = tel.counter("fl.duplicate_frames")
+        self._tc_retried = tel.counter("fl.retried_attempts")
+        self._tc_invalid = tel.counter("fl.invalid_payloads")
+        self._tc_requorumed = tel.counter("fl.requorumed")
+        self._tc_skipped = tel.counter("fl.rounds_skipped")
+        self._th_retries = tel.histogram("fl.retries_per_round")
         # whole-cohort serial execution keeps the per-client payloads and
         # aggregates them with the round step's own aggregate_payloads
         # (bit-identity); a microbatched executor streams instead
@@ -414,6 +447,8 @@ class FederationEngine:
         """Execute one scheduled round. ``batch`` leaves (tensors on the
         model's device) lead with the plan's cohort axis. Returns (state,
         metrics, RoundReport)."""
+        tel = self.telemetry
+        t_round = time.perf_counter()
         index = enumerate_units(state.peft)
         quorum_n = self._resolve_quorum(plan)
         extra: Dict[str, Any] = {}
@@ -427,22 +462,26 @@ class FederationEngine:
             self.executor, np.asarray(plan.seed_ids, np.int32),
             plan.mask_matrix, batch, keep)
 
-        if self.faults is not None:
-            new_state, metrics, bytes_up, extra = self._run_chaos(
-                state, seed_ids, mask_rows, keep_p, batch_p, plan, quorum_n,
-                perturbations)
-        elif not quorum_met:
-            new_state, metrics = self._skip_round(state)
-            bytes_up = 0
-        elif self.wire.simulate:
-            new_state, metrics, bytes_up = self._run_simulated(
-                state, seed_ids, mask_rows, keep_p, batch_p, plan, keep_eff,
-                perturbations)
-        else:
-            new_state, metrics = self._round_direct(
-                state, seed_ids, mask_rows, keep_p, batch_p, perturbations)
-            bytes_up = self._estimate_uplink(state.peft, index, plan,
-                                             keep_override=keep_eff)
+        with tel.span("fl.round", round=int(plan.round_idx),
+                      cohort=plan.cohort_size, comm_mode=self.comm_mode):
+            if self.faults is not None:
+                new_state, metrics, bytes_up, extra = self._run_chaos(
+                    state, seed_ids, mask_rows, keep_p, batch_p, plan,
+                    quorum_n, perturbations)
+            elif not quorum_met:
+                new_state, metrics = self._skip_round(state)
+                bytes_up = 0
+            elif self.wire.simulate:
+                new_state, metrics, bytes_up = self._run_simulated(
+                    state, seed_ids, mask_rows, keep_p, batch_p, plan,
+                    keep_eff, perturbations)
+            else:
+                with tel.span("fl.execute"):
+                    new_state, metrics = self._round_direct(
+                        state, seed_ids, mask_rows, keep_p, batch_p,
+                        perturbations)
+                bytes_up = self._estimate_uplink(state.peft, index, plan,
+                                                 keep_override=keep_eff)
 
         if self.faults is None:
             skipped = not quorum_met
@@ -483,7 +522,80 @@ class FederationEngine:
             round_skipped=bool(skipped),
             health=health,
         )
+        if tel.enabled:
+            self._record_round(plan, metrics, report,
+                               time.perf_counter() - t_round)
         return new_state, metrics, report
+
+    def _record_round(self, plan: CohortPlan, metrics, report: RoundReport,
+                      wall_s: float) -> None:
+        """Host-side recording on the round's RETURNED values: the float()
+        conversions below copy already-computed tensors to the host (waiting
+        for them on the card), never a recompute — the metrics handed back
+        to the caller are untouched (bitwise identity asserted in tests).
+        The clients' ``jvps`` are not a scalar and not recorded."""
+        host = {k: float(v) for k, v in metrics.items() if k != "jvps"}
+        # survivors/stragglers derive from the VALIDATED survivor set the
+        # aggregator actually used (n_validated == n_survivors on the clean
+        # path), so telemetry can never drift from the aggregation
+        stragglers = report.cohort_size - report.n_validated
+        mask_units = float(
+            np.asarray(plan.mask_matrix)[np.asarray(plan.keep, bool)].sum())
+        self._tc_rounds.inc()
+        self._tc_bytes_up.add(report.bytes_up)
+        self._tc_bytes_down.add(report.bytes_down)
+        self._tc_stragglers.add(stragglers)
+        self._tg_survivors.set(report.n_validated)
+        self._tg_mask_units.set(mask_units)
+        self._tg_loss.set(host["loss"])
+        if "jvp_abs_mean" in host:
+            self._tg_jvp.set(host["jvp_abs_mean"])
+        if "delta_norm" in host:
+            self._tg_delta.set(host["delta_norm"])
+        self._th_round_s.observe(wall_s)
+        if report.round_skipped:
+            self._tc_skipped.inc()
+        h = report.health
+        if h is not None:
+            self._tc_quarantined.add(h.quarantined)
+            self._tc_corrupt.add(h.failure_kinds.get("corrupt", 0)
+                                 + h.failure_kinds.get("truncated", 0))
+            self._tc_lost.add(h.lost)
+            self._tc_crashed.add(h.crashed)
+            self._tc_dups.add(h.duplicates)
+            self._tc_retried.add(h.retries)
+            self._tc_invalid.add(h.invalid)
+            self._tc_requorumed.add(h.requorumed)
+            self._th_retries.observe(h.retries)
+            self.telemetry.event(
+                "wire_health",
+                round=report.round_idx,
+                quorum=report.quorum,
+                quorum_met=report.quorum_met,
+                round_skipped=report.round_skipped,
+                dropped_frame_ids=report.dropped_frame_ids,
+                **dataclasses.asdict(h),
+            )
+        self.telemetry.event(
+            "round",
+            round=report.round_idx,
+            comm_mode=self.comm_mode,
+            route=("fused" if host.get("fused_route") else "standard"),
+            loss=host["loss"],
+            jvp_abs_mean=host.get("jvp_abs_mean"),
+            delta_norm=host.get("delta_norm"),
+            bytes_up=report.bytes_up,
+            bytes_down=report.bytes_down,
+            cohort=report.cohort_size,
+            survivors=report.n_validated,
+            stragglers=stragglers,
+            dropped=report.dropped_client_ids,
+            surviving_mask_units=mask_units,
+            executor=report.executor,
+            wire=report.wire,
+            n_devices=report.n_devices,
+            wall_s=round(wall_s, 6),
+        )
 
     # -- wire simulation ------------------------------------------------
 
@@ -502,22 +614,27 @@ class FederationEngine:
 
     def _run_simulated(self, state, seed_ids, mask_rows, keep, batch, plan,
                        keep_eff, perturbations):
-        payload, losses, jvps = self._clients(
-            state, seed_ids, mask_rows, keep, batch, perturbations)
-        updates = self.pack_updates(state.peft, payload, jvps, losses, plan,
-                                    keep_override=keep_eff)
-        bytes_up = sum(u.byte_size() for u in updates)
-        # the server only sees what arrived: unpack frames back into the
-        # cohort (zeros for dropped clients). Frames carry the fold-in
-        # seed_id; cohort POSITION comes from keep order (pack_updates emits
-        # survivors in plan order).
-        survivor_pos = np.flatnonzero(keep_eff)
-        rows = {int(pos): u for pos, u in zip(survivor_pos, updates)}
-        arrived = self._arrived(payload, jvps, enumerate_units(state.peft),
-                                rows, len(seed_ids))
-        new_state, metrics = self._aggregate(
-            state, arrived, seed_ids, mask_rows, keep, losses, jvps,
-            perturbations)
+        tel = self.telemetry
+        with tel.span("fl.clients"):
+            payload, losses, jvps = self._clients(
+                state, seed_ids, mask_rows, keep, batch, perturbations)
+        with tel.span("fl.wire", n_survivors=int(keep_eff.sum())):
+            updates = self.pack_updates(state.peft, payload, jvps, losses,
+                                        plan, keep_override=keep_eff)
+            bytes_up = sum(u.byte_size() for u in updates)
+            # the server only sees what arrived: unpack frames back into
+            # the cohort (zeros for dropped clients). Frames carry the
+            # fold-in seed_id; cohort POSITION comes from keep order
+            # (pack_updates emits survivors in plan order).
+            survivor_pos = np.flatnonzero(keep_eff)
+            rows = {int(pos): u for pos, u in zip(survivor_pos, updates)}
+            arrived = self._arrived(payload, jvps,
+                                    enumerate_units(state.peft), rows,
+                                    len(seed_ids))
+        with tel.span("fl.aggregate"):
+            new_state, metrics = self._aggregate(
+                state, arrived, seed_ids, mask_rows, keep, losses, jvps,
+                perturbations)
         return new_state, metrics, bytes_up
 
     def _pack_one(self, index, payload, jvps, losses, plan: CohortPlan,
@@ -552,10 +669,12 @@ class FederationEngine:
         over-selection pool through the SAME gauntlet, and aggregation sees
         only validated survivors. Returns (state', metrics, bytes_up,
         extra-dict for the RoundReport)."""
+        tel = self.telemetry
         inj = self.faults
         inj.take_counters()          # fresh per-round injector tally
-        payload, losses, jvps = self._clients(
-            state, seed_ids, mask_rows, keep, batch, perturbations)
+        with tel.span("fl.clients"):
+            payload, losses, jvps = self._clients(
+                state, seed_ids, mask_rows, keep, batch, perturbations)
         index = enumerate_units(state.peft)
         health = WireHealth()
         accepted: Dict[int, ClientUpdate] = {}
@@ -598,21 +717,22 @@ class FederationEngine:
                     continue
                 accepted[i] = dec
 
-        for i in np.flatnonzero(np.asarray(plan.keep, bool)):
-            push(int(i))
-        valid = validate_updates(accepted, self.norm_outlier_mult)
-        # quorum gate: re-extend deterministically from the over-selection
-        # pool in latency order; pool clients run the same chaotic gauntlet
-        # (they may crash/corrupt too)
-        pool = np.flatnonzero(~np.asarray(plan.keep, bool))
-        pool = pool[np.argsort(plan.latencies[pool], kind="stable")]
-        pi = 0
-        while quorum_n and len(valid) < quorum_n and pi < len(pool):
-            i = int(pool[pi])
-            pi += 1
-            health.requorumed += 1
-            push(i)
+        with tel.span("fl.wire", chaos=True):
+            for i in np.flatnonzero(np.asarray(plan.keep, bool)):
+                push(int(i))
             valid = validate_updates(accepted, self.norm_outlier_mult)
+            # quorum gate: re-extend deterministically from the
+            # over-selection pool in latency order; pool clients run the
+            # same chaotic gauntlet (they may crash/corrupt too)
+            pool = np.flatnonzero(~np.asarray(plan.keep, bool))
+            pool = pool[np.argsort(plan.latencies[pool], kind="stable")]
+            pi = 0
+            while quorum_n and len(valid) < quorum_n and pi < len(pool):
+                i = int(pool[pi])
+                pi += 1
+                health.requorumed += 1
+                push(i)
+                valid = validate_updates(accepted, self.norm_outlier_mult)
 
         health.accepted = len(accepted)
         health.validated = len(valid)
@@ -634,9 +754,10 @@ class FederationEngine:
         keep_valid[sorted(valid)] = 1.0
         rows = {p: accepted[p] for p in valid}
         arrived = self._arrived(payload, jvps, index, rows, len(seed_ids))
-        new_state, metrics = self._aggregate(
-            state, arrived, seed_ids, mask_rows, keep_valid, losses, jvps,
-            perturbations)
+        with tel.span("fl.aggregate"):
+            new_state, metrics = self._aggregate(
+                state, arrived, seed_ids, mask_rows, keep_valid, losses,
+                jvps, perturbations)
         return new_state, metrics, bytes_up, extra
 
     def _estimate_uplink(self, peft, index, plan: CohortPlan,

@@ -8,7 +8,10 @@ Port of ``repro/launch/serve.py``: the single-tenant greedy loop and, with
 (``launch/serving.py``) over a paged ``AdapterCache``
 (``launch/adapter_cache.py``). Runs on CUDA unless ``--device cpu`` is
 given; asking for CUDA without a card raises. The dense, hybrid (zamba2)
-and ssm (rwkv6, the default) families serve.
+and ssm (rwkv6, the default) families serve. In engine mode
+``--telemetry PATH`` writes the run's events (``run_meta``, one
+``request`` per request, the final ``metrics`` snapshot) and
+``--trace-out`` its Chrome trace (``repro_torch.obs``).
 """
 from __future__ import annotations
 
@@ -19,12 +22,10 @@ import numpy as np
 import torch
 
 from repro_torch.configs import SpryConfig, get_config, reduce_config
-from repro_torch.launch.train import _not_ported, _sync, resolve_device
+from repro_torch.launch.train import _sync, resolve_device
 from repro_torch.models import get_model
+from repro_torch.obs import make_telemetry
 from repro_torch.peft import init_peft
-
-# reference flags whose paths are later port slices
-_NOT_PORTED = ("--telemetry", "--trace-out")
 
 
 def tokenwise_prefill(cfg, model, base, peft, cache, prompt_tokens, decode=None):
@@ -177,9 +178,11 @@ def build_parser():
                          "(engine mode)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu; cuda without a card raises")
-    for flag in _NOT_PORTED:
-        ap.add_argument(flag, nargs="?", action=_not_ported(flag, "serve"),
-                        help=argparse.SUPPRESS)
+    ap.add_argument("--telemetry", default=None,
+                    help="JSONL event-log path ('off' disables)")
+    ap.add_argument("--trace-out", default=None,
+                    help="write a Chrome-trace JSON (Perfetto-loadable) "
+                         "of the run's spans to this path")
     return ap
 
 
@@ -192,12 +195,28 @@ def main(argv=None):
     model = get_model(cfg)
 
     if args.engine:
+        tel = make_telemetry(
+            jsonl=(None if args.telemetry in (None, "off", "none", "")
+                   else args.telemetry),
+            run_id=f"serve-{args.arch}", workload="serve")
+        if tel.enabled:
+            tel.event("run_meta", workload="serve", arch=args.arch,
+                      n_requests=args.engine, prompt_len=args.prompt_len,
+                      steps=args.steps, max_batch=args.batch,
+                      cache_capacity=args.cache_capacity)
         outputs, engine = run_engine(
             cfg, args.engine, args.prompt_len, args.steps,
             max_batch=args.batch, cache_capacity=args.cache_capacity,
-            device=dev)
+            telemetry=tel, device=dev)
         print(f"[serve] engine: {len(outputs)} requests drained in "
               f"{engine.steps} decode steps; adapter cache {engine.adapters.stats()}")
+        if tel.enabled:
+            if args.trace_out:
+                tel.export_chrome_trace(args.trace_out)
+            tel.close()
+            print(f"[telemetry] events -> {args.telemetry}"
+                  + (f"  trace -> {args.trace_out}" if args.trace_out
+                     else ""))
         return
 
     gen = torch.Generator(device=dev)

@@ -15,13 +15,16 @@ drives spry / spry_periter rounds through the federation runtime instead
 deadline and dropout, the round engine with wire frames, faults and
 quorum); ``--async`` through the FedBuff engine. ``--checkpoint-dir``
 writes crash-safe checkpoints and ``--resume`` continues from one, bit
-for bit. Runs on CUDA unless ``--device cpu`` is given; asking for CUDA
-without a card raises. TF32 is switched off for matmuls and cuDNN: the
+for bit. ``--telemetry`` (on by default, ``telemetry.jsonl``; ``off``
+disables), ``--trace-out`` and ``--prom-out`` write the run's event log,
+Chrome trace and Prometheus snapshot (``repro_torch.obs``). Runs on CUDA
+unless ``--device cpu`` is given; asking for CUDA without a card raises. TF32 is switched off for matmuls and cuDNN: the
 reference is fp32-exact.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import time
@@ -43,6 +46,7 @@ from repro_torch.core import (
     init_state,
     make_round_step,
     make_round_step_per_iteration,
+    run_fields,
 )
 from repro_torch.core.baselines import (
     ZOState,
@@ -68,6 +72,7 @@ from repro_torch.kernels import launch_counts
 from repro_torch.kernels.dispatch import forward_ad_region
 from repro_torch.models import cls_logits, get_model
 from repro_torch.models.common import accuracy_from_logits, classification_loss
+from repro_torch.obs import NULL, MemoryProbe, make_telemetry
 from repro_torch.peft import init_peft
 from repro_torch.utils.pytree import tree_map
 
@@ -80,8 +85,6 @@ _LR_DEFAULTS = {
     "fedavgsplit": (5e-2, 1.0),
     "fedmezo": (5e-3, 1e-2), "baffle": (5e-3, 1e-2), "fwdllm": (5e-3, 1e-2),
 }
-# reference flags whose paths are a later port slice (telemetry sinks)
-_NOT_PORTED = ("--telemetry", "--trace-out", "--prom-out")
 
 
 def resolve_device(device: str) -> torch.device:
@@ -188,7 +191,7 @@ def run_training(arch="roberta-large-lora", task="sst2", method="spry",
                  faults=None, quorum=None, checkpoint_dir=None,
                  checkpoint_every=1, resume=False, async_mode=False,
                  buffer_size=4, staleness_decay=0.5, async_concurrency=None,
-                 max_staleness=None):
+                 max_staleness=None, telemetry=None):
     """Run ``rounds`` rounds of ``method``; returns the eval history (one
     entry per eval round: round, acc, loss, round_s, round_peak_bytes (the
     round's peak device memory on CUDA, else None), the round's kernel
@@ -196,7 +199,12 @@ def run_training(arch="roberta-large-lora", task="sst2", method="spry",
     on the runtime path also the byte totals and the engine's report; the
     last also carries personalized_acc). The runtime and checkpoint
     parameters are the reference's (``--faults`` implies wire simulation,
-    ``async_mode`` implies ``runtime``)."""
+    ``async_mode`` implies ``runtime``). ``telemetry`` (an ``obs.Telemetry``;
+    default ``NULL``) receives the reference's events (``run_meta``,
+    ``round``, ``eval``, ``memory``, ``personalized_eval``; the engines' own
+    on the runtime path) and the ``train.round`` span, all recorded on
+    values the run has already computed."""
+    tel = telemetry if telemetry is not None else NULL
     if method not in METHODS:
         raise ValueError(f"unknown method {method!r}; known: {METHODS}")
     if async_mode:
@@ -234,6 +242,11 @@ def run_training(arch="roberta-large-lora", task="sst2", method="spry",
         server_opt="fedavg" if method in ("fedavg", "fedsgd", "fedavgsplit")
         else "fedyogi",
         seed=seed)
+    if tel.enabled:
+        tel.event("run_meta", workload="train", method=method, arch=arch,
+                  task=task, rounds=rounds, clients_per_round=clients_per_round,
+                  total_clients=total_clients, batch_size=batch_size,
+                  runtime=runtime, seed=seed, **run_fields(sc))
     if method in ("spry", "spry_periter", "fedfgd"):
         route = estimator_route(sc)
         log(f"[{method}] estimator route: {route}"
@@ -260,7 +273,7 @@ def run_training(arch="roberta-large-lora", task="sst2", method="spry",
                     concurrency=(async_concurrency if async_concurrency
                                  else max(clients_per_round, buffer_size)),
                     max_staleness=max_staleness, seed=seed),
-                wire=wire, faults=faults)
+                wire=wire, telemetry=tel, faults=faults)
         else:
             scheduler = CohortScheduler(
                 population, clients_per_round, over_select=over_select,
@@ -270,7 +283,7 @@ def run_training(arch="roberta-large-lora", task="sst2", method="spry",
                         else SerialExecutor(microbatch=runtime_microbatch))
             engine = FederationEngine(
                 cfg, sc, task="cls", comm_mode=comm_mode, executor=executor,
-                wire=wire, faults=faults, quorum=quorum)
+                wire=wire, telemetry=tel, faults=faults, quorum=quorum)
             n_units = enumerate_units(state.peft).n_units
         client_data = [ClientDataset(x_tr, y_tr, population.shard(c))
                        for c in range(min(total_clients, 8))]
@@ -341,6 +354,7 @@ def run_training(arch="roberta-large-lora", task="sst2", method="spry",
             f"({time.perf_counter() - t_p:.2f}s)")
         return acc
 
+    probe = MemoryProbe(tel) if tel.enabled else None
     t0 = time.time()
     if start_round >= rounds:
         # the checkpoint covers the whole run; only the final personalized
@@ -354,30 +368,49 @@ def run_training(arch="roberta-large-lora", task="sst2", method="spry",
             torch.cuda.reset_peak_memory_stats(dev)
         t_round = time.perf_counter()
         report = None
-        if async_mode:
-            state, metrics, report = engine.run_version(state, batch_size)
-            # async reports carry engine-lifetime byte totals (restored
-            # across resume by the snapshot): assign, don't accumulate
-            bytes_up_total, bytes_down_total = report.bytes_up, report.bytes_down
-        elif engine is not None:
-            plan = scheduler.plan_round(r, n_units, sc.seed)
-            bx, by = scheduler.round_batch(plan, batch_size)
-            state, metrics, report = engine.run_round(state, plan, {
-                "tokens": torch.as_tensor(bx, device=dev),
-                "labels": torch.as_tensor(by, device=dev)})
-            bytes_up_total += report.bytes_up
-            bytes_down_total += report.bytes_down
-        else:
-            chosen = sample_clients(rng, total_clients, clients_per_round)
-            bx, by = stack_client_batches([client_data[c] for c in chosen],
-                                          rng, batch_size)
-            state, metrics = step_fn(state, {
-                "tokens": torch.as_tensor(bx, device=dev),
-                "labels": torch.as_tensor(by, device=dev)})
-        _sync(dev)
+        # the in-process round's span covers what round_s measures (the
+        # engines span their own rounds)
+        with (tel.span("train.round", round=r, method=method) if engine is None
+              else contextlib.nullcontext()):
+            if async_mode:
+                state, metrics, report = engine.run_version(state, batch_size)
+                # async reports carry engine-lifetime byte totals (restored
+                # across resume by the snapshot): assign, don't accumulate
+                bytes_up_total, bytes_down_total = report.bytes_up, report.bytes_down
+            elif engine is not None:
+                plan = scheduler.plan_round(r, n_units, sc.seed)
+                bx, by = scheduler.round_batch(plan, batch_size)
+                state, metrics, report = engine.run_round(state, plan, {
+                    "tokens": torch.as_tensor(bx, device=dev),
+                    "labels": torch.as_tensor(by, device=dev)})
+                bytes_up_total += report.bytes_up
+                bytes_down_total += report.bytes_down
+            else:
+                chosen = sample_clients(rng, total_clients, clients_per_round)
+                bx, by = stack_client_batches([client_data[c] for c in chosen],
+                                              rng, batch_size)
+                state, metrics = step_fn(state, {
+                    "tokens": torch.as_tensor(bx, device=dev),
+                    "labels": torch.as_tensor(by, device=dev)})
+            _sync(dev)
         round_s = time.perf_counter() - t_round
         launches = {k: n - before[k] for k, n in launch_counts().items()}
         peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else None
+        if tel.enabled and engine is None:
+            # the engines emit their own "round" events; the in-process
+            # path emits one here
+            ev = {"round": r, "method": method, "loss": float(metrics["loss"]),
+                  "wall_s": round(round_s, 6)}
+            for k in ("jvp_abs_mean", "delta_norm"):
+                if k in metrics:
+                    ev[k] = float(metrics[k])
+            if "fused_route" in metrics:
+                ev["route"] = "fused" if float(metrics["fused_route"]) else "standard"
+            tel.event("round", **ev)
+        if probe is not None and r == 0:
+            # after the round's peak is read, so its peak_bytes_in_use is
+            # the round's round_peak_bytes
+            probe.sample("post_round_1")
         if (r + 1) % eval_every == 0 or r == rounds - 1:
             st = the_state(state)
             accs = []
@@ -408,20 +441,21 @@ def run_training(arch="roberta-large-lora", task="sst2", method="spry",
                     if report.round_skipped:
                         extra += " [below quorum: round skipped]"
             history.append(entry)
+            if tel.enabled:
+                # the reference's eval fields, round 0-based as the "round"
+                # events
+                tel.event("eval", round=r, **{
+                    k: entry[k] for k in ("acc", "loss", "route", "bytes_up",
+                                          "bytes_down") if k in entry})
             log(f"[{method}] round {r+1:4d} loss={loss:.4f} "
                 f"test_acc={acc:.4f} ({time.time()-t0:.0f}s){extra}")
         maybe_checkpoint(r)
     history[-1]["personalized_acc"] = personalized()
+    if tel.enabled:
+        probe.sample("end_of_run")
+        tel.event("personalized_eval",
+                  personalized_acc=history[-1]["personalized_acc"])
     return history
-
-
-def _not_ported(flag, entry="train"):
-    class _Reject(argparse.Action):
-        def __call__(self, parser, namespace, values, option_string=None):
-            parser.error(f"{flag} is not ported to repro_torch yet (the "
-                         f"telemetry sinks are a later slice); run it with "
-                         f"python -m repro.launch.{entry}")
-    return _Reject
 
 
 def build_parser():
@@ -502,14 +536,23 @@ def build_parser():
     ap.add_argument("--resume", action="store_true",
                     help="resume from --checkpoint-dir's manifest, replaying "
                          "the remaining rounds bit for bit")
-    for flag in _NOT_PORTED:
-        ap.add_argument(flag, nargs="?", action=_not_ported(flag),
-                        help=argparse.SUPPRESS)
+    ap.add_argument("--telemetry", default="telemetry.jsonl",
+                    help="JSONL event-log path (machine-readable round "
+                         "reporting, on by default; 'off' disables)")
+    ap.add_argument("--trace-out", default=None,
+                    help="write a Chrome-trace JSON (Perfetto-loadable) "
+                         "of the run's spans to this path")
+    ap.add_argument("--prom-out", default=None,
+                    help="Prometheus textfile-collector snapshot path")
     return ap
 
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
+    tel = make_telemetry(
+        jsonl=None if args.telemetry in ("off", "none", "") else args.telemetry,
+        prometheus=args.prom_out, run_id=f"train-{args.method}-{args.seed}",
+        workload="train")
     hist = run_training(arch=args.arch, task=args.task, method=args.method,
                  rounds=args.rounds, clients_per_round=args.clients,
                  total_clients=args.total_clients, batch_size=args.batch_size,
@@ -529,7 +572,13 @@ def main(argv=None):
                  async_mode=args.async_mode, buffer_size=args.buffer_size,
                  staleness_decay=args.staleness_decay,
                  async_concurrency=args.async_concurrency,
-                 max_staleness=args.max_staleness)
+                 max_staleness=args.max_staleness, telemetry=tel)
+    if tel.enabled:
+        if args.trace_out:
+            tel.export_chrome_trace(args.trace_out)
+        tel.close()
+        print(f"[telemetry] events -> {args.telemetry}"
+              + (f"  trace -> {args.trace_out}" if args.trace_out else ""))
     if args.out:
         with open(args.out, "w") as f:
             json.dump(hist, f, indent=1)

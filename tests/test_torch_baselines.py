@@ -25,6 +25,7 @@ the zero-order arms and FedFGD, the reference's own perturbations injected:
 - the CLI: every method on ``--device cpu`` for one round, and the fused
   route, each printing finite ``loss=`` / ``test_acc=`` lines.
 """
+import json
 import math
 
 import jax
@@ -232,14 +233,18 @@ def test_zeroorder_round_matches_reference(s, zo_reference, method):
 
 @pytest.mark.parametrize("method,fused", [(m, False) for m in ttrain.METHODS]
                          + [("spry", True)])
-def test_cli_runs_every_method_on_cpu(method, fused, capsys):
+def test_cli_runs_every_method_on_cpu(method, fused, tmp_path, capsys):
     # 40 clients of ~100 samples: the personalisation phase evaluates each
     # client's held-out fifth, and this case checks the CLI, not that size
+    events = tmp_path / "telemetry.jsonl"
     argv = ["--device", "cpu", "--rounds", "1", "--clients", "2",
             "--total-clients", "40", "--batch-size", "4", "--k", "2",
-            "--method", method] + (["--fused-contraction"] if fused else [])
+            "--method", method, "--telemetry", str(events)] + (
+                ["--fused-contraction"] if fused else [])
     ttrain.main(argv)
     out = capsys.readouterr().out
+    kinds = [json.loads(x)["kind"] for x in events.read_text().splitlines()]
+    assert "round" in kinds and kinds[-1] == "metrics"
     line = [x for x in out.splitlines() if "loss=" in x][-1]
     loss = float(line.split("loss=")[1].split()[0])
     acc = float(line.split("test_acc=")[1].split()[0])

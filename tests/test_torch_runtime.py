@@ -18,6 +18,7 @@ of its largest entry, the update itself (new - old) within 1e-4 relative
 test_torch_spry).
 """
 import dataclasses
+import json
 
 import jax
 import jax.numpy as jnp
@@ -263,7 +264,10 @@ def test_runtime_entry_points_raise_without_a_card():
         ttrain.run_training(rounds=1, async_mode=True, log=lambda *a: None)
 
 
-def test_train_cli_accepts_runtime_flags_and_rejects_telemetry(capsys):
+def test_train_cli_accepts_runtime_flags_and_rejects_telemetry():
+    """The runtime flags and the telemetry flags parse (telemetry on by
+    default, to ``telemetry.jsonl``, as the reference); a baseline on the
+    runtime raises."""
     args = ttrain.build_parser().parse_args(
         ["--runtime", "--runtime-microbatch", "2", "--over-select", "1.5",
          "--deadline", "9", "--dropout-rate", "0.2", "--wire-dtype", "bf16",
@@ -273,13 +277,47 @@ def test_train_cli_accepts_runtime_flags_and_rejects_telemetry(capsys):
          "--async-concurrency", "6", "--max-staleness", "2"])
     assert (args.runtime and args.async_mode and args.resume and args.quorum == 0.5
             and args.runtime_microbatch == 2 and args.max_staleness == 2)
-    for flag in ("--telemetry", "--trace-out", "--prom-out"):
-        with pytest.raises(SystemExit):
-            ttrain.build_parser().parse_args([flag, "x"])
-        assert "telemetry sinks" in capsys.readouterr().err
+    assert (args.telemetry, args.trace_out, args.prom_out) == (
+        "telemetry.jsonl", None, None)
+    args = ttrain.build_parser().parse_args(
+        ["--telemetry", "t.jsonl", "--trace-out", "t.json", "--prom-out", "t.prom"])
+    assert (args.telemetry, args.trace_out, args.prom_out) == (
+        "t.jsonl", "t.json", "t.prom")
     with pytest.raises(ValueError, match="spry/spry_periter"):
         ttrain.run_training(method="fedavg", runtime=True, device="cpu",
                             log=lambda *a: None)
+
+
+@pytest.mark.parametrize("case", ["telemetry", "trace-out", "prom-out", "off"])
+def test_train_cli_writes_telemetry_artifacts(case, tmp_path, monkeypatch, capsys):
+    """Each flag writes its artifact under tmp_path: ``--telemetry`` the
+    JSONL event log, ``--trace-out`` the Chrome trace (beside the log),
+    ``--prom-out`` the Prometheus snapshot (with the log off); ``--telemetry
+    off`` writes nothing."""
+    monkeypatch.chdir(tmp_path)
+    jsonl, trace, prom = (tmp_path / "t.jsonl", tmp_path / "t.trace.json",
+                          tmp_path / "t.prom")
+    argv = ["--device", "cpu", "--rounds", "1", "--clients", "2",
+            "--total-clients", "4", "--batch-size", "2"]
+    argv += {"telemetry": ["--telemetry", str(jsonl)],
+             "trace-out": ["--telemetry", str(jsonl), "--trace-out", str(trace)],
+             "prom-out": ["--telemetry", "off", "--prom-out", str(prom)],
+             "off": ["--telemetry", "off"]}[case]
+    ttrain.main(argv)
+    out = capsys.readouterr().out
+    written = sorted(p.name for p in tmp_path.iterdir())
+    assert written == {"telemetry": ["t.jsonl"], "trace-out": ["t.jsonl", "t.trace.json"],
+                       "prom-out": ["t.prom"], "off": []}[case]
+    assert ("[telemetry] events ->" in out) == (case != "off")
+    if case in ("telemetry", "trace-out"):
+        kinds = [json.loads(line)["kind"] for line in jsonl.read_text().splitlines()]
+        assert kinds[:3] == ["run_meta", "run_meta", "round"] and kinds[-1] == "metrics"
+        assert {"eval", "memory", "personalized_eval"} <= set(kinds)
+    if case == "trace-out":
+        doc = json.loads(trace.read_text())
+        assert [e["name"] for e in doc["traceEvents"] if e["ph"] == "X"] == ["train.round"]
+    if case == "prom-out":
+        assert "mem_live_array_bytes" in prom.read_text()
 
 
 # ---------------------------------------------------------------------------

@@ -622,7 +622,8 @@ def test_cli_runs_on_cpu_and_writes_history(tmp_path, capsys):
     out = tmp_path / "history.json"
     ttrain.main(["--arch", ARCH, "--device", "cpu", "--rounds", "1", "--clients", "2",
                  "--total-clients", "40", "--batch-size", "4", "--k", "2",
-                 "--fused-contraction", "--out", str(out)])
+                 "--fused-contraction", "--out", str(out),
+                 "--telemetry", str(tmp_path / "telemetry.jsonl")])
     assert "estimator route: fused" in capsys.readouterr().out
     hist = json.loads(out.read_text())
     assert len(hist) == 1 and REFERENCE_HISTORY_KEYS <= set(hist[-1])

@@ -25,6 +25,7 @@ Each reference run is computed once per module (the ``ref`` fixture).
 import ast
 import dataclasses
 import importlib.util
+import json
 import pathlib
 
 import jax
@@ -520,15 +521,36 @@ def test_serve_cli_runs_on_cpu(arch, engine, capsys):
                 and "steady-state" in out)
 
 
-@pytest.mark.parametrize("argv,error", [
-    (["--arch", "llama2-7b", "--telemetry", "x.jsonl"], SystemExit),
-    (["--arch", "llama2-7b", "--trace-out", "t.json"], SystemExit),
-], ids=["telemetry", "trace-out"])
-def test_serve_cli_rejects_later_slices(argv, error, capsys):
-    with pytest.raises(error):
-        tserve.main(argv)
-    if error is SystemExit:
-        assert "not ported to repro_torch yet" in capsys.readouterr().err
+@pytest.mark.parametrize("flags", [("telemetry",), ("telemetry", "trace-out"), ()],
+                         ids=["telemetry", "trace-out", "off"])
+def test_serve_cli_rejects_later_slices(flags, tmp_path, monkeypatch, capsys):
+    """Engine mode's telemetry flags: ``--telemetry`` writes the run's
+    events (``run_meta``, one ``request`` a request, the ``metrics``
+    snapshot), ``--trace-out`` its Chrome trace, ``--telemetry off`` (as no
+    flag) nothing."""
+    monkeypatch.chdir(tmp_path)
+    paths = {"telemetry": tmp_path / "serve.jsonl",
+             "trace-out": tmp_path / "serve.trace.json"}
+    argv = ["--arch", "llama2-7b", "--device", "cpu", "--engine", "3", "--steps", "2",
+            "--prompt-len", "4", "--batch", "2", "--cache-capacity", "2"]
+    argv += ["--telemetry", "off"] if not flags else []
+    for flag in flags:
+        argv += [f"--{flag}", str(paths[flag])]
+    tserve.main(argv)
+    out = capsys.readouterr().out
+    assert "[serve] engine: 3 requests drained in" in out
+    if not flags:
+        assert "[telemetry]" not in out and not list(tmp_path.iterdir())
+        return
+    assert f"[telemetry] events -> {paths['telemetry']}" in out
+    kinds = [json.loads(line)["kind"] for line in paths["telemetry"].read_text().splitlines()]
+    assert kinds[:2] == ["run_meta", "run_meta"] and kinds[-1] == "metrics"
+    assert kinds.count("request") == 3
+    if "trace-out" in flags:
+        doc = json.loads(paths["trace-out"].read_text())
+        assert any(e["name"] == "serve.admit" for e in doc["traceEvents"])
+    else:
+        assert not paths["trace-out"].exists()
 
 
 def test_serve_cli_raises_without_a_card():
