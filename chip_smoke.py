@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py                 # every phase, as a check
     python3 chip_smoke.py --only kernels  # one phase while iterating
-                                          # (kernels|parity|train|serve|runtime)
+                                          # (kernels|parity|train|serve|runtime|dense)
 
 Phases, in order (any failure raises and exits non-zero):
   1. device   the card's name and power limit (nvidia-smi), torch's name
@@ -16,14 +16,24 @@ Phases, in order (any failure raises and exits non-zero):
               ``swa_tc_jvps_kernel``, DMMA (fp64) in ``mamba2_ssd_kernel``
               and ``wkv6_chunk_kernel`` (their tangent-store and
               contraction instantiations); fails if an instantiation has
-              none
+              none, and unless the ``swa_attention`` tensor-core
+              instantiations that serve gemma3-12b (hd 256) and
+              h2o-danube-3-4b (hd 120) have no stack frame and no local
+              memory (cuobjdump -res-usage of the built library: no spill)
   3. kernels  each of the twelve kernels against its plain PyTorch version on
               the card at the main path's shapes (roberta-large, llama2-7b,
               zamba2, rwkv6-1.6b) and one long shape. ``lora_dual_mt`` and
               the ``swa_attention`` primal also at their routes' edges (T in
               {1, 8, 64}, rank 16, M=200 with T=3, K or N off the 8-element
-              rows; S in {1, 17, 32, 2048} with hd in {64, 128}, hd 48 and
-              40); every case of rows 1-6 held to the route its wrapper
+              rows; S in {1, 17, 32, 2048} with hd in {64, 128}, hd 48, 40
+              (padded to 48 on the tensor cores) and 36 (simt)); rows 2-4
+              at the dense configs' widths (DENSE_SWA_SHAPES: gemma3-12b's
+              H=16, KV=8, hd=256 at S=32 and at S=2048 with window 1024,
+              h2o-danube's H=32, KV=8, hd=120 at S=32 and at S=2048 with
+              window 256; T in {0, 1, 8}; bf16 on tc, fp32 at S=32), their
+              contraction's lanes and repeats at those widths, and row 6 at
+              command-r-plus-104b's decode (K=12288, N 12288 and 1024,
+              stream, cold); every case of rows 1-6 held to the route its wrapper
               must take (the per-route launch counters), the bf16
               tangents on the tensor-core route also against the tiled plain
               walk in their own roundings (``close_tiled``). The
@@ -167,7 +177,8 @@ Phases, in order (any failure raises and exits non-zero):
               steps, the adapter cache's stats, peak device memory and a
               profiled decode step (device busy share).
   8. runtime the federation runtime (``repro_torch.fl.runtime``,
-              ``repro_torch.checkpoint``) at full published width and depth,
+              ``repro_torch.checkpoint``) at full published width and depth
+              ((b) at 12 of roberta-large's 24 layers: the script's clock),
               bf16: (a) roberta-large-lora, 4 clients, K=8, standard route:
               ``FederationEngine.run_ideal`` with no wire and with an fp32
               wire bitwise equal to the in-process round step (new PEFT,
@@ -195,7 +206,37 @@ Phases, in order (any failure raises and exits non-zero):
               MiB) of the cohort-4 round's. (d) one reduced fp32 chaos round on the card
               and on the CPU: equal wire health, survivors and dropped
               frames, the new PEFT within 1e-5
-Every kernel must have launched over phases 5 to 8 (the main path). The
+  9. dense    the other dense configs at full published width, bf16
+              (``--only dense``): ``run_training`` on sst2, 2 clients, one
+              round (gemma3-12b spry K=4 on both routes and fedavg,
+              gemma3-27b spry K=4, h2o-danube-3-4b spry K=4 on both routes,
+              command-r-plus-104b spry K=4 at 8 of its 64 layers, printed
+              as ``reduced``), each round exactly ``round_launches``, every
+              launch of rows 1-5 on a tensor-core route, s/round and round
+              peaks printed; one gemma3-12b ``forward_gradient`` at full
+              width and depth, B=1, S=2048, K=4 (40 local layers' 1024-key
+              band on the tensor-core walk, 8 global layers), again through
+              the plain versions on the card and with fp32 weights: each
+              route's loss and jvps within DENSE_LONG_FP32_RTOL of the fp32
+              estimate's and the kernels' jvps no further from it than
+              DENSE_LONG_PLAIN_MULT times the plain versions' (kernels vs
+              plain printed beside DENSE_LONG_RTOL); serving of the four (command-r
+              at 8 layers) through ``run_engine`` (4 requests on 4 adapters,
+              P=16, 32 new tokens; exactly ``serve_launches``, all
+              ``stream``, the first step's calls against the plain
+              version), the same engine with the plain version, and
+              ``greedy_generate`` (B=4, no launch), each
+              request's first decode-step logits from both engines against
+              its own B=1 greedy step within SERVE_BF16_ATOL[arch], and
+              ``serve_fp32_witness`` on the card (DENSE_WITNESS_LAYERS'
+              depth) within SERVE_FP32_ATOL[arch]; in fp32 at full width a
+              decode step against the teacher-forced forward
+              (DENSE_FP32_DECODE_RTOL): gemma3-12b at 6 layers (layer 5
+              global) past its window with a 1100-token prompt, h2o-danube
+              at 3 layers wrapping its 4096-slot ring with 4104 tokens. Each
+              model is freed before the next; the phase ends with the
+              device memory allocated at its start
+Every kernel must have launched over phases 5 to 9 (the main path). The
 line before the last is the ``kernels`` JSON; the last line is
 ``{"ok": true, "device": {...}}``. Without a card, or without the repo
 beside it, the script exits non-zero and prints no result.
@@ -203,6 +244,7 @@ beside it, the script exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import gc
 import json
 import math
@@ -664,6 +706,37 @@ def swa_case(B, H, KV, S, hd, window, T, dtype, gen, timed):
                 q, kr, vr, attn_mask=mask))
     log(f"[kernels] {name}: " + json.dumps(res))
     return res
+
+
+# the dense configs' attention shapes: gemma3-12b (H=16, KV=8, hd=256) at
+# a client batch and at the long band (S=2048, window 1024: the local
+# layers' window), h2o-danube-3-4b (H=32, KV=8, hd=120) at a client batch
+# and at S=2048 with a 256-key band
+DENSE_SWA_SHAPES = ((8, 16, 8, 32, 256, None), (1, 16, 8, 2048, 256, 1024),
+                    (8, 32, 8, 32, 120, None), (1, 32, 8, 2048, 120, 256))
+
+
+def dense_width_cases(dtype, gen, extra, note):
+    """Rows 2-4 at DENSE_SWA_SHAPES, T in {0 (the primal), 1, 8}: bf16 on the
+    tensor-core route (``close``, ``close_tiled``, the contraction's
+    ``close_jvps``), timed at T in {0, 8} against the bound and (row 2)
+    ``scaled_dot_product_attention``; fp32 (simt) at the S=32 shapes."""
+    import torch
+    bf = dtype == torch.bfloat16
+    for B, H, KV, S, hd, window in DENSE_SWA_SHAPES:
+        if not bf and S > 32:
+            continue
+        tag = f"B={B} H={H} KV={KV} S={S} hd={hd} window={window}"
+        for T in (0, 1, 8):
+            timed = bf and T != 1
+            res = swa_case(B, H, KV, S, hd, window, T, dtype, gen, timed)
+            if timed:
+                extra[f"{'swa_attention_mt' if T else 'swa_attention'} {tag} T={T}"] = res
+            if T:
+                res = note("swa_attention_mt_jvps", dtype, swa_jvps_case(
+                    B, H, KV, S, hd, window, T, dtype, gen, timed))
+                if timed:
+                    extra[f"swa_attention_mt_jvps {tag} T={T}"] = res
 
 
 def mamba2_inputs(B, S, H, hd, N, T, gen):
@@ -1137,16 +1210,18 @@ def phase_kernels():
                                 extra[f"swa_attention_mt_jvps B={B} H={H} KV={KV} S={S} "
                                       f"hd={hd} window={window} T=8"] = res
         # the primal's routes at short and odd S and at S = 2048 with hd = 64
-        # (hd 48 and 40: a 16 multiple off the configs' widths, and simt)
+        # (hd 48: a 16 multiple off the configs' widths; hd 40: padded to 48
+        # inside the tensor-core kernel; hd 36: off the 8 multiple, simt)
         for B, H, S, hd in ((2, 8, 1, 64), (2, 8, 1, 128), (2, 8, 17, 64),
                             (2, 8, 17, 128), (1, 16, 2048, 64), (2, 4, 33, 48),
-                            (2, 4, 33, 40)):
+                            (2, 4, 33, 40), (2, 4, 33, 36)):
             for window in (None, 256):
                 for KV in (H, H // 4):
                     timed = bf and window is None and KV == H and S == 2048
                     res = swa_case(B, H, KV, S, hd, window, 0, dtype, gen, timed)
                     if timed:
                         extra[f"swa_attention B={B} H={H} S={S} hd={hd}"] = res
+        dense_width_cases(dtype, gen, extra, note)
     # the bf16 contraction epilogues' lanes: LoRA at roberta-large's and
     # llama2-7b's widths and off the tiles, with and without an input tangent;
     # attention at both head widths (two tangents a group, one) and with four
@@ -1156,6 +1231,12 @@ def phase_kernels():
             lora_jvps_lanes_and_repeats(M, K, N, r, has_xd, gen)
     for B, H, KV, S, hd, window in ((8, 16, 16, 32, 64, None), (8, 32, 32, 32, 128, None),
                                     (2, 8, 2, 100, 128, 40), (1, 4, 1, 150, 32, 64)):
+        swa_jvps_lanes_and_repeats(B, H, KV, S, hd, window, gen)
+    # the dense configs' widths: gemma3-12b's hd 256 (the wide plan, its
+    # column halves; at S = 100 two key tiles through its one buffer and a
+    # band) and h2o-danube's hd 120 (padded to 128)
+    for B, H, KV, S, hd, window in ((8, 16, 8, 32, 256, None), (2, 16, 8, 100, 256, 40),
+                                    (8, 32, 8, 32, 120, None), (2, 32, 8, 100, 120, 40)):
         swa_jvps_lanes_and_repeats(B, H, KV, S, hd, window, gen)
     # the mamba2 recurrence (fp32 only): zamba2's shapes (one client estimate,
     # B=8, S=32, H=64, hd=N=64, one 32-token chunk), one token past the chunk
@@ -1225,6 +1306,11 @@ def phase_kernels():
     # out_proj (4096 x 2048)
     for K, N in ((2048, 2048), (2048, 8192), (4096, 2048)):
         lora_multi_case(4, K, N, 4, 1, torch.bfloat16, gen, timed=True, cold=True)
+    # command-r-plus-104b's decode projections (K = d_model = 12288, the
+    # stream route's largest K): wq (12288 x 12288) and wv (12288 x 1024)
+    for K, N in ((12288, 12288), (12288, 1024)):
+        res = lora_multi_case(4, K, N, 4, 1, torch.bfloat16, gen, timed=True, cold=True)
+        extra[f"lora_dual_multi M=4 K={K} N={N} P=4 r=1"] = res
     log(f"[kernels] contraction epilogues, largest err / sum|terms| (limit "
         f"{JVPS_RTOL}; 'vs fp64': the scan epilogues' chunk route against the "
         f"fp64 contraction of the tangents, limit {FP64_RTOL}): " + json.dumps(worst))
@@ -1499,7 +1585,9 @@ def round_launches(cfg, kind, estimates):
     return want
 
 
-def phase_train(phases, totals, path_totals):
+def phase_train(phases, totals, path_totals, cfg=None):
+    """Each of ``phases`` through ``run_training``; ``cfg``: the config the
+    runs are held to (``depth_cut``'s), else the arch's."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels import launch_counts, launch_paths, reset_launch_counts
@@ -1507,7 +1595,7 @@ def phase_train(phases, totals, path_totals):
 
     results = []
     for arch, method, K, rounds, clients, fused in phases:
-        cfg = get_config(arch)
+        cfg_run = cfg or get_config(arch)
         reset_launch_counts()
         hist = run_training(arch=arch, task="sst2", method=method, rounds=rounds,
                             clients_per_round=clients, batch_size=8,
@@ -1538,7 +1626,7 @@ def phase_train(phases, totals, path_totals):
         if not all(math.isfinite(x) for x in res["loss"]):
             raise AssertionError(f"train {arch} {method}: loss not finite")
         for route, rl in zip(routes, res["round_launches"]):
-            want = round_launches(cfg, route, clients)   # one estimate a client
+            want = round_launches(cfg_run, route, clients)   # one estimate a client
             if rl != want:
                 raise AssertionError(f"train {arch} {method} K={K} {kind}: round "
                                      f"launches {rl} != {want}")
@@ -1750,7 +1838,15 @@ def serve_telemetry(arch="llama2-7b"):
 # on the path's own inputs (``hold_decode_step``), and the batched path by
 # the fp32 witness below, whose readings say how far each arch carries one
 # rounding difference (PERF.md, Findings; ROADMAP, Recorded deviations).
-SERVE_BF16_ATOL = {"llama2-7b": 0.16, "rwkv6-1.6b": 0.25, "zamba2-1.2b": 3.5}
+SERVE_BF16_ATOL = {"llama2-7b": 0.16, "rwkv6-1.6b": 0.25, "zamba2-1.2b": 3.5,
+                   # phase 9's engines (4 requests on 4 adapters), about twice
+                   # the largest reading over seeds 0-2, kernel (plain version):
+                   # 0.111 (0.051), 0.117 (0.094), 0.078 (0.070); command-r at
+                   # 8 layers 0.25 (0.039), one bf16 ulp of a logit in [32, 64):
+                   # its logits reach 46, where the others' stay under 12. The
+                   # fp32 witness reads 6-9e-6 on each (PERF.md, Findings)
+                   "gemma3-12b": 0.25, "gemma3-27b": 0.25, "h2o-danube-3-4b": 0.16,
+                   "command-r-plus-104b": 0.5}
 
 
 # the fp32 witness (``serve_fp32_witness``): one batched engine decode step
@@ -1758,8 +1854,13 @@ SERVE_BF16_ATOL = {"llama2-7b": 0.16, "rwkv6-1.6b": 0.25, "zamba2-1.2b": 3.5}
 # faithful batched path differs only by reduction order, on the card (the
 # kernel, the plain version) and on the host CPU. About twice the largest
 # card reading (PERF.md, Findings: 7.6e-6, 1.3e-5 and 2.1e-4, of logits with
-# max 4.6-4.8); the CPU read 1.1e-5, 2.1e-5 and 1.9e-4
-SERVE_FP32_ATOL = {"llama2-7b": 2e-5, "rwkv6-1.6b": 3e-5, "zamba2-1.2b": 5e-4}
+# max 4.6-4.8); the CPU read 1.1e-5, 2.1e-5 and 1.9e-4. The dense configs
+# (phase 9, on the card, DENSE_WITNESS_LAYERS' depth): about twice the
+# largest over seeds 0-2, 8.4e-6, 9.4e-6, 6.7e-6 and 7.6e-6 (command-r,
+# logits up to 52)
+SERVE_FP32_ATOL = {"llama2-7b": 2e-5, "rwkv6-1.6b": 3e-5, "zamba2-1.2b": 5e-4,
+                   "gemma3-12b": 2e-5, "gemma3-27b": 2e-5, "h2o-danube-3-4b": 1.5e-5,
+                   "command-r-plus-104b": 2e-5}
 
 
 def _witness_steps(cfg, model, base, pages, page, prompts, fns, routes):
@@ -1796,12 +1897,13 @@ def _witness_steps(cfg, model, base, pages, page, prompts, fns, routes):
     return torch.cat(single).float(), batched
 
 
-def serve_fp32_witness(arch, P=16):
-    """``arch`` at full width and depth in fp32 (random weights from seed 0,
-    synthetic adapters 0-3, four prompts of P tokens), ``_witness_steps``
+def serve_fp32_witness(arch, P=16, cfg=None, cpu=True, seed=0):
+    """``arch`` at full width and depth (or ``cfg``'s) in fp32 (random
+    weights from ``seed``, synthetic adapters 0-3, four prompts of P
+    tokens), ``_witness_steps``
     on the card, through the ``lora_dual_multi`` kernel (its fp32 route) and
     through its plain version, and again on the host CPU (the plain version)
-    on the same weights, adapters and prompts. Returns the largest |logit|,
+    on the same weights, adapters and prompts unless not ``cpu``. Returns the largest |logit|,
     each batched step's largest absolute difference from the B=1 steps on
     its device (what batching alone does at full depth, apart from bf16's
     rounding; the bf16 engine's limits rest on it), and the card's B=1
@@ -1819,12 +1921,12 @@ def serve_fp32_witness(arch, P=16):
     from repro_torch.models import get_model
     from repro_torch.utils.pytree import tree_map
 
-    cfg = dataclasses.replace(get_config(arch), param_dtype="float32")
+    cfg = dataclasses.replace(cfg or get_config(arch), param_dtype="float32")
     model = get_model(cfg)
     fns = build_serve_fns(cfg, model)
-    gen = torch.Generator(device="cuda").manual_seed(0)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
     base = model.init_base(cfg, gen)
-    card_store = SyntheticAdapterStore(cfg, seed=0, device="cuda")
+    card_store = SyntheticAdapterStore(cfg, seed=seed, device="cuda")
     prompts = torch.randint(0, cfg.vocab, (4, P), generator=gen, device="cuda",
                             dtype=torch.int32)
 
@@ -1839,7 +1941,7 @@ def serve_fp32_witness(arch, P=16):
     for dev, store, routes in (
             ("card", card_store, {"kernel": dispatch.lora_dual_multi,
                                   "plain": ops.lora_dual_multi_ref}),
-            ("cpu", HostStore(), {"cpu": ops.lora_dual_multi_ref})):
+            ("cpu", HostStore(), {"cpu": ops.lora_dual_multi_ref}))[:2 if cpu else 1]:
         if dev == "cpu":
             base, prompts = tree_map(lambda t: t.cpu(), base), prompts.cpu()
             torch.cuda.empty_cache()
@@ -1852,13 +1954,16 @@ def serve_fp32_witness(arch, P=16):
             res["max_abs_logit"] = float(single.abs().max())
         for name, logits in batched.items():
             res[f"{name}_max_abs_err_vs_b1"] = float((logits - single).abs().max())
-    res["cpu_b1_vs_card_b1"] = float((single - card_single).abs().max())
+    if cpu:
+        res["cpu_b1_vs_card_b1"] = float((single - card_single).abs().max())
     return res
 
 
-def _run_engine_recorded(cfg, P, steps, plain=False):
-    """``serve.run_engine`` (8 requests on 6 adapters, max_batch 4, capacity
-    4) with each request's first decode-step logits recorded; ``plain`` swaps
+def _run_engine_recorded(cfg, P, steps, plain=False, n_requests=8, n_adapters=6, seed=0):
+    """``serve.run_engine`` (``n_requests`` requests on ``n_adapters``
+    adapters, max_batch 4, capacity 4, weights, adapters and prompts from
+    ``seed``) with each request's first decode-step
+    logits recorded; ``plain`` swaps
     the multi-adapter kernel for its plain version. Returns (outputs,
     engine, step log, launch counts, launches by route, peak GiB, the first
     decode step's kernel calls). Each call of the first batched decode step
@@ -1886,9 +1991,9 @@ def _run_engine_recorded(cfg, P, steps, plain=False):
     dispatch.lora_dual_multi = ops.lora_dual_multi_ref if plain else capture
     reset_launch_counts()
     try:
-        outputs, engine = serve.run_engine(cfg, 8, P, steps, max_batch=4,
-                                           cache_capacity=4, n_adapters=6,
-                                           device="cuda")
+        outputs, engine = serve.run_engine(cfg, n_requests, P, steps, max_batch=4,
+                                           cache_capacity=4, n_adapters=n_adapters,
+                                           seed=seed, device="cuda")
     finally:
         serving.ServingEngine, dispatch.lora_dual_multi = orig
     torch.cuda.synchronize()
@@ -2095,15 +2200,13 @@ def log_serve_profile(cfg, engine, fns, P, n=3):
         log(f"[serve]   {ms:8.3f} ms {count:5d}x  {key}")
 
 
-# the tensor-core kernels: (library, a name fragment of each kernel's
-# instantiations, the SASS instruction that proves tensor-core use; DMMA:
-# the fp64 tensor cores). Every instantiation is counted: the mamba2 and
-# wkv6 kernels' tangent-store and contraction (JVPS) modes alike
 # ---------------------------------------------------------------------------
 # phase 8: the federation runtime (engines, wire, faults, checkpoints)
 # ---------------------------------------------------------------------------
 
 RUNTIME_RTOL = 1e-5              # (d) card vs CPU chaos round, fp32: new PEFT
+RUNTIME_B_LAYERS = 12            # (b)'s depth: 12 of roberta-large's 24 layers
+                                 # (the whole script's clock; see PERF.md)
 CHAOS_SEED = 3                   # (d): a crash, a corrupt frame, a duplicate,
                                  # a retry and a requorum of 2 (host CPU run)
 STREAM_PEAK_PEFTS = 4            # (c) cohort 16's round peak over cohort 4's, in
@@ -2240,7 +2343,7 @@ def _host_split(lines):
 
 def runtime_entry_point(totals, path_totals):
     """(b) ``run_training(runtime=True)`` at roberta-large-lora's full width
-    and depth (bf16) with everything on: spry K=8, 8 clients a round from
+    and RUNTIME_B_LAYERS of its 24 layers (bf16) with everything on: spry K=8, 8 clients a round from
     64 over-selected 1.5x, a 30 s deadline, dropout 0.25, the streaming
     executor (2 clients a chunk), wire simulation, the mild fault preset,
     quorum 0.5, a checkpoint every round. 3 rounds straight (its final
@@ -2257,15 +2360,19 @@ def runtime_entry_point(totals, path_totals):
     above also hold telemetry on to telemetry off; ``check_telemetry``
     then reads the artifacts."""
     import dataclasses
+    with depth_cut("roberta-large-lora", RUNTIME_B_LAYERS,
+                   "the script's clock: phase 9 needs the time") as cut:
+        _runtime_entry_point(dataclasses.replace(cut, n_classes=2), totals, path_totals)
+
+
+def _runtime_entry_point(cfg, totals, path_totals):
     import shutil
     import tempfile
     from repro_torch.checkpoint import read_manifest
-    from repro_torch.configs import get_config
     from repro_torch.fl import comm_cost
     from repro_torch.launch.train import run_training
     from repro_torch.obs import make_telemetry
 
-    cfg = dataclasses.replace(get_config("roberta-large-lora"), n_classes=2)
     n_units, w_l, cohort = 2 * cfg.n_layers, 2 * cfg.d_model, 12
     root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
     lines = []
@@ -2341,8 +2448,9 @@ def runtime_entry_point(totals, path_totals):
                    "history_equal": _history(full) == _history(resumed)}
             if name == "spry_periter":
                 res["table2_payload_bytes_a_frame"] = 4 * 8    # K=8 jvps
-            log(f"[runtime] (b) run_training roberta-large-lora {name}, everything on, "
-                f"3 rounds straight vs killed at 2 and resumed: " + json.dumps(res))
+            log(f"[runtime] (b) run_training roberta-large-lora ({cfg.n_layers} layers) "
+                f"{name}, everything on, 3 rounds straight vs killed at 2 and resumed: "
+                + json.dumps(res))
             # a checkpoint every round: 3 straight, 2 killed, 1 resumed
             if not (ma.content_hash == mb.content_hash and res["history_equal"]
                     and ma.round_idx == mb.round_idx == 3
@@ -2543,6 +2651,465 @@ def phase_runtime(totals, path_totals):
         log(f"[runtime] {name} {time.time() - tp:.1f}s")
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the other dense configs (gemma3-12b, gemma3-27b, h2o-danube-3-4b,
+# command-r-plus-104b) at full published width
+# ---------------------------------------------------------------------------
+
+DENSE_ARCHS = ("gemma3-12b", "gemma3-27b", "h2o-danube-3-4b", "command-r-plus-104b")
+# the only cut: command-r-plus-104b's bf16 weights (~208 GB) do not fit one
+# 80 GB card; 8 of its 64 layers (~15.7 B parameters, ~31 GB) do
+DENSE_LAYERS = {"command-r-plus-104b": 8}
+# the long estimate (gemma3-12b at all 48 layers, S=2048): each bf16 route
+# against the fp32 estimate, loss relative and jvps of the largest |jvp|.
+# Over seeds 0-2 the kernels read 0.049, 0.038, 0.034 in the jvps and the
+# plain versions 0.028, 0.034, 0.056; loss 5.4e-4, 0.028, 0.0097 and
+# 0.010, 0.021, 0.0033 (PERF.md, Findings; scripts/dense_readings.py long).
+# Both routes are held to DENSE_LONG_FP32_RTOL, and the kernels' jvps drift
+# to DENSE_LONG_PLAIN_MULT times the plain versions' (0.60-1.72 read)
+DENSE_LONG_FP32_RTOL = 0.075
+DENSE_LONG_PLAIN_MULT = 2.0
+# kernels vs plain versions, the bf16 per-call tolerance: printed, not met
+# at 48 layers (jvps 0.049, 0.038, 0.028 over seeds 0-2), where each route's
+# roundings drift it from the fp32 estimate by as much (ROADMAP C)
+DENSE_LONG_RTOL = 2e-2
+# the fp32 witness's depth where an arch's fp32 weights, beside the draw of
+# its largest leaf, would not fit one card (gemma3-27b 108 GB whole;
+# command-r-plus-104b 63 GB at the engine's 8 layers): 45 GB and 50 GB
+DENSE_WITNESS_LAYERS = {"gemma3-27b": 24, "command-r-plus-104b": 6}
+# fp32 decode step vs teacher-forced forward, of the largest |logit|: about
+# five times the larger first reading (2.6e-7 gemma3-12b, 3.9e-6 h2o-danube)
+DENSE_FP32_DECODE_RTOL = 2e-5
+
+
+@contextlib.contextmanager
+def depth_cut(arch, n_layers, why):
+    """``arch``'s config cut to ``n_layers`` layers (None: as published),
+    the cut printed with ``why``; yields the config, which the script passes
+    on itself wherever it reckons with it. The one lookup patched is the
+    train entry point's (``run_training`` finds its config by name), and a
+    run's launch totals, held to ``round_launches`` of the yielded config,
+    show that it ran at the cut depth."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as train_mod
+    full = get_config(arch)
+    if n_layers is None:
+        yield full
+        return
+    cfg = dataclasses.replace(full, n_layers=n_layers)
+    log(f"[depth] {arch} reduced: n_layers {full.n_layers} -> {n_layers} ({why})")
+
+    def cut(a):
+        return cfg if a == arch else get_config(a)
+    train_mod.get_config = cut
+    try:
+        yield cfg
+    finally:
+        train_mod.get_config = get_config
+
+
+def dense_depth(arch):
+    """``depth_cut`` at DENSE_LAYERS' depth (command-r-plus-104b's 8)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    n = DENSE_LAYERS.get(arch)
+    full = get_config(arch)
+    gb = lambda c: 2 * c.n_param_estimate() / 1e9  # noqa: E731  bf16 weights
+    return depth_cut(arch, n, f"bf16 weights {gb(full):.0f} GB whole, "
+                              f"{gb(dataclasses.replace(full, n_layers=n or 1)):.1f} GB cut")
+
+
+# the dispatch layer's LoRA and attention entry points and their plain versions
+PLAIN_DISPATCH = {"swa_attention": "swa_attention_ref",
+                  "swa_attention_mt_tangents": "swa_attention_mt_tangents_ref",
+                  "swa_attention_mt_jvps": "swa_attention_mt_jvps_ref",
+                  "lora_dual_mt_tangents": "lora_dual_mt_tangents_ref",
+                  "lora_dual_mt_jvps": "lora_dual_mt_jvps_ref"}
+
+
+@contextlib.contextmanager
+def plain_dispatch(names=tuple(PLAIN_DISPATCH)):
+    """The dispatch layer's entry points ``names`` (default: every LoRA and
+    attention one) replaced by their plain versions (on the card's
+    tensors), or by the functions of a {name: function} ``names``; restored
+    on exit."""
+    from repro_torch.kernels import dispatch
+    from repro_torch.kernels.lora_dual import ops as lo
+    from repro_torch.kernels.swa_attention import ops as so
+    fns = names if isinstance(names, dict) else {
+        k: getattr(so if k.startswith("swa") else lo, PLAIN_DISPATCH[k]) for k in names}
+    saved = {k: getattr(dispatch, k) for k in fns}
+    for k, fn in fns.items():
+        setattr(dispatch, k, fn)
+    try:
+        yield
+    finally:
+        for k, fn in saved.items():
+            setattr(dispatch, k, fn)
+
+
+def _free():
+    """Collect what the last model left (the engines' and rounds' closures
+    form cycles) and release the allocator's cache and cuBLAS's workspaces,
+    so that each model's peak and the phase's end are its own."""
+    import torch
+    gc.collect()
+    torch.cuda.synchronize()
+    torch._C._cuda_clearCublasWorkspaces()
+    torch.cuda.empty_cache()
+
+
+def long_estimate_readings(n_layers=None, seed=0, variants=None):
+    """One ``forward_gradient`` on gemma3-12b at full width, B=1, S=2048,
+    K=4 (bf16, a classification loss; random weights, tokens and
+    perturbations from ``seed``) at ``n_layers`` layers (None: all 48): its
+    local layers' window of 1024 < S puts the tensor-core band walk to work,
+    its global layers run full causal. The estimate is made once for each
+    of ``variants`` (name -> the dispatch entry points that take their
+    plain versions, or {name: function}; default: "kernels" none, "plain"
+    all), then once with
+    the weights in fp32 through the plain versions (the estimate the bf16
+    runs approximate). Returns the config, the launches and launches by
+    route of the "kernels" run, and each variant's reading: loss, jvps, the
+    seconds, and its drift from the fp32 estimate (loss relative, jvps of
+    the largest |jvp|)."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import SpryConfig, get_config
+    from repro_torch.core.forward_grad import forward_gradient, stacked_perturbations
+    from repro_torch.kernels import launch_counts, launch_paths, reset_launch_counts
+    from repro_torch.models import get_model
+    from repro_torch.models.registry import cls_loss
+    from repro_torch.peft import init_peft
+    from repro_torch.utils.pytree import tree_map, tree_paths
+
+    variants = variants or {"kernels": (), "plain": tuple(PLAIN_DISPATCH)}
+    cfg = dataclasses.replace(get_config("gemma3-12b"), n_classes=2)
+    if n_layers:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    base = get_model(cfg).init_base(cfg, gen)
+    peft = init_peft(cfg, gen, SpryConfig())
+    tokens = torch.randint(0, cfg.vocab, (1, 2048), generator=gen, device="cuda")
+    batch = {"tokens": tokens, "labels": torch.ones(1, dtype=torch.int64, device="cuda")}
+    K = 4
+    vs = stacked_perturbations(11 + seed, tree_map(lambda x: x.float(), peft), list(range(K)))
+
+    def estimate(c):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, _, jvps = forward_gradient(lambda p: cls_loss(c, base, p, batch), peft,
+                                         11 + seed, K, perturbations=vs)
+        torch.cuda.synchronize()
+        return {"loss": float(loss), "jvps": jvps.float().cpu(),
+                "s": time.perf_counter() - t0}
+    out, counts, paths = {}, None, None
+    for name, plain in variants.items():
+        reset_launch_counts()
+        with plain_dispatch(plain):
+            out[name] = estimate(cfg)
+        if name == "kernels":
+            counts, paths = launch_counts(), launch_paths()
+    with plain_dispatch():
+        for *head, last in [p for p, _ in tree_paths(base)]:   # fp32, a leaf at a time
+            node = base
+            for k in head:
+                node = node[k]
+            node[last] = node[last].float()
+        f32 = estimate(dataclasses.replace(cfg, param_dtype="float32"))
+    for r in out.values():
+        r["vs_fp32"] = {"loss": abs(r["loss"] - f32["loss"]) / abs(f32["loss"]),
+                        "jvps": rel_max(r["jvps"], f32["jvps"])}
+    out["fp32"] = f32
+    del base, peft, vs
+    _free()
+    return cfg, counts, paths, out
+
+
+def rel_max(got, want):
+    """The largest |got - want| over the largest |want|."""
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def dense_long_estimate(smi):
+    """``long_estimate_readings`` at gemma3-12b's full depth (48 layers,
+    seed 0): the kernels' and the plain versions' estimates each within
+    DENSE_LONG_FP32_RTOL of the fp32 estimate (loss and jvps), the kernels'
+    jvps no further from it than DENSE_LONG_PLAIN_MULT times the plain
+    versions'; the kernels against the plain versions printed beside
+    DENSE_LONG_RTOL. Returns the launches and launches by route of the
+    kernel run."""
+    cfg, counts, paths, r = long_estimate_readings()
+    kern, plain = r["kernels"], r["plain"]
+    L = cfg.n_layers
+    want = dict.fromkeys(KERNELS, 0)
+    want.update(lora_dual_mt=2 * L, swa_attention=L, swa_attention_mt=L)
+    vs_plain = {"loss": abs(kern["loss"] - plain["loss"]) / abs(plain["loss"]),
+                "jvps": rel_max(kern["jvps"], plain["jvps"])}
+    res = {"arch": cfg.arch_id, "n_layers": L, "B": 1, "S": 2048, "K": 4,
+           "window": cfg.window, "local_layers": sum(not cfg.is_global_layer(i)
+                                                     for i in range(L)),
+           **{f"{k}_{v}": r[v][k] if k == "loss" else r[v][k].tolist()
+              for v in ("kernels", "plain", "fp32") for k in ("loss", "jvps")},
+           "vs_fp32": {"kernels": kern["vs_fp32"], "plain": plain["vs_fp32"]},
+           "fp32_limit": DENSE_LONG_FP32_RTOL, "plain_mult": DENSE_LONG_PLAIN_MULT,
+           "kernels_vs_plain": vs_plain, "kernels_vs_plain_limit": DENSE_LONG_RTOL,
+           "kernels_vs_plain_within": max(vs_plain.values()) <= DENSE_LONG_RTOL,
+           "s_kernels": kern["s"], "s_plain": plain["s"],
+           "launches": {k: n for k, n in counts.items() if n},
+           "paths": {k: by for k, by in paths.items() if any(by.values())}, "card": smi}
+    log("[dense] long estimate, kernels and plain versions on the card vs the fp32 "
+        "estimate: " + json.dumps(res))
+    if counts != want:
+        raise AssertionError(f"dense long estimate: launches {counts} != {want}")
+    check_paths("dense long estimate", paths, {k: dict.fromkeys(by, 0)
+                                               for k, by in paths.items()})
+    k32, p32 = kern["vs_fp32"], plain["vs_fp32"]
+    if not (math.isfinite(kern["loss"]) and torch_finite(kern["jvps"])
+            and max(*k32.values(), *p32.values()) <= DENSE_LONG_FP32_RTOL
+            and k32["jvps"] <= DENSE_LONG_PLAIN_MULT * p32["jvps"]):
+        raise AssertionError(f"dense long estimate: the routes vs fp32 {res}")
+    return counts, paths
+
+
+def torch_finite(t):
+    import torch
+    return bool(torch.isfinite(t).all())
+
+
+def dense_decode_vs_forward(arch, n_layers, prompt_len, smi):
+    """``arch`` at full width and ``n_layers`` layers in fp32 (random weights,
+    synthetic adapter 0): the prompt's first prompt_len - 1 tokens prefilled,
+    its last one decoded at position prompt_len - 1, the step's logits held
+    against the teacher-forced forward over the whole prompt within
+    DENSE_FP32_DECODE_RTOL of the largest |logit| (the reference's
+    tests/test_arch_smoke.py checks the same on its reduced configs)."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.adapter_cache import SyntheticAdapterStore
+    from repro_torch.launch.serve import build_serve_fns, can_fuse_prefill
+    from repro_torch.models import get_model
+    from repro_torch.models.transformer import unembed
+
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, param_dtype="float32", n_layers=n_layers)
+    model = get_model(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    base = model.init_base(cfg, gen)
+    peft = SyntheticAdapterStore(cfg, seed=0, device="cuda").load(0)
+    toks = torch.randint(0, cfg.vocab, (1, prompt_len), generator=gen, device="cuda",
+                         dtype=torch.int32)
+    fns = build_serve_fns(cfg, model)
+    cache = model.init_cache(cfg, 1, prompt_len, device="cuda")
+    if not can_fuse_prefill(cfg, model, cache, prompt_len - 1):
+        raise AssertionError(f"dense {arch}: the prompt cannot take the fused prefill")
+    _, cache = fns["prefill"](base, peft, cache, toks[:, :-1])
+    got = fns["decode"](base, peft, cache, toks[:, -1:], prompt_len - 1)[0].float()
+    with torch.inference_mode():
+        h, _ = model.forward(cfg, base, peft, {"tokens": toks})
+        want = (h[:, -1, :] @ unembed(cfg, base)).float()
+    scale = float(want.abs().max())
+    rel = float((got - want).abs().max()) / scale
+    res = {"arch": arch, "n_layers": f"{full.n_layers} -> {n_layers}", "dtype": "float32",
+           "prompt_len": prompt_len, "cache_slots": int(cache["k"].shape[2]),
+           "window": cfg.window, "mixed_local_global": any(
+               cfg.is_global_layer(i) for i in range(n_layers)) and cfg.attn_pattern != "full",
+           "max_abs_logit": scale, "rel_err": rel, "limit": DENSE_FP32_DECODE_RTOL,
+           "card": smi}
+    log(f"[dense] {arch} decode step vs teacher-forced forward: " + json.dumps(res))
+    del base, peft, cache, h
+    _free()
+    if not rel <= DENSE_FP32_DECODE_RTOL:
+        raise AssertionError(f"dense {arch}: decode vs teacher-forced forward {res}")
+
+
+def dense_serve(arch, cfg, totals, path_totals, smi, seed=0):
+    """``arch`` (``cfg``: full width, DENSE_LAYERS' depth) in bf16 through
+    ``serve.run_engine`` (weights, adapters and prompts from ``seed``): 4
+    requests on 4 adapters (max_batch 4, P=16, 32 new tokens), exactly
+    ``serve_launches``, every one on the stream route, every call of the
+    first batched decode step held against the plain version at the bf16
+    tolerance; the same engine with the plain version, which launches
+    nothing; each request's first decode-step logits from both engines
+    against its own B=1 greedy step (the plain single-adapter primal)
+    within SERVE_BF16_ATOL[arch]; ``greedy_generate`` (B=4, adapter 0, 32
+    steps), which must launch nothing; then ``serve_fp32_witness`` on the
+    card at DENSE_WITNESS_LAYERS' depth within SERVE_FP32_ATOL[arch]. The
+    engines run one after the other, each on its own copy of the weights
+    (the same draws), so that one copy is held at a time."""
+    import dataclasses
+
+    import torch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import serve
+
+    P, steps = 16, 32
+    outputs, engine, log_steps, counts, paths, peak, calls = _run_engine_recorded(
+        cfg, P, steps, n_requests=4, n_adapters=4, seed=seed)
+    want = serve_launches(cfg, engine.steps)
+    in_situ = hold_decode_step(arch, calls)
+    n_tok = sum(len(v) for v in outputs.values())
+    res = {"seed": seed, "requests": len(outputs), "decode_steps": engine.steps,
+           "e2e_s": engine.run_s, "e2e_tok_per_s": n_tok / engine.run_s,
+           "steady_decode_tok_per_s": sum(x["n_active"] for x in log_steps)
+           / sum(x["s"] for x in log_steps),
+           "mean_decode_step_ms": 1e3 * sum(x["s"] for x in log_steps) / len(log_steps),
+           "peak_GiB": peak, "in_situ_first_decode_step": in_situ,
+           "lora_dual_multi_per_decode_step": want["lora_dual_multi"] // engine.steps,
+           "lora_dual_multi_by_route": paths["lora_dual_multi"], "card": smi}
+    log(f"[dense] {arch} serve engine: " + json.dumps(res))
+    if counts != want or len(log_steps) != engine.steps:
+        raise AssertionError(f"dense serve {arch}: launches {counts} != {want}")
+    if paths["lora_dual_multi"] != {"stream": want["lora_dual_multi"], "simt": 0}:
+        raise AssertionError(f"dense serve {arch}: decode launches by route "
+                             f"{paths['lora_dual_multi']}, not all stream")
+    if in_situ["calls"] != serve_launches(cfg, 1)["lora_dual_multi"]:
+        raise AssertionError(f"dense serve {arch}: first decode step held {in_situ}")
+    for k, n in counts.items():
+        totals[k] += n
+    for route, n in paths["lora_dual_multi"].items():
+        path_totals["lora_dual_multi"][route] += n
+    first = {"kernel": {x: r for st in log_steps for x, r in st["rows"].items()}}
+    del engine, calls
+    _free()
+
+    p_out, engine, p_log, p_counts, _, _, _ = _run_engine_recorded(
+        cfg, P, steps, plain=True, n_requests=4, n_adapters=4, seed=seed)
+    if any(p_counts.values()):
+        raise AssertionError(f"dense serve {arch} engine, plain version: launched {p_counts}")
+    first["plain"] = {x: r for st in p_log for x, r in st["rows"].items()}
+    base, store, model = engine.base, engine.adapters.store, engine.model
+    requests = engine.requests
+    fns = serve.build_serve_fns(cfg, model)
+    del engine
+    gc.collect()
+
+    reset_launch_counts()
+    errs, max_logit = {"kernel": [], "plain": []}, 0.0
+    for req in requests:            # each request's own B=1 first decode step
+        prompt1 = torch.as_tensor(req.prompt, device="cuda")[None]
+        peft1 = store.load(req.adapter_id)
+        cache1 = model.init_cache(cfg, 1, P + steps, device="cuda")
+        logits, cache1 = fns["prefill"](base, peft1, cache1, prompt1)
+        tok1 = torch.argmax(logits, dim=-1)[:, None].to(torch.int32)
+        g = fns["decode"](base, peft1, cache1, tok1, P)[0][0].float().cpu()
+        max_logit = max(max_logit, float(g.abs().max()))
+        for route, rows in first.items():
+            errs[route].append(float((rows[req.request_id] - g).abs().max()))
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    prompt = torch.randint(0, cfg.vocab, (4, P), generator=gen, device="cuda",
+                           dtype=torch.int32)
+    peft = store.load(0)
+    serve.greedy_generate(cfg, base, peft, prompt, 1, cache_len=P + steps, fns=fns)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ids = serve.greedy_generate(cfg, base, peft, prompt, steps, cache_len=P + steps, fns=fns)
+    torch.cuda.synchronize()
+    e2e = time.perf_counter() - t0
+    g_counts = launch_counts()
+    res = {"seed": seed, "batch": 4, "prompt_len": P, "steps": steps, "e2e_s": e2e,
+           "e2e_tok_per_s": 4 * steps / e2e,
+           "peak_GiB": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "launches": {k: n for k, n in g_counts.items() if n},
+           "sample_ids": ids[0, :8].tolist(),
+           "engine_first_step_vs_greedy": {
+               "max_abs_err": {k: max(v) for k, v in errs.items()}, "per_request": errs,
+               "max_abs_logit": max_logit, "limit": SERVE_BF16_ATOL[arch]},
+           "card": smi}
+    log(f"[dense] {arch} greedy: " + json.dumps(res))
+    del base, store, model, fns, peft
+    _free()
+    if any(g_counts.values()):
+        raise AssertionError(f"dense serve {arch}: greedy launched kernels {g_counts}")
+    n = DENSE_WITNESS_LAYERS.get(arch, cfg.n_layers)
+    wit = serve_fp32_witness(arch, cfg=dataclasses.replace(cfg, n_layers=n), cpu=False,
+                             seed=seed)
+    wit.update(seed=seed, n_layers=n, limit=SERVE_FP32_ATOL[arch], card=smi)
+    log(f"[dense] {arch} fp32 witness, one batched decode step (B=4, four adapters) "
+        f"vs the B=1 steps: " + json.dumps(wit))
+    _free()
+    if not (math.isfinite(e2e) and max(errs["kernel"] + errs["plain"])
+            <= SERVE_BF16_ATOL[arch]):
+        raise AssertionError(f"dense serve {arch}: engines vs greedy {res}")
+    if max(wit["kernel_max_abs_err_vs_b1"], wit["plain_max_abs_err_vs_b1"]) > \
+            SERVE_FP32_ATOL[arch]:
+        raise AssertionError(f"dense serve {arch}: fp32 witness {wit}")
+
+
+def phase_dense(totals, path_totals, smi):
+    """Phase 9: train, estimate at long context and serve the four configs
+    at full published width (command-r-plus-104b at DENSE_LAYERS' depth,
+    printed as ``reduced``), freeing each model before the next; ends with
+    the device memory allocated at its start."""
+    import torch
+    t_phase = time.time()
+    _free()
+    held_before = torch.cuda.memory_allocated()
+    g12, g27, h2o, cr = DENSE_ARCHS
+    runs = [(g12, "spry", 4, 1, 2, False), (g12, "spry", 4, 1, 2, True),
+            (g12, "fedavg", 1, 1, 2, False), (g27, "spry", 4, 1, 2, False),
+            (h2o, "spry", 4, 1, 2, False), (h2o, "spry", 4, 1, 2, True),
+            (cr, "spry", 4, 1, 2, False)]
+    dense_paths = {k: dict.fromkeys(by, 0) for k, by in path_totals.items()}
+    results = []
+    for run in runs:
+        with dense_depth(run[0]) as cfg:
+            results += phase_train([run], totals, dense_paths, cfg)
+        _free()
+    for k, by in dense_paths.items():
+        for route, n in by.items():
+            path_totals[k][route] += n
+    log("[dense] s/round and round peak GiB (2 clients, batch 8 x 32 tokens, one "
+        "round): " + json.dumps({f"{r['arch']} {r['method']} {r['route']}":
+                                 {"round_s": r["round_s"][0],
+                                  "round_peak_GiB": r["round_peak_GiB"]}
+                                 for r in results}))
+    log("[train] launches of rows 1-5 by route over the dense runs (simt must be "
+        "0): " + json.dumps({k: by for k, by in dense_paths.items()
+                             if k in ("lora_dual_mt", "swa_attention", "swa_attention_mt",
+                                      "swa_attention_mt_jvps", "lora_dual_mt_jvps")}))
+    tp = time.time()
+    counts, paths = dense_long_estimate(smi)
+    for k, n in counts.items():
+        totals[k] += n
+    for k, by in paths.items():
+        for route, n in by.items():
+            path_totals[k][route] += n
+    log(f"[dense] long estimate {time.time() - tp:.1f}s")
+    tp = time.time()
+    before = dict(path_totals["lora_dual_multi"])
+    for arch in DENSE_ARCHS:
+        with dense_depth(arch) as cfg:
+            dense_serve(arch, cfg, totals, path_totals, smi)
+    log("[dense] lora_dual_multi launches by route over the four engines (simt must "
+        "be 0): " + json.dumps({r: n - before[r]
+                                for r, n in path_totals["lora_dual_multi"].items()}))
+    # decode against teacher forcing in fp32: gemma3-12b past its window
+    # (1100 > 1024) with 6 layers, so that layer 5 is global and the decode
+    # mixes windows; h2o-danube's 4096-slot ring wrapped by 8 tokens
+    dense_decode_vs_forward("gemma3-12b", 6, 1100, smi)
+    dense_decode_vs_forward("h2o-danube-3-4b", 3, 4104, smi)
+    log(f"[dense] serving {time.time() - tp:.1f}s")
+    _free()
+    held = torch.cuda.memory_allocated()
+    log(f"[dense] device memory allocated before / after the phase: "
+        f"{held_before / 2 ** 30:.3f} / {held / 2 ** 30:.3f} GiB; phase "
+        f"{time.time() - t_phase:.1f}s")
+    if held != held_before:
+        raise AssertionError(f"phase 9 left {held - held_before} bytes allocated")
+
+
+# the tensor-core kernels: (library, a name fragment of each kernel's
+# instantiations, the SASS instruction that proves tensor-core use; DMMA:
+# the fp64 tensor cores). Every instantiation is counted: the mamba2 and
+# wkv6 kernels' tangent-store and contraction (JVPS) modes alike
 TENSOR_CORE_KERNELS = (("lora_dual", "lora_mt_tc_kernel", "HGMMA"),
                        ("lora_dual", "lora_jvps_tc_kernel", "HGMMA"),
                        ("swa_attention", "swa_tc_kernel", "HMMA"),
@@ -2552,16 +3119,20 @@ TENSOR_CORE_KERNELS = (("lora_dual", "lora_mt_tc_kernel", "HGMMA"),
                        ("wkv6_chunk", "wkv6_chunk_kernel", "DMMA"))
 
 
-def log_tensor_core_sass(build):
-    """Count each tensor-core kernel's HGMMA / HMMA / DMMA instructions in the built
-    library's SASS (``cuobjdump -sass``); fail if an instantiation has none."""
-    import re
+def _cuobjdump(build, *args):
+    """``cuobjdump`` (beside nvcc) on the arguments; its standard output."""
     import shutil
     exe = shutil.which("cuobjdump") or os.path.join(os.path.dirname(build._nvcc()),
                                                     "cuobjdump")
+    return subprocess.run([exe, *args], capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+
+
+def log_tensor_core_sass(build):
+    """Count each tensor-core kernel's HGMMA / HMMA / DMMA instructions in the built
+    library's SASS (``cuobjdump -sass``); fail if an instantiation has none."""
     for lib, kernel, op in TENSOR_CORE_KERNELS:
-        sass = subprocess.run([exe, "-sass", str(build._target(lib))], capture_output=True,
-                              text=True, timeout=300, check=True).stdout
+        sass = _cuobjdump(build, "-sass", str(build._target(lib)))
         counts, fn = {}, None
         for line in sass.splitlines():
             m = re.search(r"Function : (\S+)", line)
@@ -2577,9 +3148,37 @@ def log_tensor_core_sass(build):
             raise AssertionError(f"{lib}: {kernel} has no {op} instruction: {short}")
 
 
+def check_dense_spills(build):
+    """The resource use of the swa_attention tensor-core instantiations that
+    serve gemma3-12b (16 column groups: hd 256, the wide plan) and
+    h2o-danube-3-4b (8, padded: hd 120), read from the built library
+    (``cuobjdump -res-usage``, so a library an earlier run built is read
+    too): fails unless each of the 9 has no stack frame and no local
+    memory, where spilled registers would go."""
+    text = _cuobjdump(build, "-res-usage", str(build._target("swa_attention")))
+    fn, use = None, {}
+    for line in text.splitlines():
+        m = re.search(r"Function (\S+):", line)
+        if m:
+            fn = m.group(1)
+            continue
+        m = re.search(r"REG:(\d+) STACK:(\d+) SHARED:\d+ LOCAL:(\d+)", line)
+        k = fn and re.search(r"swa_tc(_mt|_jvps)?_kernelILi(16|8)ELb([01])E", fn)
+        if m and k:
+            name = f"swa_tc{k.group(1) or ''}_kernel<{k.group(2)}, pad={k.group(3)}>"
+            use[name] = {"reg": int(m.group(1)), "stack": int(m.group(2)),
+                         "local": int(m.group(3))}
+    log("[build] swa_attention registers, stack and local bytes of the hd-256 and "
+        "hd-120 tensor-core instantiations: " + json.dumps(use))
+    if len(use) != 9 or any(u["stack"] or u["local"] for u in use.values()):
+        raise AssertionError(f"swa_attention: resource use {use} (want no stack frame "
+                             f"and no local memory in each of 9)")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description="On-card smoke test of repro_torch")
-    ap.add_argument("--only", choices=("kernels", "parity", "train", "serve", "runtime"),
+    ap.add_argument("--only", choices=("kernels", "parity", "train", "serve", "runtime",
+                                       "dense"),
                     default=None,
                     help="run one phase; 'train' covers the site and train phases")
     args = ap.parse_args(argv)
@@ -2615,6 +3214,7 @@ def main(argv=None):
             if any(s in line for s in ("Compiling entry", "registers", "spill")):
                 log(f"[build] {name}: {line.strip()}")
     log_tensor_core_sass(build)
+    check_dense_spills(build)
 
     tp = time.time()
     main_cases = phase_kernels() if args.only in (None, "kernels") else {}
@@ -2683,10 +3283,14 @@ def main(argv=None):
     if args.only in (None, "runtime"):
         phase_runtime(totals, path_totals)
     log(f"[phase] runtime {time.time() - tp:.1f}s")
+    tp = time.time()
+    if args.only in (None, "dense"):
+        phase_dense(totals, path_totals, smi)
+    log(f"[phase] dense {time.time() - tp:.1f}s")
     if args.only is None:
         missing = [k for k, n in totals.items() if n == 0]
         if missing:
-            raise AssertionError(f"main path (phases 5-8) never launched {missing}")
+            raise AssertionError(f"main path (phases 5-9) never launched {missing}")
     log(f"[done] {time.time() - t0:.1f}s")
     kernels = []
     for name in KERNELS:

@@ -1,8 +1,10 @@
-"""Config dataclasses: model architectures and FL settings.
+"""Config dataclasses: model architectures, input shapes and FL settings.
 
 Port of ``repro/configs/base.py`` for the dense, hybrid (zamba2) and ssm
 (rwkv6) families. ``ModelConfig.dtype`` maps ``param_dtype`` to a torch dtype (the
-reference maps it to a jnp dtype). ``reduce_config`` derives the CPU
+reference maps it to a jnp dtype). The parameter estimates and
+``INPUT_SHAPES`` are the reference's; the moe, encdec and vlm fields are not
+ported yet, so their terms are absent. ``reduce_config`` derives the CPU
 smoke-test variant (2 layers, d_model=256) exactly as the reference does.
 """
 from __future__ import annotations
@@ -58,12 +60,50 @@ class ModelConfig:
     def dtype(self) -> torch.dtype:
         return _DTYPES[self.param_dtype]
 
+    @property
+    def sub_quadratic(self) -> bool:
+        """True if the architecture supports 500k-token decode structurally
+        (bounded window / recurrent state)."""
+        return (self.family in ("ssm", "hybrid")
+                or self.attn_pattern in ("swa", "local_global"))
+
     def is_global_layer(self, i: int) -> bool:
         if self.attn_pattern == "full":
             return True
         if self.attn_pattern == "swa":
             return False
         return (i % (self.local_global_ratio + 1)) == self.local_global_ratio
+
+    def n_param_estimate(self) -> float:
+        """Rough total parameter count (the reference's MODEL_FLOPS = 6·N·D)."""
+        d, hd = self.d_model, self.hd
+        attn = d * (self.n_heads * hd) + 2 * d * (self.n_kv_heads * hd) + (self.n_heads * hd) * d
+        if self.family == "ssm" and self.ssm and self.ssm.kind == "rwkv6":
+            attn = 5 * d * d + d * d  # r,k,v,g,w projections + output
+        per_layer = attn + 3 * d * self.d_ff + 2 * d
+        emb = self.vocab * d * (1 if self.tie_embeddings else 2)
+        return float(self.n_layers * per_layer + emb)
+
+    def n_active_param_estimate(self) -> float:
+        """Active params per token: every parameter (no moe config is
+        ported, so every config is dense in its FFN)."""
+        return self.n_param_estimate()
+
+
+@dataclasses.dataclass(frozen=True)
+class InputShape:
+    name: str
+    kind: str          # 'train' | 'prefill' | 'decode'
+    seq_len: int
+    global_batch: int
+
+
+INPUT_SHAPES = {
+    "train_4k": InputShape("train_4k", "train", 4_096, 256),
+    "prefill_32k": InputShape("prefill_32k", "prefill", 32_768, 32),
+    "decode_32k": InputShape("decode_32k", "decode", 32_768, 128),
+    "long_500k": InputShape("long_500k", "decode", 524_288, 1),
+}
 
 
 @dataclasses.dataclass(frozen=True)

@@ -29,7 +29,7 @@
 // are bitwise equal, and a call is one launch.
 //
 // Every other case (fp32, M > 16, K or N off the 8-element rows, x or W off
-// 16 bytes, K > 8192) is lora_dual_multi_kernel: a (N/32, M/8) grid of 512
+// 16 bytes, K > 12288) is lora_dual_multi_kernel: a (N/32, M/8) grid of 512
 // threads; lanes run along N (neighbouring columns of one W row), the
 // block's 16 warps split each 512-wide K chunk staged in shared memory,
 // each thread holds fp32 sums for the block's 8 rows of its column, and
@@ -177,7 +177,8 @@ constexpr int CW = SN / SPLIT;          // columns each block of a cluster finis
 constexpr int ST = 256;                 // threads a block
 constexpr int SROWS = ST / (SN / 8);    // 16 W rows a block reads at once
 constexpr int STREAM_M_MAX = 16;
-constexpr int STREAM_K_MAX = 8192;
+constexpr int STREAM_K_MAX = 12288;   // command-r-plus-104b's d_model: a K / 8
+                                      // slice of 1536 columns of x, 48 KB at MB = 16
 
 // 16-byte copies of W a thread keeps in flight, each into its own slot of
 // a shared-memory ring (40 KB a block, so three blocks an SM at MB <= 4:
@@ -356,7 +357,7 @@ lora_multi_stream_kernel(const bf16* __restrict__ x, const int* __restrict__ idx
   }
 }
 
-// rows of W a K slice holds: a quarter of K rounded up to the rows the
+// rows of W a K slice holds: an eighth of K rounded up to the rows the
 // block reads at once, so every thread takes the same steps
 int slice_rows(int K) { return ((K + SPLIT - 1) / SPLIT + SROWS - 1) / SROWS * SROWS; }
 
@@ -398,7 +399,7 @@ extern "C" int lora_dual_multi(int dtype, const void* x, const void* idx,
   return (int)cudaErrorInvalidValue;
 }
 
-// bf16, 1 <= M <= 16, K % 8 == 0, K <= 8192, N % 8 == 0, x and W 16-byte
+// bf16, 1 <= M <= 16, K % 8 == 0, K <= 12288, N % 8 == 0, x and W 16-byte
 // aligned: the streaming kernel. Arguments as lora_dual_multi without the
 // dtype.
 extern "C" int lora_dual_multi_stream(const void* x, const void* idx, const void* w,

@@ -27,6 +27,11 @@ SOURCES = {"lora_dual": "lora_dual_mt.cu", "lora_dual_multi": "lora_dual_multi.c
            "wkv6_chunk": "wkv6_chunk.cu"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+# sources whose many instantiations are optimized on every core
+# (``-split-compile``): swa_attention's tensor-core kernels at 12 head widths,
+# each padded and not, build in about half the time, to the same registers
+# and times; the others keep one process each, as before
+SPLIT_COMPILE = {"swa_attention"}
 
 _libs: dict = {}
 ptxas_logs: dict = {}     # name -> nvcc's -Xptxas -v report of the last build
@@ -58,11 +63,15 @@ def _inputs(path: Path, seen=None) -> list:
     return seen
 
 
+def _flags(name: str) -> list:
+    return NVCC_FLAGS + (["-split-compile=0"] if name in SPLIT_COMPILE else [])
+
+
 def _target(name: str) -> Path:
     h = hashlib.sha1()
     for path in _inputs(CSRC / SOURCES[name]):
         h.update(path.name.encode() + b"\0" + path.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(_flags(name)).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:12]}.so"
 
 
@@ -78,7 +87,7 @@ def build(names=None) -> dict:
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         procs[name] = (subprocess.Popen(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / SOURCES[name])],
+            [_nvcc(), *_flags(name), "-o", str(tmp), str(CSRC / SOURCES[name])],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), tmp, out)
     failed = []
     for name, (proc, tmp, out) in procs.items():

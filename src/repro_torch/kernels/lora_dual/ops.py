@@ -66,7 +66,8 @@ launches_by_path = {"lora_dual_mt": {"tc": 0, "store": 0, "simt": 0},
                     "lora_dual_mt_jvps": {"tc": 0, "simt": 0},
                     "lora_dual_multi": {"stream": 0, "simt": 0}}
 STREAM_M_MAX = 16       # rows of the multi-adapter stream route (fp32 sums a thread)
-STREAM_K_MAX = 8192     # its K: a block stages its K / 8 slice of x in shared memory
+STREAM_K_MAX = 12288    # its K: a block stages its K / 8 slice of x in shared memory
+                        # (command-r-plus-104b's d_model 12288: 1536 columns)
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -375,7 +376,7 @@ def lora_dual_mt_jvps(x, w, a, adots, b, bdots, gy, scale=1.0, xdots=None):
 # operations are 4 a byte. Two routes, one rule (``lora_multi_path``):
 #
 # - ``stream`` (bf16, M <= 16, K and N multiples of 8, x and W on 16
-#   bytes, K <= 8192): streams W from HBM, where the engine's decode step finds it
+#   bytes, K <= 12288): streams W from HBM, where the engine's decode step finds it
 #   (``csrc/lora_dual_multi.cu``, ``lora_multi_stream_kernel``, whose header
 #   holds the full note). A block owns 128 columns and one of 8 K slices:
 #   256 blocks at decode, all resident at once; each thread keeps 10

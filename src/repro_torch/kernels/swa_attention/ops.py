@@ -15,10 +15,20 @@ and finishes ``outd = acc_d / l - (mu_d / l) * out``.
 
 On the H100 the primal does 4·hd operations a kept (query, key) pair and
 reads q, k and v once: it is bound by operations at long S and by launch
-latency at the main path's S=32. In bf16 with hd a multiple of 16 (64 and
-128 cover every config; ``swa_path``) it runs on tensor cores
-(``csrc/swa_attention.cu``, ``swa_tc_kernel``, whose header holds the
-full note): a warp owns 16 query rows (the height of mma.sync.m16n8k16),
+latency at the main path's S=32. In bf16 with hd a multiple of 8
+(``swa_path``: roberta-large's 64, llama2-7b's, gemma3-27b's and
+command-r's 128, h2o-danube's 120, gemma3-12b's 256) it runs on tensor
+cores (``csrc/swa_attention.cu``, ``swa_tc_kernel``, whose header holds the
+full note). A width off the 16 multiple (120) is padded to the next one
+inside the kernels: its 16-byte copies past column hd are zero-filled in
+shared memory, the row stride in device memory stays hd, the scale stays
+1/sqrt(hd), only the first hd columns are stored, and the padding adds
+exactly 0 to the contraction.
+hd <= 128 keeps the plan below; 128 < hd <= 256 pads to a multiple of 32
+and runs a wide plan: the primal reads Q from shared memory instead of
+registers, and the tangent walk and the contraction split the hd columns
+of their outputs across two blocks, each computing the scores in full.
+In the narrow plan a warp owns 16 query rows (the height of mma.sync.m16n8k16),
 a block is one (b, h) with min(4, ceil(S/16)) warps, so S=32 takes two
 full warps and S=2048 64-row blocks whose key tiles feed four warps. 64-key
 K/V tiles arrive by cp.async in a double-buffered shared-memory ring;
@@ -44,9 +54,10 @@ one rounding: psd is several units where few keys are kept, and the first
 rows' outd cancels acc_t against the fp32 mu_t, so one rounding would leave
 up to |psd| |v| / 512. ``swa_attention_mt_tiled_ref`` is the
 plain tiled walk in the kernel's roundings (``round_psd`` gives the
-reference's). The contraction epilogue runs the same walk on the same route
-(second half of this module). fp32 and hd off the 16 multiple run
-``swa_kernel``: each query row to one warp (lanes split hd, so the primal
+reference's; the wide plan's column split changes no sum of the tangent
+outputs, so it covers every width). The contraction epilogue runs the same
+walk on the same route (second half of this module). fp32 and hd off the 8
+multiple run ``swa_kernel``: each query row to one warp (lanes split hd, so the primal
 accumulator lives in registers), walking 32-key chunks of the causal band
 staged in shared memory as fp32; lane j scores key j, the warp reduces max
 and sum with shuffles; its T tangent accumulators live in the warp's slice
@@ -56,7 +67,8 @@ each chunk's kd_t/vd_t tiles are staged one tangent at a time. No (S, S) or
 numerics: the explicit keep-gate on p (exp(NEG_INF - NEG_INF) would be
 1), the clamp of l at 1e-30, the band start ``(q_start - (window - 1)) //
 tile`` with out-of-range keys masked, and the GQA map ``h // (H / KV)``.
-S and hd edges are masked in the kernels; hd <= 128. ``launches_by_path``
+S and hd edges are masked in the kernels; hd <= 256 (at hd 256 the simt
+plan holds T <= 48 tangents a launch and raises above). ``launches_by_path``
 counts the primal and tangent calls by route.
 
 CPU tensors take the plain versions below; CUDA tensors launch a kernel
@@ -73,7 +85,8 @@ import torch
 from repro_torch.kernels import build
 
 T_MAX = 64          # tangents a launch (the kernel's shared-memory plan)
-HD_MAX = 128
+HD_MAX = 256        # gemma3-12b; 120 (h2o-danube) and every width off the 16
+                    # multiple is padded inside the tensor-core kernels
 TC_KEYS = 64        # keys a tile of the tensor-core kernels (csrc TC_BKV)
 launches = {"swa_attention": 0, "swa_attention_mt": 0, "swa_attention_mt_jvps": 0}
 # primal, tangent and contraction calls by route (``swa_path``); each sums to
@@ -161,10 +174,11 @@ def swa_attention_mt_tiled_ref(q, k, v, qds, kds, vds, window=None, round_psd=Fa
 def swa_path(dtype, hd, aligned=True):
     """The kernel a CUDA ``swa_attention`` (primal), ``swa_attention_mt_tangents``
     or ``swa_attention_mt_jvps`` call takes: 'tc' (bf16 with hd a multiple
-    of 16, the depth of one mma step, and every operand on a 16-byte
-    boundary (``aligned``) for the 16-byte copies of query, key and value
+    of 8, so every row is whole 16-byte copies (the kernels pad it to the
+    16-column depth of an mma step in shared memory), and every operand on a
+    16-byte boundary (``aligned``) for the copies of query, key and value
     rows, their tangents' and gy's) or 'simt'."""
-    return "tc" if dtype == torch.bfloat16 and hd % 16 == 0 and aligned else "simt"
+    return "tc" if dtype == torch.bfloat16 and hd % 8 == 0 and aligned else "simt"
 
 
 _ARGS = {"swa_attention_fwd": (4, 6), "swa_attention_mt_tangents": (7, 7),
@@ -283,14 +297,15 @@ def swa_attention_mt_tangents(q, k, v, qds, kds, vds, window=None):
 # reads (q, k, v, their T tangents and gy) and in practice by latency;
 # at long S by operations. Two routes, ``swa_path``'s rule:
 #
-# - ``tc`` (bf16, hd a multiple of 16, every operand on 16 bytes):
+# - ``tc`` (bf16, hd a multiple of 8, every operand on 16 bytes):
 #   ``swa_tc_jvps_kernel`` (``csrc/swa_attention.cu``) runs the tangent
 #   kernel's tensor-core walk (its grid, tangent groups, cp.async staging,
 #   band, keep gate, GQA map and l clamp) with the warp's 16 rows of gy
 #   staged beside Q; at the finish outd_t stays in fp32 fragments and is
 #   dotted with gy's, reduced over the warp by shuffles and over the
-#   block's warps in warp order, one partial a (t, b*h, query block); a
-#   one-warp kernel sums each tangent's partials in a fixed order. Every
+#   block's warps in warp order, one partial a (t, b*h, query block; in
+#   the wide plan, hd > 128, and column half); a one-warp kernel sums each
+#   tangent's partials in a fixed order. Every
 #   product whose result reaches the contraction carries its fp32 factor
 #   as a bf16 (hi, lo) pair (p in P V and p Vd_t, psd in psd V): one
 #   rounding of p leaves about 2^-9 of each term, and over the ~2.6e5 terms
@@ -351,8 +366,9 @@ def swa_attention_mt_jvps(q, k, v, qds, kds, vds, gy, window=None):
             1.0 / math.sqrt(hd), torch.cuda.current_stream(q.device).cuda_stream)
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), qds.data_ptr(), kds.data_ptr(),
             vds.data_ptr(), gy.data_ptr())
-    if path == "tc":    # one partial a (t, b*h, 16 query rows) at most
-        parts = torch.empty(T * B * H * -(-S // 16), dtype=torch.float32, device=q.device)
+    if path == "tc":    # one partial a (t, b*h, 16 query rows, column half) at most
+        parts = torch.empty(2 * T * B * H * -(-S // 16), dtype=torch.float32,
+                            device=q.device)
         jvps = torch.empty(T, dtype=torch.float32, device=q.device)
         err = _fn("swa_attention_mt_jvps_tc")(*ptrs, parts.data_ptr(), jvps.data_ptr(), *tail)
     else:

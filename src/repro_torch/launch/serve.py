@@ -7,8 +7,10 @@ Port of ``repro/launch/serve.py``: the single-tenant greedy loop and, with
 ``--engine N``, the multi-tenant continuous-batching ``ServingEngine``
 (``launch/serving.py``) over a paged ``AdapterCache``
 (``launch/adapter_cache.py``). Runs on CUDA unless ``--device cpu`` is
-given; asking for CUDA without a card raises. The dense, hybrid (zamba2)
-and ssm (rwkv6, the default) families serve. In engine mode
+given; asking for CUDA without a card raises. The dense (llama2-7b,
+gemma3-12b, gemma3-27b, h2o-danube-3-4b, command-r-plus-104b; roberta-
+large-lora), hybrid (zamba2-1.2b) and ssm (rwkv6-1.6b, the default)
+families serve (``--arch``, reduced unless ``--full-size``). In engine mode
 ``--telemetry PATH`` writes the run's events (``run_meta``, one
 ``request`` per request, the final ``metrics`` snapshot) and
 ``--trace-out`` its Chrome trace (``repro_torch.obs``).

@@ -3,8 +3,9 @@
     PYTHONPATH=src python -m repro_torch.launch.train --arch roberta-large-lora \
         --task sst2 --method spry --rounds 100 --clients 8 --out history.json
 
-``--arch`` takes roberta-large-lora, llama2-7b, zamba2-1.2b or rwkv6-1.6b
-(reduced unless ``--full-size``).
+``--arch`` takes roberta-large-lora, llama2-7b, gemma3-12b, gemma3-27b,
+h2o-danube-3-4b, command-r-plus-104b, zamba2-1.2b or rwkv6-1.6b (reduced
+unless ``--full-size``).
 
 Port of ``repro/launch/train.py``. The in-process path: synthetic task ->
 Dirichlet partition -> client sampling -> round step (SPRY on either
@@ -104,18 +105,21 @@ def _sync(device):
 
 
 def personalized_accuracy(cfg, state, clients, x, y, rng, device, steps=5,
-                          lr=5e-2, batch_size=8, max_clients=8):
+                          lr=5e-2, batch_size=8, max_clients=8, perturbations=None):
     """Paper's Acc_p: each client finetunes the head on its own shard with
     head-only forward-gradient steps and is evaluated on its held-out
     samples.
 
-    Only the head moves (every other unit's mask is 0), so each step runs
-    the model once without tangents, under the estimator's region so its
-    ops are the estimator's primal ops, and differentiates the head-only
-    loss on those hidden states: the same perturbation draws (the head's
-    leaves come first in the tree's order), loss and head update as
-    perturbing the whole tree under the head mask, without the model's
-    zero tangents."""
+    Only the head moves (the reference masks every other unit to 0), so
+    each step runs the model once without tangents, under the estimator's
+    region so its ops are the estimator's primal ops, and differentiates
+    the head-only loss on those hidden states: the loss and head update of
+    perturbing the whole tree under the head mask, without the model's zero
+    tangents. A step's perturbation is drawn for the head alone from the
+    step's integer key (``int(take[0]) + step``, the reference's);
+    ``perturbations``, a function of that key returning the stacked head
+    draw ``{"head": ...}`` (leading axis 1), injects it instead, as
+    ``forward_gradient``'s argument of that name does."""
     model = get_model(cfg)
     accs = []
     for c in clients[:max_clients]:
@@ -134,7 +138,9 @@ def personalized_accuracy(cfg, state, clients, x, y, rng, device, steps=5,
 
             def head_loss(p, h=h, aux=aux, labels=labels):
                 return classification_loss(h, p["head"], labels)[0] + 0.01 * aux
-            _, g, _ = forward_gradient(head_loss, {"head": head}, int(take[0]) + s)
+            key = int(take[0]) + s
+            _, g, _ = forward_gradient(head_loss, {"head": head}, key, perturbations=(
+                None if perturbations is None else perturbations(key)))
             head = tree_map(lambda p_, g_: p_ - lr * g_, head, g["head"])
         with torch.no_grad():
             logits = cls_logits(cfg, state.base, dict(state.peft, head=head),

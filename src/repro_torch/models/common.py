@@ -19,9 +19,27 @@ from repro_torch.kernels.dispatch import lora_proj, lora_proj_multi
 # Initialisation (random weights from an explicit torch.Generator)
 # ---------------------------------------------------------------------------
 
+_DRAW_BYTES_MAX = 2 ** 34     # 16 GiB of fp32: a larger draw is made a slice at a time
+
+
 def dense_init(gen, shape, in_axis=-2, dtype=torch.float32):
-    """LeCun-normal drawn in fp32 on the generator's device, then cast."""
+    """LeCun-normal drawn in fp32 on the generator's device, then cast. A
+    layer-stacked leaf whose fp32 draw would pass 16 GiB (gemma3-27b's MLP
+    weights, 29 GB each) is drawn one leading-axis slice at a time into its
+    output, so the init holds one layer's draw beside the weights made so
+    far, not the whole leaf's (which would not fit on one 80 GB card).
+    Every smaller leaf is drawn whole: a draw a slice at a time gives other
+    values, and the card limits of the configs whose leaves are all smaller
+    (the serving engines' SERVE_BF16_ATOL and SERVE_FP32_ATOL in
+    chip_smoke.py, and the readings beside them) were read on the whole
+    draws' weights, so one path for all would need each re-read."""
     fan_in = shape[in_axis] if len(shape) > 1 else shape[0]
+    if len(shape) > 2 and 4 * math.prod(shape) > _DRAW_BYTES_MAX:
+        out = torch.empty(shape, dtype=dtype, device=gen.device)
+        for i in range(shape[0]):
+            x = torch.randn(shape[1:], generator=gen, device=gen.device)
+            out[i] = (x / math.sqrt(fan_in)).to(dtype)
+        return out
     x = torch.randn(shape, generator=gen, device=gen.device)
     return (x / math.sqrt(fan_in)).to(dtype)
 

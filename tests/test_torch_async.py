@@ -262,8 +262,8 @@ def reference_async():
     jc = jcfgs.reduce_config(jcfgs.get_config("roberta-large-lora"))
     jsc = jcfgs.SpryConfig(n_clients_per_round=4, local_iters=1, local_lr=5e-3,
                            server_lr=1e-2, k_perturbations=2, seed=3)
-    jbase = jtf.init_base(jc, jax.random.PRNGKey(0))
-    jpeft = jinit_peft(jc, jax.random.PRNGKey(1), jsc)
+    jbase = jax.jit(jtf.init_base, static_argnums=0)(jc, jax.random.PRNGKey(0))
+    jpeft = jax.jit(jinit_peft, static_argnums=(0, 2))(jc, jax.random.PRNGKey(1), jsc)
     for t, k in zip(("wq", "wv"), jax.random.split(jax.random.PRNGKey(2), 2)):
         jpeft["layers"][t]["B"] = 0.2 * jax.random.normal(
             k, jpeft["layers"][t]["B"].shape)

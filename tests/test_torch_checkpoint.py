@@ -159,8 +159,9 @@ def test_manifest_hash_gc_and_crash_window(tmp_path):
 @pytest.fixture(scope="module")
 def reference_state():
     jc = jcfgs.reduce_config(jcfgs.get_config("roberta-large-lora"))
-    jbase = jtf.init_base(jc, jax.random.PRNGKey(0))
-    jpeft = jinit_peft(jc, jax.random.PRNGKey(1), jcfgs.SpryConfig())
+    jbase = jax.jit(jtf.init_base, static_argnums=0)(jc, jax.random.PRNGKey(0))
+    jpeft = jax.jit(jinit_peft, static_argnums=(0, 2))(jc, jax.random.PRNGKey(1),
+                                                        jcfgs.SpryConfig())
     st = jinit_state(jbase, jpeft)
     m = jax.tree.map(lambda x: x + 0.25, st.server.m)
     st = st._replace(round_idx=jnp.int32(3),

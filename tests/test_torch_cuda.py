@@ -134,7 +134,13 @@ def test_lora_bf16_routes_match_plain(dev, M, K, N, r, T, has_xd):
     (8, 16, 16, 32, 64, None, 1),    # roberta-large's main shape, T = 1 and 8
     (8, 16, 16, 32, 64, None, 8),
     (8, 32, 32, 32, 128, None, 8),   # llama2-7b widths
-    (1, 4, 4, 20, 40, 7, 5),         # hd off the 16 multiple: simt in bf16
+    (1, 4, 4, 20, 40, 7, 5),         # hd off the 16 multiple: padded to 48 in bf16
+    (1, 4, 4, 20, 36, 7, 5),         # hd off the 8 multiple: simt in bf16
+    (8, 16, 8, 32, 256, None, 8),    # gemma3-12b: the wide plan (hd split over two blocks)
+    (2, 16, 8, 100, 256, 40, 3),     # its one key buffer over two tiles, band
+    (8, 32, 8, 32, 120, None, 8),    # h2o-danube: padded to 128
+    (2, 12, 1, 100, 120, 40, 3),     # G = 12, band
+    (1, 4, 2, 70, 200, None, 2),     # a wide width off 32: padded to 224
 ])
 def test_swa_kernels_match_plain(dev, dtype, B, H, KV, S, hd, window, T):
     """Primal and tangents against the plain versions, each on the route
@@ -226,7 +232,7 @@ def test_wrappers_raise_instead_of_falling_back(dev):
                                    torch.randn(1, 16, 1, device=dev),
                                    torch.randn(1, 8, device=dev),
                                    torch.randn(1, 1, 8, device=dev))
-    q = torch.randn(1, 2, 8, 256, device=dev)
+    q = torch.randn(1, 2, 8, 264, device=dev)
     with pytest.raises(ValueError, match="hd"):
         sops.swa_attention(q, q, q)
 
@@ -340,6 +346,10 @@ def _swa_jvps_inputs(B, H, KV, S, hd, T, dtype, dev, seed):
     (1, 4, 2, 40, 128, None, 64),    # T_MAX tangents at hd=128
     (8, 32, 32, 32, 128, None, 8),   # llama2-7b widths
     (1, 4, 1, 300, 32, 64, 5),       # four tangents a group, two key buffers, band
+    (8, 16, 8, 32, 256, None, 8),    # gemma3-12b: a partial a column half
+    (2, 16, 8, 100, 256, 40, 3),
+    (8, 32, 8, 32, 120, None, 8),    # h2o-danube: padded to 128
+    (2, 12, 1, 100, 120, 40, 3),
 ])
 def test_swa_jvps_kernel_matches_plain(dev, dtype, B, H, KV, S, hd, window, T):
     from repro_torch.kernels.swa_attention import ops
@@ -381,6 +391,9 @@ def test_lora_jvps_lanes_bitwise_and_repeat(dev, M, K, N, has_xd):
     (8, 16, 16, 32, 64, None),       # roberta-large: two tangents a group
     (2, 8, 2, 100, 128, 40),         # one a group, GQA, band, ragged S
     (1, 4, 1, 150, 32, None),        # four a group, two key buffers
+    (8, 16, 8, 32, 256, None),       # gemma3-12b: two column halves a tangent
+    (2, 16, 8, 100, 256, 40),        # and one key buffer over two tiles
+    (8, 32, 8, 32, 120, None),       # h2o-danube: padded to 128
 ])
 def test_swa_jvps_lanes_bitwise_and_repeat(dev, B, H, KV, S, hd, window):
     """On the tc route each tangent of a T=8 launch (in any slot of any
@@ -692,6 +705,8 @@ def test_rwkv6_launches_per_estimate(dev, fused):
     (16, 4096, 4096, 4, 2),         # the stream route's most rows, repeated pages
     (6, 1000, 136, 2, 3),           # K off the 8 slices, N off the 128-column strip
     (3, 1001, 64, 2, 1),            # K off the 8-element copies: simt in bf16
+    (4, 12288, 12288, 4, 1),        # command-r-plus-104b's decode: wq
+    (4, 12288, 1024, 4, 1),         # and wv, the stream route's largest K
 ])
 def test_lora_multi_kernel_matches_plain(dev, dtype, M, K, N, P, r):
     """Against the plain version on the route ``lora_multi_path`` gives; a

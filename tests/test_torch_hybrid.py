@@ -88,8 +88,9 @@ def _configs(variant):
 
 def _model(variant):
     jc, tc = _configs(variant)
-    jbase = jhyb.init_base(jc, jax.random.PRNGKey(0))
-    jpeft = jinit_peft(jc, jax.random.PRNGKey(1), jcfgs.SpryConfig())
+    jbase = jax.jit(jhyb.init_base, static_argnums=0)(jc, jax.random.PRNGKey(0))
+    jpeft = jax.jit(jinit_peft, static_argnums=(0, 2))(jc, jax.random.PRNGKey(1),
+                                                        jcfgs.SpryConfig())
     keys = iter(jax.random.split(jax.random.PRNGKey(2), 8))
     for group in ("layers", "shared"):
         for t in jpeft[group]:

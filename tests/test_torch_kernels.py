@@ -58,6 +58,19 @@ from repro_torch.kernels.wkv6_scan import ops as w6_ops
 torch.set_num_threads(1)
 RTOL = 1e-5
 
+# the JAX oracles compiled once a shape (jax.jit) instead of dispatched op by
+# op: the same functions, several seconds less a call on the CPU
+lora_dual_mt_ref = jax.jit(lora_dual_mt_ref)
+lora_dual_mt_jvps_ref = jax.jit(lora_dual_mt_jvps_ref)
+swa_attention_gqa_ref = jax.jit(swa_attention_gqa_ref, static_argnames="window")
+swa_attention_mt_ref = jax.jit(swa_attention_mt_ref, static_argnames="window")
+swa_attention_mt_jvps_ref = jax.jit(swa_attention_mt_jvps_ref, static_argnames="window")
+jax_m2_ref = jax.jit(jax_m2_ref)
+jax_m2_mt_ref = jax.jit(jax_m2_mt_ref)
+jax_m2_jvps_ref = jax.jit(jax_m2_jvps_ref)
+jax_w6_mt_ref = jax.jit(jax_w6_ref.wkv6_scan_mt_ref)
+jax_w6_mt_jvps_ref = jax.jit(jax_w6_ref.wkv6_scan_mt_jvps_ref)
+
 
 def _rel(got, want):
     got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
@@ -114,6 +127,12 @@ SWA_CASES = [
     (1, 4, 2, 32, 32, 8),          # GQA + band
     (1, 8, 2, 24, 16, None),
     (2, 2, 1, 17, 64, 5),          # ragged S, MQA
+    # the dense configs' head widths: h2o-danube's 120 and gemma3-12b's 256,
+    # G = H / KV of 2, 4 and 12 (command-r's), full and banded
+    (1, 4, 2, 24, 120, None),
+    (1, 8, 2, 21, 256, 8),
+    (1, 12, 1, 18, 120, 5),
+    (1, 12, 1, 16, 256, None),
 ]
 
 
@@ -152,6 +171,7 @@ def test_swa_plain_matches_pallas_interpret():
     (1, 4, 2, 100, 32, 40, 2),     # GQA, band, ragged S (two 64-key tiles)
     (2, 2, 2, 64, 16, None, 3),
     (1, 2, 1, 70, 64, None, 2),    # MQA, one key past a tile
+    (1, 4, 1, 70, 120, 24, 2),     # h2o-danube's width: the kernel pads it to 128
 ])
 def test_swa_mt_tiled_plain_matches_pallas_interpret(B, H, KV, S, hd, window, T, dtype):
     """The tiled plain walk, rounding psd as the reference does, against the
@@ -238,8 +258,9 @@ def test_wrapper_checks_reject_what_the_kernel_does_not_take():
     q, k, v, qd, kd, vd = map(_t, _swa_inputs(8, 1, 4, 3, 8, 16, 1))
     with pytest.raises(ValueError, match="GQA"):
         swa_ops._check("swa", q, k, v)
+    swa_ops._check("swa", *(torch.zeros(1, 2, 4, 256) for _ in range(3)))   # gemma3-12b
     with pytest.raises(ValueError, match="hd"):
-        swa_ops._check("swa", *(torch.zeros(1, 2, 4, 160) for _ in range(3)))
+        swa_ops._check("swa", *(torch.zeros(1, 2, 4, 264) for _ in range(3)))
 
 
 def test_cuda_tensors_never_take_the_plain_version(monkeypatch):
@@ -592,8 +613,8 @@ def test_wkv6_jvps_chunked_plain_matches_jax_ref(B, S, H, hd, T, has_ud):
     assert w6_ops.wkv6_jvps_path(S) == "chunk"
     ju = jnp.asarray(uds) if has_ud else None
     jp, jt = tuple(map(jnp.asarray, prim)), tuple(map(jnp.asarray, tang))
-    want = jax_w6_ref.wkv6_scan_mt_jvps_ref(*jp, *jt, jnp.asarray(gy), ju)
-    _, yds = jax_w6_ref.wkv6_scan_mt_ref(*jp, *jt, ju)
+    want = jax_w6_mt_jvps_ref(*jp, *jt, jnp.asarray(gy), ju)
+    _, yds = jax_w6_mt_ref(*jp, *jt, ju)
     got = w6_ops.wkv6_scan_mt_jvps_chunked_ref(*map(_t, prim + tang + (gy,)),
                                                _t(uds) if has_ud else None)
     assert got.dtype == torch.float32
@@ -818,10 +839,14 @@ def test_lora_jvps_path_rule(dtype, K, N, has_xd, aligned, want):
 @pytest.mark.parametrize("dtype,hd,aligned,want", [
     (torch.bfloat16, 64, True, "tc"), (torch.bfloat16, 128, True, "tc"),
     (torch.bfloat16, 16, True, "tc"), (torch.bfloat16, 48, True, "tc"),
+    (torch.bfloat16, 256, True, "tc"),         # gemma3-12b: the wide plan
+    (torch.bfloat16, 120, True, "tc"),         # h2o-danube: padded to 128 in the kernel
     (torch.bfloat16, 64, False, "simt"),       # a view off the 16-byte copies
-    (torch.bfloat16, 40, True, "simt"), (torch.bfloat16, 72, True, "simt"),
-    (torch.bfloat16, 8, True, "simt"), (torch.float32, 64, True, "simt"),
-    (torch.float32, 128, True, "simt"), (torch.float16, 64, True, "simt"),
+    (torch.bfloat16, 40, True, "tc"), (torch.bfloat16, 72, True, "tc"),
+    (torch.bfloat16, 8, True, "tc"), (torch.bfloat16, 36, True, "simt"),
+    (torch.bfloat16, 120, False, "simt"), (torch.float32, 64, True, "simt"),
+    (torch.float32, 128, True, "simt"), (torch.float32, 256, True, "simt"),
+    (torch.float32, 120, True, "simt"), (torch.float16, 64, True, "simt"),
 ])
 def test_swa_path_rule(dtype, hd, aligned, want):
     assert swa_ops.swa_path(dtype, hd, aligned) == want
@@ -835,7 +860,10 @@ def test_swa_path_rule(dtype, hd, aligned, want):
     (torch.bfloat16, 16, 8192, 4096, True, "stream"),
     (torch.bfloat16, 17, 4096, 4096, True, "simt"),       # more rows
     (torch.bfloat16, 256, 4096, 4096, True, "simt"),
-    (torch.bfloat16, 4, 8193, 4096, True, "simt"),        # x's slice past shared memory
+    (torch.bfloat16, 4, 12288, 12288, True, "stream"),    # command-r-plus-104b wq
+    (torch.bfloat16, 4, 12288, 1024, True, "stream"),     # and wv
+    (torch.bfloat16, 4, 12296, 4096, True, "simt"),       # x's slice past shared memory
+    (torch.bfloat16, 4, 8193, 4096, True, "simt"),        # K off the 8-element copies
     (torch.bfloat16, 4, 1000, 333, True, "simt"),         # N off the 8-column loads
     (torch.bfloat16, 4, 4096, 4096, False, "simt"),       # x or W off 16 bytes
     (torch.float32, 4, 4096, 4096, True, "simt"),         # fp32 stays on the fp32 kernel

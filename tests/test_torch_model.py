@@ -78,8 +78,9 @@ def model(request):
     jc = jcfgs.reduce_config(jcfgs.get_config(request.param))
     tc = tcfgs.reduce_config(tcfgs.get_config(request.param))
     key = jax.random.PRNGKey(0)
-    jbase = jtf.init_base(jc, key)
-    jpeft = jinit_peft(jc, jax.random.PRNGKey(1), jcfgs.SpryConfig())
+    jbase = jax.jit(jtf.init_base, static_argnums=0)(jc, key)
+    jpeft = jax.jit(jinit_peft, static_argnums=(0, 2))(jc, jax.random.PRNGKey(1),
+                                                        jcfgs.SpryConfig())
     kb = jax.random.split(jax.random.PRNGKey(2), 2)
     for t, k in zip(("wq", "wv"), kb):
         B = jpeft["layers"][t]["B"]

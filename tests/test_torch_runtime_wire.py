@@ -74,8 +74,8 @@ def peft_np():
     """The reference's reduced-roberta peft tree as numpy, its unit index,
     and a random delta of the same shapes (numpy, fp32)."""
     jc = jcfgs.reduce_config(jcfgs.get_config("roberta-large-lora"))
-    jpeft = jax.tree.map(np.asarray, jinit_peft(jc, jax.random.PRNGKey(0),
-                                                jcfgs.SpryConfig()))
+    jpeft = jax.tree.map(np.asarray, jax.jit(jinit_peft, static_argnums=(0, 2))(
+        jc, jax.random.PRNGKey(0), jcfgs.SpryConfig()))
     rng = np.random.default_rng(5)
     delta = jax.tree.map(lambda x: rng.standard_normal(x.shape).astype(np.float32),
                          jpeft)

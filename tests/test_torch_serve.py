@@ -89,8 +89,9 @@ def ref():
     adapters (carried over), and the reference runs the tests compare with."""
     jc = jcfgs.reduce_config(jcfgs.get_config("llama2-7b"))
     tc = tcfgs.reduce_config(tcfgs.get_config("llama2-7b"))
-    jbase = jtf.init_base(jc, jax.random.PRNGKey(0))
+    jbase = jax.jit(jtf.init_base, static_argnums=0)(jc, jax.random.PRNGKey(0))
     jstore = jac.SyntheticAdapterStore(jc, seed=0)
+    jstore.load = jax.jit(jstore.load)   # compiled once, not op by op
     jpeft = jstore.load(5)
     tbase, tpeft = from_reference(tc, _np_tree(jbase), _np_tree(jpeft), "cpu")
     rng = np.random.default_rng(0)

@@ -69,8 +69,9 @@ def _configs(variant):
 @pytest.fixture(scope="module", params=["reduced", "every2"])
 def ref(request):
     jc, tc = _configs(request.param)
-    jbase = jhyb.init_base(jc, jax.random.PRNGKey(0))
+    jbase = jax.jit(jhyb.init_base, static_argnums=0)(jc, jax.random.PRNGKey(0))
     jstore = jac.SyntheticAdapterStore(jc, seed=0)
+    jstore.load = jax.jit(jstore.load)   # compiled once, not op by op
     jpeft = jstore.load(5)
     tbase, tpeft = from_reference(tc, _np_tree(jbase), _np_tree(jpeft), "cpu")
     prompt = np.random.default_rng(0).integers(0, jc.vocab, (2, P)).astype(np.int32)

@@ -53,8 +53,9 @@ P, NEW = 12, 5
 def ref():
     jc = jcfgs.reduce_config(jcfgs.get_config(ARCH))
     tc = tcfgs.reduce_config(tcfgs.get_config(ARCH))
-    jbase = jrwkv.init_base(jc, jax.random.PRNGKey(0))
+    jbase = jax.jit(jrwkv.init_base, static_argnums=0)(jc, jax.random.PRNGKey(0))
     jstore = jac.SyntheticAdapterStore(jc, seed=0)
+    jstore.load = jax.jit(jstore.load)   # compiled once, not op by op
     jpeft = jstore.load(5)
     tbase, tpeft = from_reference(tc, _np_tree(jbase), _np_tree(jpeft), "cpu")
     prompt = np.random.default_rng(0).integers(0, jc.vocab, (2, P)).astype(np.int32)

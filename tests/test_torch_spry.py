@@ -65,8 +65,9 @@ def _to_t(tree):
 def setup():
     jc = jcfgs.reduce_config(jcfgs.get_config("roberta-large-lora"))
     tc = tcfgs.reduce_config(tcfgs.get_config("roberta-large-lora"))
-    jbase = jtf.init_base(jc, jax.random.PRNGKey(0))
-    jpeft = jinit_peft(jc, jax.random.PRNGKey(1), jcfgs.SpryConfig())
+    jbase = jax.jit(jtf.init_base, static_argnums=0)(jc, jax.random.PRNGKey(0))
+    jpeft = jax.jit(jinit_peft, static_argnums=(0, 2))(jc, jax.random.PRNGKey(1),
+                                                        jcfgs.SpryConfig())
     for t, k in zip(("wq", "wv"), jax.random.split(jax.random.PRNGKey(2), 2)):
         B = jpeft["layers"][t]["B"]
         jpeft["layers"][t]["B"] = 0.2 * jax.random.normal(k, B.shape)

@@ -14,8 +14,10 @@ Against the reference (``Telemetry(sinks=[InMemorySink()])`` on both sides):
     test_torch_async with the reference's perturbations keyed by dispatch
     index: the ``async_round`` events and the ``fl.async.*`` and fault
     counters the same way;
-  * ``run_training``, reduced, in process, 2 rounds, eval every round: the
-    same event kinds in the same order and the same keys in each (the values
+  * ``run_training``, reduced, in process, 2 rounds, eval every round (the
+    telemetry-on run of the neutrality test's standard case, a module
+    fixture): the same event kinds in the same order and the same keys in
+    each (the values
     differ: the port draws its perturbations from a ``torch.Generator``; the
     reference's personalized accuracy, whose value is not compared, is a
     constant to save its ~30 s of eager forward gradients);
@@ -167,8 +169,8 @@ def reference_chaos_rounds():
     jsc = jcfgs.SpryConfig(n_clients_per_round=M_REF, local_iters=1,
                            local_lr=5e-3, server_lr=1e-2, k_perturbations=2,
                            seed=3)
-    jbase = jtf.init_base(jc, jax.random.PRNGKey(0))
-    jpeft = jinit_peft(jc, jax.random.PRNGKey(1), jsc)
+    jbase = jax.jit(jtf.init_base, static_argnums=0)(jc, jax.random.PRNGKey(0))
+    jpeft = jax.jit(jinit_peft, static_argnums=(0, 2))(jc, jax.random.PRNGKey(1), jsc)
     for t, k in zip(("wq", "wv"), jax.random.split(jax.random.PRNGKey(2), 2)):
         jpeft["layers"][t]["B"] = 0.2 * jax.random.normal(
             k, jpeft["layers"][t]["B"].shape)
@@ -261,8 +263,8 @@ def reference_async_events():
     jc = jcfgs.reduce_config(jcfgs.get_config("roberta-large-lora"))
     jsc = jcfgs.SpryConfig(n_clients_per_round=4, local_iters=1, local_lr=5e-3,
                            server_lr=1e-2, k_perturbations=2, seed=3)
-    jbase = jtf.init_base(jc, jax.random.PRNGKey(0))
-    jpeft = jinit_peft(jc, jax.random.PRNGKey(1), jsc)
+    jbase = jax.jit(jtf.init_base, static_argnums=0)(jc, jax.random.PRNGKey(0))
+    jpeft = jax.jit(jinit_peft, static_argnums=(0, 2))(jc, jax.random.PRNGKey(1), jsc)
     for t, k in zip(("wq", "wv"), jax.random.split(jax.random.PRNGKey(2), 2)):
         jpeft["layers"][t]["B"] = 0.2 * jax.random.normal(
             k, jpeft["layers"][t]["B"].shape)
@@ -329,18 +331,48 @@ _TRAIN = dict(rounds=2, clients_per_round=2, total_clients=6, batch_size=4,
               k_perturbations=2, eval_every=1, log=lambda *a: None)
 
 
-def test_run_training_events_match_reference_kinds_and_keys(monkeypatch):
+def _port_runs(kw, ck_root):
+    """``run_training(**kw)`` on the CPU with telemetry off and on (run id
+    ``train-spry-0``, workload ``train``), each writing its checkpoints under
+    ``ck_root``: {on: (untimed history, content hash, sink)}."""
+    runs = {}
+    for on in (False, True):
+        sink = InMemorySink()
+        tel = (Telemetry(run_id="train-spry-0", sinks=[sink], workload="train") if on
+               else None)
+        ck = str(ck_root / f"ck_{on}")
+        hist = ttrain.run_training(checkpoint_dir=ck, telemetry=tel, device="cpu", **kw)
+        if tel is not None:
+            tel.close()
+        runs[on] = (_untimed(hist), read_manifest(ck).content_hash, sink)
+    return runs
+
+
+@pytest.fixture(scope="module")
+def standard_runs(tmp_path_factory):
+    """The in-process standard-route runs of ``_TRAIN`` (eval every round),
+    telemetry off and on: shared by the kinds-and-keys comparison with the
+    reference and by the standard case of the neutrality test."""
+    return _port_runs(_TRAIN, tmp_path_factory.mktemp("standard"))
+
+
+def test_run_training_events_match_reference_kinds_and_keys(monkeypatch, standard_runs):
     # the reference's personalized accuracy runs eager forward gradients
     # (~30 s on the CPU); its value is not compared, so a constant stands in
     monkeypatch.setattr(jtrain, "personalized_accuracy", lambda *a, **k: 0.5)
+    # its weight draws under jax.jit: the same functions, compiled once
+    # instead of dispatched op by op (seconds on the CPU); the values drawn
+    # are not compared here
+    real = jtrain.get_model
+    monkeypatch.setattr(jtrain, "get_model", lambda cfg: dataclasses.replace(
+        real(cfg), init_base=jax.jit(real(cfg).init_base, static_argnums=0)))
+    monkeypatch.setattr(jtrain, "init_peft", jax.jit(jtrain.init_peft,
+                                                     static_argnums=(0, 2)))
     want_sink = jobs.InMemorySink()
     jtel = jobs.Telemetry(run_id="train-spry-0", sinks=[want_sink], workload="train")
     jtrain.run_training(telemetry=jtel, **_TRAIN)
     jtel.close()
-    sink = InMemorySink()
-    tel = Telemetry(run_id="train-spry-0", sinks=[sink], workload="train")
-    ttrain.run_training(telemetry=tel, device="cpu", **_TRAIN)
-    tel.close()
+    sink = standard_runs[True][2]
     assert _kinds_and_keys(sink.events) == _kinds_and_keys(want_sink.events)
     assert [e["kind"] for e in sink.events] == [
         "run_meta", "run_meta", "round", "memory", "eval", "round", "eval",
@@ -395,8 +427,8 @@ def test_serving_events_and_counters_match_reference():
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("case", ["standard", "fused", "runtime_mild", "async"])
-def test_run_training_bitwise_with_telemetry(tmp_path, case):
-    kw = dict(_TRAIN, device="cpu", eval_every=2)      # one eval, at the end
+def test_run_training_bitwise_with_telemetry(tmp_path, standard_runs, case):
+    kw = dict(_TRAIN, eval_every=2)      # one eval, at the end (standard: every round)
     if case == "fused":
         kw["fused_contraction"] = True
     elif case == "runtime_mild":
@@ -405,13 +437,7 @@ def test_run_training_bitwise_with_telemetry(tmp_path, case):
     elif case == "async":
         kw.update(async_mode=True, clients_per_round=4, total_clients=16,
                   buffer_size=2, faults="mild")
-    runs = {}
-    for on in (False, True):
-        sink = InMemorySink()
-        tel = Telemetry(run_id="t", sinks=[sink]) if on else None
-        ck = str(tmp_path / f"ck_{on}")
-        hist = ttrain.run_training(checkpoint_dir=ck, telemetry=tel, **kw)
-        runs[on] = (_untimed(hist), read_manifest(ck).content_hash, sink)
+    runs = standard_runs if case == "standard" else _port_runs(kw, tmp_path)
     assert runs[True][:2] == runs[False][:2]
     kinds = {e["kind"] for e in runs[True][2].events}
     assert {"run_meta", "eval", "memory", "personalized_eval"} <= kinds
