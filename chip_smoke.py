@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py                 # every phase, as a check
     python3 chip_smoke.py --only kernels  # one phase while iterating
-                                          # (kernels|parity|train|serve|runtime|dense)
+                                          # (kernels|parity|train|serve|runtime|dense|
+                                          #  families)
 
 Phases, in order (any failure raises and exits non-zero):
   1. device   the card's name and power limit (nvidia-smi), torch's name
@@ -236,7 +237,32 @@ Phases, in order (any failure raises and exits non-zero):
               at 3 layers wrapping its 4096-slot ring with 4104 tokens. Each
               model is freed before the next; the phase ends with the
               device memory allocated at its start
-Every kernel must have launched over phases 5 to 9 (the main path). The
+ 10. families the moe, vlm and encoder-decoder configs at full published
+              width, bf16 (``--only families``; depth cut to one card,
+              printed as ``reduced``: qwen3-moe-235b-a22b 8 of 94 layers,
+              llama4-maverick-400b-a17b 2 of 48, internvl2-76b 24 of 80;
+              whisper-tiny whole): ``run_training`` on sst2, 2 clients,
+              one round, text-only (qwen3 spry K=4 on both routes and
+              fedavg, internvl2 spry K=4 on both routes, llama4 spry K=4),
+              each round exactly ``round_launches``, rows 1-4 on a
+              tensor-core route; ``forward_gradient`` of the split LM loss,
+              K=4, both routes, B=2 x 32 tokens with a frontend batch
+              (internvl2 256 patch embeddings, llama4 128, whisper 1500
+              frames), exactly one estimate's ``round_launches``, the
+              kernels against their plain versions on the card within
+              FAMILY_EST_PLAIN_RTOL and, where fp32 weights fit (internvl2
+              at 12 layers, whisper whole), each bf16 run against the fp32
+              estimate within FAMILY_EST_FP32_RTOL; ``dense_serve`` of the
+              four (whisper's requests with their own frames; first step
+              vs per-request greedy within SERVE_BF16_ATOL, every
+              ``lora_dual_multi`` launch on ``stream``; the fp32 witness at
+              FAMILY_FP32_LAYERS' depth, llama4 instead its reduced fp32
+              engine card vs CPU); fp32 decode vs teacher forcing for
+              qwen3 (4 layers, a 4-token prompt) and whisper; the phase
+              ends with the device memory allocated at its start. Phase 3
+              also holds rows 1-4 and 6 at these configs' widths
+              (FAMILY_SHAPES)
+Every kernel must have launched over phases 5 to 10 (the main path). The
 line before the last is the ``kernels`` JSON; the last line is
 ``{"ok": true, "device": {...}}``. Without a card, or without the repo
 beside it, the script exits non-zero and prints no result.
@@ -739,6 +765,49 @@ def dense_width_cases(dtype, gen, extra, note):
                     extra[f"swa_attention_mt_jvps {tag} T={T}"] = res
 
 
+# the moe, vlm and encoder-decoder configs' kernel shapes (phase 10):
+# (arch, (wq K, N), (wv K, N), attention (B, H, KV, S, hd)): qwen3-moe's
+# G=16 at a client batch; llama4-maverick's and internvl2's attention over
+# 128 and 256 patch embeddings + 32 text tokens (the estimates' batch of 2);
+# whisper-tiny's decoder at a client batch
+FAMILY_SHAPES = (("qwen3-moe-235b-a22b", (4096, 8192), (4096, 512), (8, 64, 4, 32, 128)),
+                 ("llama4-maverick-400b-a17b", (5120, 5120), (5120, 1024),
+                  (2, 40, 8, 160, 128)),
+                 ("internvl2-76b", (8192, 8192), (8192, 1024), (2, 64, 8, 288, 128)),
+                 ("whisper-tiny", (384, 384), (384, 384), (8, 6, 6, 32, 64)))
+
+
+def family_width_cases(gen, extra, note):
+    """Rows 1, 2, 3, 4 and 6 at FAMILY_SHAPES in bf16: the LoRA tangents
+    (M = 256, a client's 8 x 32 tokens; T=4, the phase's K, timed, and T=1)
+    of wq and wv, whisper's encoder wq at M = 3000 (two requests' 1500
+    frames); the attention primal and tangents (T in {0, 1, 4}, timed at 0
+    and 4) and their contraction (T=4, timed); the multi-adapter projection
+    of wq and wv at the engine's decode (M=4, P=4, r=1, cold). Each on the
+    route its wrapper must take, held as phase 3 holds every case."""
+    import torch
+    bf = torch.bfloat16
+    for arch, wq, wv, (B, H, KV, S, hd) in FAMILY_SHAPES:
+        for K, N in dict.fromkeys((wq, wv)):
+            for T in (1, 4):
+                res = lora_case(256, K, N, 1, T, True, bf, gen, timed=T == 4)
+                if T == 4:
+                    extra[f"lora_dual_mt {arch} M=256 K={K} N={N} T=4"] = res
+            res = lora_multi_case(4, K, N, 4, 1, bf, gen, timed=True, cold=True)
+            extra[f"lora_dual_multi {arch} M=4 K={K} N={N} P=4 r=1"] = res
+        if arch == "whisper-tiny":
+            extra[f"lora_dual_mt {arch} encoder M=3000 K=384 N=384 T=4"] = lora_case(
+                3000, 384, 384, 1, 4, True, bf, gen, timed=True)
+        tag = f"{arch} B={B} H={H} KV={KV} S={S} hd={hd}"
+        for T in (0, 1, 4):
+            res = swa_case(B, H, KV, S, hd, None, T, bf, gen, timed=T != 1)
+            if T != 1:
+                extra[f"{'swa_attention_mt' if T else 'swa_attention'} {tag} T={T}"] = res
+        extra[f"swa_attention_mt_jvps {tag} T=4"] = note(
+            "swa_attention_mt_jvps", bf, swa_jvps_case(B, H, KV, S, hd, None, 4, bf, gen,
+                                                       True))
+
+
 def mamba2_inputs(B, S, H, hd, N, T, gen):
     """Recurrence operands at the model's scales: decay in (0, 1)."""
     import torch
@@ -1222,6 +1291,7 @@ def phase_kernels():
                     if timed:
                         extra[f"swa_attention B={B} H={H} S={S} hd={hd}"] = res
         dense_width_cases(dtype, gen, extra, note)
+    family_width_cases(gen, extra, note)
     # the bf16 contraction epilogues' lanes: LoRA at roberta-large's and
     # llama2-7b's widths and off the tiles, with and without an input tangent;
     # attention at both head widths (two tangents a group, one) and with four
@@ -1566,6 +1636,12 @@ def round_launches(cfg, kind, estimates):
         per = {"lora_dual_mt": len(default_lora_targets(cfg)) * L,   # wr, wv
                "wkv6_scan": L, "wkv6_scan_mt": L}
         final = "wkv6"
+    elif cfg.family == "audio":
+        # the encoder's wq, wv (its attention is non-causal: plain torch); the
+        # decoder's self-attention wq, wv and cross-attention wq
+        per = {"lora_dual_mt": 2 * cfg.encoder_layers + 3 * L,
+               "swa_attention": L, "swa_attention_mt": L}
+        final = "swa"
     else:
         per = {"lora_dual_mt": 2 * L,      # wq, wv per layer
                "swa_attention": L, "swa_attention_mt": L}
@@ -1574,6 +1650,8 @@ def round_launches(cfg, kind, estimates):
         if final == "swa":
             per["swa_attention_mt"] -= 1
             per["swa_attention_mt_jvps"] = 1
+            if cfg.family == "audio":   # the final cross-attention's wq: post-head
+                per["lora_dual_mt"] -= 1
         elif final == "wkv6":
             per["wkv6_scan_mt"] -= 1
             per["wkv6_scan_mt_jvps"] = 1
@@ -1649,9 +1727,10 @@ def serve_launches(cfg, decode_steps):
     from the served peft tree: each target of a layer-stacked group once a
     layer, each target of the hybrid family's shared block once an
     application site (llama2-7b: wq, wv x 32 layers = 64; rwkv6-1.6b: wr,
-    wv x 24 = 48; zamba2-1.2b: in_proj, out_proj x 38 + wq, wv x 6 = 88).
-    The B=1 admission prefill (a single-adapter page) and the greedy loop
-    launch none."""
+    wv x 24 = 48; zamba2-1.2b: in_proj, out_proj x 38 + wq, wv x 6 = 88;
+    whisper-tiny: wq, wv x 4 decoder layers and the cross-attention's wq x
+    4 = 12). The B=1 admission prefill and encoding (a single-adapter page)
+    and the greedy loop launch none."""
     import torch
     from repro_torch.configs import SpryConfig
     from repro_torch.launch.adapter_cache import _STACKED_GROUPS
@@ -1660,7 +1739,10 @@ def serve_launches(cfg, decode_steps):
     tree = init_peft(cfg, torch.Generator().manual_seed(0), SpryConfig())
     per_step = sum(len(targets) * (cfg.n_layers if group in _STACKED_GROUPS
                                    else n_attn_sites(cfg))
-                   for group, targets in tree.items() if group != "head")
+                   for group, targets in tree.items()
+                   if group not in ("head", "enc_layers"))
+    if cfg.family == "audio":
+        per_step += cfg.n_layers * sum(t in tree["layers"] for t in ("wq", "wo"))
     want = dict.fromkeys(KERNELS, 0)
     want["lora_dual_multi"] = per_step * decode_steps
     return want
@@ -1846,7 +1928,15 @@ SERVE_BF16_ATOL = {"llama2-7b": 0.16, "rwkv6-1.6b": 0.25, "zamba2-1.2b": 3.5,
                    # its logits reach 46, where the others' stay under 12. The
                    # fp32 witness reads 6-9e-6 on each (PERF.md, Findings)
                    "gemma3-12b": 0.25, "gemma3-27b": 0.25, "h2o-danube-3-4b": 0.16,
-                   "command-r-plus-104b": 0.5}
+                   "command-r-plus-104b": 0.5,
+                   # phase 10's, seeds 0-2, kernel (plain version): qwen3 0.277
+                   # / 0.039 / 0.258 (0 / 0 / 0: a bf16 rounding of the
+                   # kernel's flips a token's top-8 experts), llama4 0.066 /
+                   # 0.070 / 0.063 (0 / 0.031 / 0), internvl2 0.077 / 0.086 /
+                   # 0.086 (0.031 / 0.063 / 0.047), whisper 0.040 / 0.047 /
+                   # 0.039 (0.0078 / 0.0039 / 0.0010)
+                   "qwen3-moe-235b-a22b": 0.6, "llama4-maverick-400b-a17b": 0.15,
+                   "internvl2-76b": 0.2, "whisper-tiny": 0.1}
 
 
 # the fp32 witness (``serve_fp32_witness``): one batched engine decode step
@@ -1860,17 +1950,22 @@ SERVE_BF16_ATOL = {"llama2-7b": 0.16, "rwkv6-1.6b": 0.25, "zamba2-1.2b": 3.5,
 # logits up to 52)
 SERVE_FP32_ATOL = {"llama2-7b": 2e-5, "rwkv6-1.6b": 3e-5, "zamba2-1.2b": 5e-4,
                    "gemma3-12b": 2e-5, "gemma3-27b": 2e-5, "h2o-danube-3-4b": 1.5e-5,
-                   "command-r-plus-104b": 2e-5}
+                   "command-r-plus-104b": 2e-5,
+                   # phase 10 (qwen3 at 4 layers, internvl2 at 12), seeds 0-2:
+                   # 9.8e-6, 1.24e-5 and 2.1e-6 at most, kernel and plain alike
+                   "qwen3-moe-235b-a22b": 2e-5, "internvl2-76b": 2.5e-5, "whisper-tiny": 5e-6}
 
 
-def _witness_steps(cfg, model, base, pages, page, prompts, fns, routes):
+def _witness_steps(cfg, model, base, pages, page, prompts, fns, routes, frames=None):
     """Prompt b prefilled at B=1 with its own adapter page ``page[b]`` of
-    ``pages``, its first decode step taken at B=1 and, the four rows
+    ``pages`` (and, for the encoder-decoder family, ``frames[b]`` encoded
+    with it), its first decode step taken at B=1 and, the four rows
     scattered into one B=4 cache, as one batched step over the four pages
     through each of ``routes`` (name -> the multi-adapter function). Returns
     the B=1 logits (4,V) and each route's batched logits, fp32."""
     import torch
     from repro_torch.kernels import dispatch
+    from repro_torch.launch.serve import encode_into_cache
     from repro_torch.launch.serving import _scatter_row
 
     P, dev = prompts.shape[1], prompts.device
@@ -1878,6 +1973,8 @@ def _witness_steps(cfg, model, base, pages, page, prompts, fns, routes):
     toks, single = [], []
     for b in range(4):
         one = model.init_cache(cfg, 1, P + 1, device=dev)
+        if frames is not None:
+            encode_into_cache(cfg, base, pages.page_tree(page[b]), one, frames[b:b + 1])
         logits, one = fns["prefill"](base, pages.page_tree(page[b]), one,
                                      prompts[b:b + 1])
         toks.append(torch.argmax(logits, dim=-1)[:, None].to(torch.int32))
@@ -1929,6 +2026,8 @@ def serve_fp32_witness(arch, P=16, cfg=None, cpu=True, seed=0):
     card_store = SyntheticAdapterStore(cfg, seed=seed, device="cuda")
     prompts = torch.randint(0, cfg.vocab, (4, P), generator=gen, device="cuda",
                             dtype=torch.int32)
+    frames = (torch.randn((4, cfg.encoder_seq, cfg.d_model), generator=gen,
+                          device="cuda") if cfg.encoder_layers else None)
 
     class HostStore:            # the card's adapters, on the host
         def template(self):
@@ -1944,11 +2043,12 @@ def serve_fp32_witness(arch, P=16, cfg=None, cpu=True, seed=0):
             ("cpu", HostStore(), {"cpu": ops.lora_dual_multi_ref}))[:2 if cpu else 1]:
         if dev == "cpu":
             base, prompts = tree_map(lambda t: t.cpu(), base), prompts.cpu()
+            frames = None if frames is None else frames.cpu()
             torch.cuda.empty_cache()
         pages = AdapterCache(store, capacity=4)
         page = [pages.pin(aid) for aid in range(4)]
         single, batched = _witness_steps(cfg, model, base, pages, page, prompts, fns,
-                                         routes)
+                                         routes, frames)
         if dev == "card":
             card_single = single.cpu()
             res["max_abs_logit"] = float(single.abs().max())
@@ -2127,6 +2227,9 @@ def phase_serve(arch, totals, path_totals, smi):
         prompt1 = torch.as_tensor(req.prompt, device="cuda")[None]
         peft1 = store.load(req.adapter_id)
         cache1 = model.init_cache(cfg, 1, P + steps, device="cuda")
+        if req.frames is not None:
+            serve.encode_into_cache(cfg, base, peft1, cache1,
+                                    torch.as_tensor(req.frames, device="cuda")[None])
         logits, cache1 = fns["prefill"](base, peft1, cache1, prompt1)
         tok1 = torch.argmax(logits, dim=-1)[:, None].to(torch.int32)
         g = fns["decode"](base, peft1, cache1, tok1, P)[0][0].float().cpu()
@@ -2710,16 +2813,22 @@ def depth_cut(arch, n_layers, why):
         train_mod.get_config = get_config
 
 
-def dense_depth(arch):
-    """``depth_cut`` at DENSE_LAYERS' depth (command-r-plus-104b's 8)."""
+def bf16_depth(arch, n_layers):
+    """``depth_cut`` at ``n_layers`` (None: as published), the bf16 weights
+    whole and cut printed as the reason."""
     import dataclasses
 
     from repro_torch.configs import get_config
-    n = DENSE_LAYERS.get(arch)
     full = get_config(arch)
     gb = lambda c: 2 * c.n_param_estimate() / 1e9  # noqa: E731  bf16 weights
-    return depth_cut(arch, n, f"bf16 weights {gb(full):.0f} GB whole, "
-                              f"{gb(dataclasses.replace(full, n_layers=n or 1)):.1f} GB cut")
+    cut = dataclasses.replace(full, n_layers=n_layers or 1)
+    return depth_cut(arch, n_layers, f"bf16 weights {gb(full):.0f} GB whole, "
+                                     f"{gb(cut):.1f} GB cut")
+
+
+def dense_depth(arch):
+    """``depth_cut`` at DENSE_LAYERS' depth (command-r-plus-104b's 8)."""
+    return bf16_depth(arch, DENSE_LAYERS.get(arch))
 
 
 # the dispatch layer's LoRA and attention entry points and their plain versions
@@ -2881,22 +2990,24 @@ def torch_finite(t):
     return bool(torch.isfinite(t).all())
 
 
-def dense_decode_vs_forward(arch, n_layers, prompt_len, smi):
+def dense_decode_vs_forward(arch, n_layers, prompt_len, smi, tag="dense",
+                            rtol=None):
     """``arch`` at full width and ``n_layers`` layers in fp32 (random weights,
-    synthetic adapter 0): the prompt's first prompt_len - 1 tokens prefilled,
-    its last one decoded at position prompt_len - 1, the step's logits held
-    against the teacher-forced forward over the whole prompt within
-    DENSE_FP32_DECODE_RTOL of the largest |logit| (the reference's
+    synthetic adapter 0; an encoder-decoder's random frames encoded into the
+    cache): the prompt's first prompt_len - 1 tokens prefilled, its last one
+    decoded at position prompt_len - 1, the step's logits held against the
+    teacher-forced forward over the whole prompt within ``rtol`` (default
+    DENSE_FP32_DECODE_RTOL) of the largest |logit| (the reference's
     tests/test_arch_smoke.py checks the same on its reduced configs)."""
     import dataclasses
 
     import torch
     from repro_torch.configs import get_config
     from repro_torch.launch.adapter_cache import SyntheticAdapterStore
-    from repro_torch.launch.serve import build_serve_fns, can_fuse_prefill
+    from repro_torch.launch.serve import build_serve_fns, can_fuse_prefill, encode_into_cache
     from repro_torch.models import get_model
-    from repro_torch.models.transformer import unembed
 
+    rtol = DENSE_FP32_DECODE_RTOL if rtol is None else rtol
     full = get_config(arch)
     cfg = dataclasses.replace(full, param_dtype="float32", n_layers=n_layers)
     model = get_model(cfg)
@@ -2905,31 +3016,36 @@ def dense_decode_vs_forward(arch, n_layers, prompt_len, smi):
     peft = SyntheticAdapterStore(cfg, seed=0, device="cuda").load(0)
     toks = torch.randint(0, cfg.vocab, (1, prompt_len), generator=gen, device="cuda",
                          dtype=torch.int32)
+    batch = {"tokens": toks}
     fns = build_serve_fns(cfg, model)
     cache = model.init_cache(cfg, 1, prompt_len, device="cuda")
+    if cfg.encoder_layers:
+        batch["frames"] = torch.randn((1, cfg.encoder_seq, cfg.d_model), generator=gen,
+                                      device="cuda")
+        encode_into_cache(cfg, base, peft, cache, batch["frames"])
     if not can_fuse_prefill(cfg, model, cache, prompt_len - 1):
-        raise AssertionError(f"dense {arch}: the prompt cannot take the fused prefill")
+        raise AssertionError(f"{tag} {arch}: the prompt cannot take the fused prefill")
     _, cache = fns["prefill"](base, peft, cache, toks[:, :-1])
     got = fns["decode"](base, peft, cache, toks[:, -1:], prompt_len - 1)[0].float()
     with torch.inference_mode():
-        h, _ = model.forward(cfg, base, peft, {"tokens": toks})
-        want = (h[:, -1, :] @ unembed(cfg, base)).float()
+        h, _ = model.forward(cfg, base, peft, batch)
+        want = (h[:, -1, :] @ model.unembed(cfg, base)).float()
     scale = float(want.abs().max())
     rel = float((got - want).abs().max()) / scale
     res = {"arch": arch, "n_layers": f"{full.n_layers} -> {n_layers}", "dtype": "float32",
            "prompt_len": prompt_len, "cache_slots": int(cache["k"].shape[2]),
            "window": cfg.window, "mixed_local_global": any(
                cfg.is_global_layer(i) for i in range(n_layers)) and cfg.attn_pattern != "full",
-           "max_abs_logit": scale, "rel_err": rel, "limit": DENSE_FP32_DECODE_RTOL,
-           "card": smi}
-    log(f"[dense] {arch} decode step vs teacher-forced forward: " + json.dumps(res))
-    del base, peft, cache, h
+           "max_abs_logit": scale, "rel_err": rel, "limit": rtol, "card": smi}
+    log(f"[{tag}] {arch} decode step vs teacher-forced forward: " + json.dumps(res))
+    del base, peft, cache, h, batch
     _free()
-    if not rel <= DENSE_FP32_DECODE_RTOL:
-        raise AssertionError(f"dense {arch}: decode vs teacher-forced forward {res}")
+    if not rel <= rtol:
+        raise AssertionError(f"{tag} {arch}: decode vs teacher-forced forward {res}")
 
 
-def dense_serve(arch, cfg, totals, path_totals, smi, seed=0):
+def dense_serve(arch, cfg, totals, path_totals, smi, seed=0, tag="dense",
+                witness_layers=None):
     """``arch`` (``cfg``: full width, DENSE_LAYERS' depth) in bf16 through
     ``serve.run_engine`` (weights, adapters and prompts from ``seed``): 4
     requests on 4 adapters (max_batch 4, P=16, 32 new tokens), exactly
@@ -2940,9 +3056,12 @@ def dense_serve(arch, cfg, totals, path_totals, smi, seed=0):
     against its own B=1 greedy step (the plain single-adapter primal)
     within SERVE_BF16_ATOL[arch]; ``greedy_generate`` (B=4, adapter 0, 32
     steps), which must launch nothing; then ``serve_fp32_witness`` on the
-    card at DENSE_WITNESS_LAYERS' depth within SERVE_FP32_ATOL[arch]. The
-    engines run one after the other, each on its own copy of the weights
-    (the same draws), so that one copy is held at a time."""
+    card at ``witness_layers``' depth (default DENSE_WITNESS_LAYERS', else
+    the config's; 0: none) within SERVE_FP32_ATOL[arch]. An encoder-decoder
+    request's frames are encoded with its adapter (greedy's B=4 frames from
+    the prompts' generator). The engines run one after the other, each on
+    its own copy of the weights (the same draws), so that one copy is held
+    at a time. ``tag`` heads the printed lines."""
     import dataclasses
 
     import torch
@@ -2950,6 +3069,8 @@ def dense_serve(arch, cfg, totals, path_totals, smi, seed=0):
     from repro_torch.launch import serve
 
     P, steps = 16, 32
+    if witness_layers is None:
+        witness_layers = DENSE_WITNESS_LAYERS.get(arch, cfg.n_layers)
     outputs, engine, log_steps, counts, paths, peak, calls = _run_engine_recorded(
         cfg, P, steps, n_requests=4, n_adapters=4, seed=seed)
     want = serve_launches(cfg, engine.steps)
@@ -2963,14 +3084,14 @@ def dense_serve(arch, cfg, totals, path_totals, smi, seed=0):
            "peak_GiB": peak, "in_situ_first_decode_step": in_situ,
            "lora_dual_multi_per_decode_step": want["lora_dual_multi"] // engine.steps,
            "lora_dual_multi_by_route": paths["lora_dual_multi"], "card": smi}
-    log(f"[dense] {arch} serve engine: " + json.dumps(res))
+    log(f"[{tag}] {arch} serve engine: " + json.dumps(res))
     if counts != want or len(log_steps) != engine.steps:
-        raise AssertionError(f"dense serve {arch}: launches {counts} != {want}")
+        raise AssertionError(f"{tag} serve {arch}: launches {counts} != {want}")
     if paths["lora_dual_multi"] != {"stream": want["lora_dual_multi"], "simt": 0}:
-        raise AssertionError(f"dense serve {arch}: decode launches by route "
+        raise AssertionError(f"{tag} serve {arch}: decode launches by route "
                              f"{paths['lora_dual_multi']}, not all stream")
     if in_situ["calls"] != serve_launches(cfg, 1)["lora_dual_multi"]:
-        raise AssertionError(f"dense serve {arch}: first decode step held {in_situ}")
+        raise AssertionError(f"{tag} serve {arch}: first decode step held {in_situ}")
     for k, n in counts.items():
         totals[k] += n
     for route, n in paths["lora_dual_multi"].items():
@@ -2982,7 +3103,7 @@ def dense_serve(arch, cfg, totals, path_totals, smi, seed=0):
     p_out, engine, p_log, p_counts, _, _, _ = _run_engine_recorded(
         cfg, P, steps, plain=True, n_requests=4, n_adapters=4, seed=seed)
     if any(p_counts.values()):
-        raise AssertionError(f"dense serve {arch} engine, plain version: launched {p_counts}")
+        raise AssertionError(f"{tag} serve {arch} engine, plain version: launched {p_counts}")
     first["plain"] = {x: r for st in p_log for x, r in st["rows"].items()}
     base, store, model = engine.base, engine.adapters.store, engine.model
     requests = engine.requests
@@ -2996,6 +3117,9 @@ def dense_serve(arch, cfg, totals, path_totals, smi, seed=0):
         prompt1 = torch.as_tensor(req.prompt, device="cuda")[None]
         peft1 = store.load(req.adapter_id)
         cache1 = model.init_cache(cfg, 1, P + steps, device="cuda")
+        if req.frames is not None:
+            serve.encode_into_cache(cfg, base, peft1, cache1,
+                                    torch.as_tensor(req.frames, device="cuda")[None])
         logits, cache1 = fns["prefill"](base, peft1, cache1, prompt1)
         tok1 = torch.argmax(logits, dim=-1)[:, None].to(torch.int32)
         g = fns["decode"](base, peft1, cache1, tok1, P)[0][0].float().cpu()
@@ -3005,12 +3129,16 @@ def dense_serve(arch, cfg, totals, path_totals, smi, seed=0):
     gen = torch.Generator(device="cuda").manual_seed(1)
     prompt = torch.randint(0, cfg.vocab, (4, P), generator=gen, device="cuda",
                            dtype=torch.int32)
+    frames = (torch.randn((4, cfg.encoder_seq, cfg.d_model), generator=gen, device="cuda")
+              if cfg.encoder_layers else None)
     peft = store.load(0)
-    serve.greedy_generate(cfg, base, peft, prompt, 1, cache_len=P + steps, fns=fns)
+    serve.greedy_generate(cfg, base, peft, prompt, 1, cache_len=P + steps, fns=fns,
+                          frames=frames)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    ids = serve.greedy_generate(cfg, base, peft, prompt, steps, cache_len=P + steps, fns=fns)
+    ids = serve.greedy_generate(cfg, base, peft, prompt, steps, cache_len=P + steps, fns=fns,
+                                frames=frames)
     torch.cuda.synchronize()
     e2e = time.perf_counter() - t0
     g_counts = launch_counts()
@@ -3023,24 +3151,26 @@ def dense_serve(arch, cfg, totals, path_totals, smi, seed=0):
                "max_abs_err": {k: max(v) for k, v in errs.items()}, "per_request": errs,
                "max_abs_logit": max_logit, "limit": SERVE_BF16_ATOL[arch]},
            "card": smi}
-    log(f"[dense] {arch} greedy: " + json.dumps(res))
-    del base, store, model, fns, peft
+    log(f"[{tag}] {arch} greedy: " + json.dumps(res))
+    del base, store, model, fns, peft, frames
     _free()
     if any(g_counts.values()):
-        raise AssertionError(f"dense serve {arch}: greedy launched kernels {g_counts}")
-    n = DENSE_WITNESS_LAYERS.get(arch, cfg.n_layers)
+        raise AssertionError(f"{tag} serve {arch}: greedy launched kernels {g_counts}")
+    if not (math.isfinite(e2e) and max(errs["kernel"] + errs["plain"])
+            <= SERVE_BF16_ATOL[arch]):
+        raise AssertionError(f"{tag} serve {arch}: engines vs greedy {res}")
+    if not witness_layers:
+        return
+    n = witness_layers
     wit = serve_fp32_witness(arch, cfg=dataclasses.replace(cfg, n_layers=n), cpu=False,
                              seed=seed)
     wit.update(seed=seed, n_layers=n, limit=SERVE_FP32_ATOL[arch], card=smi)
-    log(f"[dense] {arch} fp32 witness, one batched decode step (B=4, four adapters) "
+    log(f"[{tag}] {arch} fp32 witness, one batched decode step (B=4, four adapters) "
         f"vs the B=1 steps: " + json.dumps(wit))
     _free()
-    if not (math.isfinite(e2e) and max(errs["kernel"] + errs["plain"])
-            <= SERVE_BF16_ATOL[arch]):
-        raise AssertionError(f"dense serve {arch}: engines vs greedy {res}")
     if max(wit["kernel_max_abs_err_vs_b1"], wit["plain_max_abs_err_vs_b1"]) > \
             SERVE_FP32_ATOL[arch]:
-        raise AssertionError(f"dense serve {arch}: fp32 witness {wit}")
+        raise AssertionError(f"{tag} serve {arch}: fp32 witness {wit}")
 
 
 def phase_dense(totals, path_totals, smi):
@@ -3104,6 +3234,293 @@ def phase_dense(totals, path_totals, smi):
         f"{time.time() - t_phase:.1f}s")
     if held != held_before:
         raise AssertionError(f"phase 9 left {held - held_before} bytes allocated")
+
+
+# ---------------------------------------------------------------------------
+# phase 10: the moe, vlm and encoder-decoder families
+# ---------------------------------------------------------------------------
+
+FAMILY_ARCHS = ("qwen3-moe-235b-a22b", "llama4-maverick-400b-a17b", "internvl2-76b",
+                "whisper-tiny")
+# the depth cuts, bf16 weights on one 80 GB card (whisper-tiny whole):
+# qwen3 4.97 GB a layer (128 experts) + 2.5 GB of embeddings, llama4 32.6
+# GB a layer + 4.1 GB, internvl2 1.71 GB a layer + 4.2 GB
+FAMILY_LAYERS = {"qwen3-moe-235b-a22b": 8, "llama4-maverick-400b-a17b": 2,
+                 "internvl2-76b": 24}
+# where fp32 weights fit beside the bf16 ones freed (llama4's one fp32
+# layer is 65 GB: none): the fp32 estimate, witness and decode depths
+FAMILY_FP32_LAYERS = {"qwen3-moe-235b-a22b": 4, "internvl2-76b": 12, "whisper-tiny": 4}
+# the frontend batches of the estimates: B=2, 32 text tokens after P patch
+# embeddings (attention over P + 32), whisper's 1500 frames
+FAMILY_EST_B, FAMILY_EST_S = 2, 32
+# the estimates (split LM loss, K=4, both routes), largest relative drift
+# (loss relative, jvps of the largest |jvp|) over seeds 0-2, the limits
+# about twice the largest (scripts/dense_readings.py families; PERF.md,
+# Findings). Kernels vs plain versions on the card, bf16: internvl2 0.025 /
+# 0.031 / 0.036 at 24 layers, 0.090 / 0.066 / 0.048 at 12; whisper 0.0041
+# / 0.022 / 0.011; llama4 with the routing pinned 0.024 / 0.032 / 0.012
+# (unpinned 0.38 / 0.52 / 0.077: 11, 13 and 6 of 640 top-1 decisions flip
+# between the kernel's and the plain primal). Each bf16 run against the
+# fp32 estimate: internvl2 at 12 layers kernels 0.081 / 0.065 / 0.044,
+# plain 0.087 / 0.086 / 0.017; whisper kernels 0.009 / 0.014 / 0.017,
+# plain 0.009 / 0.009 / 0.026
+FAMILY_EST_PLAIN_RTOL = {"llama4-maverick-400b-a17b": 0.07, "internvl2-76b": 0.18,
+                         "whisper-tiny": 0.05}
+FAMILY_EST_FP32_RTOL = {"internvl2-76b": 0.18, "whisper-tiny": 0.05}
+# fp32 decode step vs teacher-forced forward (of the largest |logit|), as
+# phase 9's: qwen3 read 1.5e-6, whisper 4.9e-7
+FAMILY_FP32_DECODE_RTOL = 2e-5
+# qwen3's prompt for it: 4 tokens, so that no expert (capacity 4 in a
+# chunk of up to 51 tokens) can drop one in the forward that the decode
+# step keeps
+FAMILY_DECODE_PROMPT = {"qwen3-moe-235b-a22b": 4, "whisper-tiny": 64}
+
+
+def family_depth(arch, n_layers=None):
+    """``depth_cut`` at FAMILY_LAYERS' depth (or ``n_layers``)."""
+    return bf16_depth(arch, n_layers or FAMILY_LAYERS.get(arch))
+
+
+def family_batch(cfg, gen, B=FAMILY_EST_B, S=FAMILY_EST_S):
+    """An LM batch with the config's frontend: B x S tokens, and P patch
+    embeddings (vlm, llama4) or the encoder's frames (whisper), standard
+    normal, from ``gen``."""
+    import torch
+    batch = {"tokens": torch.randint(0, cfg.vocab, (B, S), generator=gen, device="cuda")}
+    if cfg.n_frontend_tokens:
+        batch["patch_embeds"] = torch.randn((B, cfg.n_frontend_tokens, cfg.d_model),
+                                            generator=gen, device="cuda")
+    if cfg.encoder_layers:
+        batch["frames"] = torch.randn((B, cfg.encoder_seq, cfg.d_model), generator=gen,
+                                      device="cuda")
+    return batch
+
+
+@contextlib.contextmanager
+def moe_routing(record=None, replay=None):
+    """Each MoE block's top-k routing decisions, in call order: appended to
+    ``record`` (a list), or taken from ``replay`` (the gates gathered at
+    the replayed experts, so the tangents still flow through them): a run
+    then routes every token as the recorded run did."""
+    import torch
+    from repro_torch.models import moe
+    orig, it = moe._top_k, None if replay is None else iter(replay)
+
+    def top_k(gates, k):
+        if it is not None:
+            idx = next(it)
+            return torch.gather(gates, -1, idx), idx
+        g, idx = orig(gates, k)
+        record.append(idx.clone())
+        return g, idx
+    moe._top_k = top_k
+    try:
+        yield
+    finally:
+        moe._top_k = orig
+
+
+def family_estimate_readings(cfg, seed=0, fp32=False, K=4):
+    """``forward_gradient`` of the registry's split LM loss on ``cfg`` (bf16,
+    random weights, batch and perturbations from ``seed``) on the standard
+    and the fused route, through the kernels and through their plain
+    versions on the card, and (``fp32``) once more with the weights in fp32
+    through the plain versions, the estimate the bf16 runs approximate.
+    A MoE config's runs are made twice: as they route, and with every token
+    routed as the plain forward routes it (``moe_routing``; keys
+    ``pinned_*``), which takes the experts a rounding flips out of the
+    comparison; ``flips`` counts the routing decisions (token, choice) in
+    which the forward with the attention kernel and the plain forward
+    differ. Returns the launches and launches by route of each unpinned
+    kernel run, each run's loss, jvps and seconds (with the drift from the
+    fp32 estimate), and the flips."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import SpryConfig
+    from repro_torch.core.forward_grad import forward_gradient, stacked_perturbations
+    from repro_torch.kernels import launch_counts, launch_paths, reset_launch_counts
+    from repro_torch.kernels.dispatch import forward_ad_region
+    from repro_torch.models import get_model
+    from repro_torch.models.registry import split_lm_loss
+    from repro_torch.peft import init_peft
+    from repro_torch.utils.pytree import tree_map, tree_paths
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    base = get_model(cfg).init_base(cfg, gen)
+    peft = init_peft(cfg, gen, SpryConfig())
+    batch = family_batch(cfg, gen)
+    vs = stacked_perturbations(11 + seed, tree_map(lambda x: x.float(), peft), list(range(K)))
+
+    def estimate(c, fused, routing=None):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.ExitStack() as stack:
+            if routing is not None:
+                stack.enter_context(moe_routing(replay=routing))
+            loss, _, jvps = forward_gradient(split_lm_loss(c, base, batch), peft, 11 + seed,
+                                             K, perturbations=vs, fused_contraction=fused)
+        torch.cuda.synchronize()
+        return {"loss": float(loss), "jvps": jvps.float().cpu(),
+                "s": time.perf_counter() - t0}
+    routing, flips = None, None
+    if cfg.moe is not None:
+        routing, kernel_routing = [], []
+        with torch.no_grad():
+            with moe_routing(record=routing):
+                split_lm_loss(cfg, base, batch)(peft)
+            with moe_routing(record=kernel_routing), forward_ad_region():
+                split_lm_loss(cfg, base, batch)(peft)
+        flips = {"decisions": sum(r.numel() for r in routing),
+                 "flipped": sum(int((a != b).sum()) for a, b in zip(routing, kernel_routing))}
+    out, counts, paths = {}, {}, {}
+    for route in ("standard", "fused"):
+        fused = route == "fused"
+        estimate(cfg, fused)                        # warm: allocator and libraries
+        reset_launch_counts()
+        out[f"kernels_{route}"] = estimate(cfg, fused)
+        counts[route], paths[route] = launch_counts(), launch_paths()
+        with plain_dispatch():
+            out[f"plain_{route}"] = estimate(cfg, fused)
+        if routing is not None:
+            out[f"pinned_kernels_{route}"] = estimate(cfg, fused, routing)
+            with plain_dispatch():
+                out[f"pinned_plain_{route}"] = estimate(cfg, fused, routing)
+    if fp32:
+        with plain_dispatch():
+            for *head, last in [p for p, _ in tree_paths(base)]:   # a leaf at a time
+                node = base
+                for k in head:
+                    node = node[k]
+                node[last] = node[last].float()
+            out["fp32"] = estimate(dataclasses.replace(cfg, param_dtype="float32"), False,
+                                   routing)
+        for name, r in out.items():
+            if name != "fp32":
+                r["vs_fp32"] = {"loss": abs(r["loss"] - out["fp32"]["loss"])
+                                / abs(out["fp32"]["loss"]),
+                                "jvps": rel_max(r["jvps"], out["fp32"]["jvps"])}
+    del base, peft, vs, batch, routing
+    _free()
+    return counts, paths, out, flips
+
+
+def kernels_vs_plain(r, prefix=""):
+    """Each route's drift of the kernels' estimate from the plain versions'
+    (loss relative, jvps of the largest |jvp|)."""
+    return {route: {"loss": abs(r[f"{prefix}kernels_{route}"]["loss"]
+                                - r[f"{prefix}plain_{route}"]["loss"])
+                    / abs(r[f"{prefix}plain_{route}"]["loss"]),
+                    "jvps": rel_max(r[f"{prefix}kernels_{route}"]["jvps"],
+                                    r[f"{prefix}plain_{route}"]["jvps"])}
+            for route in ("standard", "fused")}
+
+
+def family_estimate(arch, cfg, smi, totals, path_totals, fp32=False):
+    """``family_estimate_readings`` (seed 0) held: each route's launches
+    exactly ``round_launches`` of one estimate, all on the tensor-core
+    route; the kernels within FAMILY_EST_PLAIN_RTOL of the plain versions
+    (loss and jvps) on each route, a MoE config's with the routing pinned
+    (its unpinned drift and the flipped decisions printed); with ``fp32``,
+    every bf16 run within FAMILY_EST_FP32_RTOL of the fp32 estimate."""
+    counts, paths, r, flips = family_estimate_readings(cfg, fp32=fp32)
+    drift = kernels_vs_plain(r)
+    held = kernels_vs_plain(r, "pinned_") if flips is not None else drift
+    res = {"arch": arch, "n_layers": cfg.n_layers, "B": FAMILY_EST_B, "S": FAMILY_EST_S,
+           "patches": cfg.n_frontend_tokens, "frames": cfg.encoder_seq, "K": 4,
+           "loss": {k: v["loss"] for k, v in r.items()},
+           "jvps": {k: v["jvps"].tolist() for k, v in r.items()},
+           "s": {k: v["s"] for k, v in r.items()},
+           "kernels_vs_plain": drift, "routing_flips": flips,
+           "kernels_vs_plain_pinned": held if flips is not None else None,
+           "limit": FAMILY_EST_PLAIN_RTOL[arch],
+           "launches": {route: {k: n for k, n in c.items() if n} for route, c in counts.items()},
+           "card": smi}
+    if fp32:
+        res["vs_fp32"] = {k: v["vs_fp32"] for k, v in r.items() if k != "fp32"}
+        res["fp32_limit"] = FAMILY_EST_FP32_RTOL[arch]
+    log(f"[families] {arch} estimate with a frontend batch, kernels vs plain versions"
+        + (" and vs the fp32 estimate" if fp32 else "") + ": " + json.dumps(res))
+    for route in ("standard", "fused"):
+        want = round_launches(cfg, route, 1)
+        if counts[route] != want:
+            raise AssertionError(f"families {arch} estimate {route}: launches "
+                                 f"{counts[route]} != {want}")
+        check_paths(f"families {arch} estimate {route}", paths[route], path_totals)
+        for k, n in counts[route].items():
+            totals[k] += n
+    if not (all(math.isfinite(v["loss"]) and torch_finite(v["jvps"]) for v in r.values())
+            and max(max(d.values()) for d in held.values()) <= FAMILY_EST_PLAIN_RTOL[arch]):
+        raise AssertionError(f"families {arch} estimate: kernels vs plain {res}")
+    if fp32 and max(max(d.values()) for d in res["vs_fp32"].values()) > \
+            FAMILY_EST_FP32_RTOL[arch]:
+        raise AssertionError(f"families {arch} estimate: vs fp32 {res}")
+
+
+def phase_families(totals, path_totals, smi):
+    """Phase 10: train, estimate with a frontend batch and serve the moe
+    (qwen3-moe-235b-a22b, llama4-maverick-400b-a17b), vlm (internvl2-76b)
+    and encoder-decoder (whisper-tiny) configs at full published width
+    (FAMILY_LAYERS' depths, printed as ``reduced``), freeing each model
+    before the next; ends with the device memory allocated at its start."""
+    import torch
+    t_phase = time.time()
+    _free()
+    held_before = torch.cuda.memory_allocated()
+    qw, l4, iv, wh = FAMILY_ARCHS
+    # the train tasks carry tokens only (the reference's too): the moe and
+    # vlm configs train text-only; whisper's loss needs frames (estimate below)
+    runs = [(qw, "spry", 4, 1, 2, False), (qw, "spry", 4, 1, 2, True),
+            (qw, "fedavg", 1, 1, 2, False), (iv, "spry", 4, 1, 2, False),
+            (iv, "spry", 4, 1, 2, True), (l4, "spry", 4, 1, 2, False)]
+    fam_paths = {k: dict.fromkeys(by, 0) for k, by in path_totals.items()}
+    results = []
+    for run in runs:
+        with family_depth(run[0]) as cfg:
+            results += phase_train([run], totals, fam_paths, cfg)
+        _free()
+    log("[families] s/round and round peak GiB (2 clients, batch 8 x 32 tokens, one "
+        "round): " + json.dumps({f"{r['arch']} {r['method']} {r['route']}":
+                                 {"round_s": r["round_s"][0],
+                                  "round_peak_GiB": r["round_peak_GiB"]}
+                                 for r in results}))
+    tp = time.time()
+    for arch, n, fp32 in ((iv, None, False), (iv, FAMILY_FP32_LAYERS[iv], True),
+                          (l4, None, False), (wh, None, True)):
+        with family_depth(arch, n) as cfg:
+            family_estimate(arch, cfg, smi, totals, fam_paths, fp32=fp32)
+    for k, by in fam_paths.items():
+        for route, n in by.items():
+            path_totals[k][route] += n
+    log("[train] launches of rows 1-4 by route over the families' runs and estimates "
+        "(simt must be 0): " + json.dumps({k: by for k, by in fam_paths.items()
+                                           if k in ("lora_dual_mt", "swa_attention",
+                                                    "swa_attention_mt",
+                                                    "swa_attention_mt_jvps")}))
+    log(f"[families] estimates {time.time() - tp:.1f}s")
+    tp = time.time()
+    before = dict(path_totals["lora_dual_multi"])
+    for arch in FAMILY_ARCHS:
+        with family_depth(arch) as cfg:
+            dense_serve(arch, cfg, totals, path_totals, smi, tag="families",
+                        witness_layers=FAMILY_FP32_LAYERS.get(arch, 0))
+    # llama4's fp32 weights do not fit at one layer (65 GB): its reduced fp32
+    # engine on the card against the CPU instead
+    phase_serve_parity(l4)
+    log("[families] lora_dual_multi launches by route over the four engines (simt "
+        "must be 0): " + json.dumps({r: n - before[r]
+                                     for r, n in path_totals["lora_dual_multi"].items()}))
+    for arch, P in FAMILY_DECODE_PROMPT.items():
+        dense_decode_vs_forward(arch, FAMILY_FP32_LAYERS[arch], P, smi, tag="families",
+                                rtol=FAMILY_FP32_DECODE_RTOL)
+    log(f"[families] serving {time.time() - tp:.1f}s")
+    _free()
+    held = torch.cuda.memory_allocated()
+    log(f"[families] device memory allocated before / after the phase: "
+        f"{held_before / 2 ** 30:.3f} / {held / 2 ** 30:.3f} GiB; phase "
+        f"{time.time() - t_phase:.1f}s")
+    if held != held_before:
+        raise AssertionError(f"phase 10 left {held - held_before} bytes allocated")
 
 
 # the tensor-core kernels: (library, a name fragment of each kernel's
@@ -3178,7 +3595,7 @@ def check_dense_spills(build):
 def main(argv=None):
     ap = argparse.ArgumentParser(description="On-card smoke test of repro_torch")
     ap.add_argument("--only", choices=("kernels", "parity", "train", "serve", "runtime",
-                                       "dense"),
+                                       "dense", "families"),
                     default=None,
                     help="run one phase; 'train' covers the site and train phases")
     args = ap.parse_args(argv)
@@ -3287,10 +3704,14 @@ def main(argv=None):
     if args.only in (None, "dense"):
         phase_dense(totals, path_totals, smi)
     log(f"[phase] dense {time.time() - tp:.1f}s")
+    tp = time.time()
+    if args.only in (None, "families"):
+        phase_families(totals, path_totals, smi)
+    log(f"[phase] families {time.time() - tp:.1f}s")
     if args.only is None:
         missing = [k for k, n in totals.items() if n == 0]
         if missing:
-            raise AssertionError(f"main path (phases 5-9) never launched {missing}")
+            raise AssertionError(f"main path (phases 5-10) never launched {missing}")
     log(f"[done] {time.time() - t0:.1f}s")
     kernels = []
     for name in KERNELS:

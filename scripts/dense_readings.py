@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
-"""Diagnostic: the readings that phase 9's limits in chip_smoke.py rest on.
+"""Diagnostic: the readings that phase 9's and phase 10's limits in
+chip_smoke.py rest on.
 
     python3 scripts/dense_readings.py long [--layers 48] [--seeds 0 1 2] [--ablate]
     python3 scripts/dense_readings.py serve [--seeds 0 1 2] [--archs ...]
+    python3 scripts/dense_readings.py families [--seeds 0 1 2] [--archs ...]
 
 ``long`` runs ``chip_smoke.long_estimate_readings`` (gemma3-12b at full
 width, B=1, S=2048, K=4) at each depth and seed and prints one JSON line
@@ -17,6 +19,14 @@ primal is the plain one in the kernel's roundings (``primal_fp32_scores``).
 and prompts from the seed): the kernel and plain-version engines' first
 decode steps against B=1 greedy, and the fp32 witness, printed as phase 9
 prints them; a reading past its limit is printed as such, not raised.
+``families`` (``--estimates-only`` / ``--serve-only`` for one half) runs phase 10's estimates with a frontend batch
+(``chip_smoke.family_estimate_readings``: internvl2-76b at 24 layers and at
+12 with the fp32 estimate, llama4-maverick at 2, whisper-tiny whole with
+the fp32 estimate; one JSON line each: the kernels against the plain
+versions and each bf16 run against fp32) and its serving
+(``chip_smoke.dense_serve`` at FAMILY_LAYERS' depth and the fp32 witness
+at FAMILY_FP32_LAYERS'), with every limit lifted so that each reading is
+printed.
 
 It checks nothing and is no part of the port. Needs one CUDA card with room
 for gemma3-12b's weights in fp32 (~47 GB); prints the card's name and power
@@ -96,6 +106,38 @@ def serve_readings(cs, smi, archs, seeds):
             cs._free()
 
 
+def family_readings(cs, smi, archs, seeds, estimates_only=False, serve_only=False):
+    from repro_torch.kernels import launch_counts, launch_paths
+    totals = dict.fromkeys(launch_counts(), 0)
+    paths = {k: dict.fromkeys(by, 0) for k, by in launch_paths().items()}
+    for arch in archs:
+        cs.SERVE_BF16_ATOL[arch] = cs.SERVE_FP32_ATOL[arch] = float("inf")
+    qw, l4, iv, wh = cs.FAMILY_ARCHS
+    estimates = [(iv, None, False), (iv, cs.FAMILY_FP32_LAYERS[iv], True),
+                 (l4, None, False), (wh, None, True)]
+    for seed in seeds:
+        if serve_only:
+            estimates = []
+        for arch, n, fp32 in estimates:
+            if arch not in archs:
+                continue
+            with cs.family_depth(arch, n) as cfg:
+                _, _, r, flips = cs.family_estimate_readings(cfg, seed=seed, fp32=fp32)
+            line = {"arch": arch, "n_layers": cfg.n_layers, "seed": seed,
+                    "kernels_vs_plain": cs.kernels_vs_plain(r), "routing_flips": flips,
+                    "card": smi}
+            if flips is not None:
+                line["kernels_vs_plain_pinned"] = cs.kernels_vs_plain(r, "pinned_")
+            if fp32:
+                line["vs_fp32"] = {k: v["vs_fp32"] for k, v in r.items() if k != "fp32"}
+            print(json.dumps(line), flush=True)
+        for arch in (archs if not estimates_only else ()):
+            with cs.family_depth(arch) as cfg:
+                cs.dense_serve(arch, cfg, totals, paths, smi, seed=seed, tag="families",
+                               witness_layers=cs.FAMILY_FP32_LAYERS.get(arch, 0))
+            cs._free()
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     sub = ap.add_subparsers(dest="what", required=True)
@@ -106,6 +148,11 @@ def main(argv=None):
     se = sub.add_parser("serve")
     se.add_argument("--seeds", type=int, nargs="+", default=[0, 1, 2])
     se.add_argument("--archs", nargs="+", default=None)
+    fa = sub.add_parser("families")
+    fa.add_argument("--seeds", type=int, nargs="+", default=[0, 1, 2])
+    fa.add_argument("--archs", nargs="+", default=None)
+    fa.add_argument("--estimates-only", action="store_true")
+    fa.add_argument("--serve-only", action="store_true")
     args = ap.parse_args(argv)
     sys.path.insert(0, os.path.join(ROOT, "src"))
     import torch
@@ -121,8 +168,11 @@ def main(argv=None):
     cs = _chip_smoke()
     if args.what == "long":
         long_readings(cs, smi, args.layers, args.seeds, args.ablate)
-    else:
+    elif args.what == "serve":
         serve_readings(cs, smi, args.archs or cs.DENSE_ARCHS, args.seeds)
+    else:
+        family_readings(cs, smi, args.archs or cs.FAMILY_ARCHS, args.seeds,
+                        args.estimates_only, args.serve_only)
     return 0
 
 

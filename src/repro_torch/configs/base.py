@@ -1,11 +1,11 @@
 """Config dataclasses: model architectures, input shapes and FL settings.
 
-Port of ``repro/configs/base.py`` for the dense, hybrid (zamba2) and ssm
-(rwkv6) families. ``ModelConfig.dtype`` maps ``param_dtype`` to a torch dtype (the
-reference maps it to a jnp dtype). The parameter estimates and
-``INPUT_SHAPES`` are the reference's; the moe, encdec and vlm fields are not
-ported yet, so their terms are absent. ``reduce_config`` derives the CPU
-smoke-test variant (2 layers, d_model=256) exactly as the reference does.
+Port of ``repro/configs/base.py`` for every family: dense, moe, vlm,
+audio (encoder-decoder), hybrid (zamba2) and ssm (rwkv6).
+``ModelConfig.dtype`` maps ``param_dtype`` to a torch dtype (the reference
+maps it to a jnp dtype). The parameter estimates and ``INPUT_SHAPES`` are
+the reference's. ``reduce_config`` derives the CPU smoke-test variant (2
+layers, d_model=256, <=4 experts) exactly as the reference does.
 """
 from __future__ import annotations
 
@@ -16,6 +16,16 @@ import torch
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int
+    top_k: int
+    d_expert: int                 # per-expert FFN hidden dim
+    capacity_factor: float = 1.25
+    n_shared_experts: int = 0     # dense experts always applied (llama4 style)
+    router_chunk: int = 2048      # tokens a dispatch chunk
 
 
 @dataclasses.dataclass(frozen=True)
@@ -30,7 +40,7 @@ class SSMConfig:
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     arch_id: str
-    family: str                   # dense | hybrid | ssm
+    family: str                   # dense | moe | ssm | hybrid | vlm | audio
     n_layers: int
     d_model: int
     n_heads: int
@@ -41,8 +51,13 @@ class ModelConfig:
     attn_pattern: str = "full"                # full | swa | local_global
     window: int = 4096
     local_global_ratio: int = 0
+    moe: Optional[MoEConfig] = None
     ssm: Optional[SSMConfig] = None
     hybrid_attn_every: int = 0                # zamba2: shared attn after every N blocks
+    encoder_layers: int = 0                   # whisper: encoder depth
+    encoder_seq: int = 0                      # frame embeddings the encoder reads
+    frontend: Optional[str] = None            # 'vision' | 'audio' (stub embeddings)
+    n_frontend_tokens: int = 0                # image patch tokens prepended
     norm: str = "rmsnorm"
     act: str = "silu"
     use_bias: bool = False
@@ -74,20 +89,38 @@ class ModelConfig:
             return False
         return (i % (self.local_global_ratio + 1)) == self.local_global_ratio
 
-    def n_param_estimate(self) -> float:
-        """Rough total parameter count (the reference's MODEL_FLOPS = 6·N·D)."""
+    def _per_layer(self, experts: int):
+        """(attention, FFN) parameters of one layer; a MoE FFN counts
+        ``experts`` routed experts and the shared ones."""
         d, hd = self.d_model, self.hd
         attn = d * (self.n_heads * hd) + 2 * d * (self.n_kv_heads * hd) + (self.n_heads * hd) * d
         if self.family == "ssm" and self.ssm and self.ssm.kind == "rwkv6":
             attn = 5 * d * d + d * d  # r,k,v,g,w projections + output
-        per_layer = attn + 3 * d * self.d_ff + 2 * d
-        emb = self.vocab * d * (1 if self.tie_embeddings else 2)
-        return float(self.n_layers * per_layer + emb)
+        if self.moe is not None:
+            ffn = 3 * d * self.moe.d_expert * (experts + self.moe.n_shared_experts)
+        else:
+            ffn = 3 * d * self.d_ff
+        return attn, ffn
+
+    def _decoder_estimate(self, experts: int) -> int:
+        attn, ffn = self._per_layer(experts)
+        emb = self.vocab * self.d_model * (1 if self.tie_embeddings else 2)
+        return self.n_layers * (attn + ffn + 2 * self.d_model) + emb
+
+    def n_param_estimate(self) -> float:
+        """Rough total parameter count (the reference's MODEL_FLOPS = 6·N·D)."""
+        experts = self.moe.n_experts if self.moe is not None else 0
+        total = self._decoder_estimate(experts)
+        if self.encoder_layers:
+            attn, ffn = self._per_layer(experts)
+            total += self.encoder_layers * (2 * attn + ffn + 3 * self.d_model)
+        return float(total)
 
     def n_active_param_estimate(self) -> float:
-        """Active params per token: every parameter (no moe config is
-        ported, so every config is dense in its FFN)."""
-        return self.n_param_estimate()
+        """Active params per token (MoE counts top_k + shared experts only)."""
+        if self.moe is None:
+            return self.n_param_estimate()
+        return float(self._decoder_estimate(self.moe.top_k))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -138,9 +171,14 @@ class SpryConfig:
 
 
 def reduce_config(cfg: ModelConfig) -> ModelConfig:
-    """2 layers, d_model=256 — same family, runnable on CPU."""
+    """2 layers, d_model=256, <=4 experts — same family, runnable on CPU."""
     n_heads = min(cfg.n_heads, 4)
     n_kv = max(1, min(cfg.n_kv_heads, n_heads if cfg.n_kv_heads >= cfg.n_heads else 2))
+    moe = None
+    if cfg.moe is not None:
+        moe = dataclasses.replace(cfg.moe, n_experts=min(cfg.moe.n_experts, 4),
+                                  top_k=min(cfg.moe.top_k, 2), d_expert=128,
+                                  router_chunk=64)
     ssm = None
     if cfg.ssm is not None:
         ssm = dataclasses.replace(cfg.ssm, head_dim=32, state_dim=16)
@@ -154,8 +192,12 @@ def reduce_config(cfg: ModelConfig) -> ModelConfig:
         d_ff=512,
         vocab=512,
         window=64,
+        moe=moe,
         ssm=ssm,
         hybrid_attn_every=1 if cfg.hybrid_attn_every else 0,
+        encoder_layers=2 if cfg.encoder_layers else 0,
+        encoder_seq=16 if cfg.encoder_seq else 0,
+        n_frontend_tokens=8 if cfg.n_frontend_tokens else 0,
         param_dtype="float32",
         n_classes=cfg.n_classes or 4,
     )

@@ -7,7 +7,9 @@ returns the port's trees on ``device`` (required: the port never picks a
 device for the caller); ``peft_from_reference(cfg, peft_np, device)`` does
 the same for one PEFT tree alone (a served client's adapter). Both packages
 use the same tree layout and leaf names, so this is a dtype-preserving copy
-(bf16 leaves stay bf16); it checks the stacked depth against ``cfg``.
+(bf16 leaves stay bf16, a MoE router fp32); it checks the stacked depth of
+the decoder's ``layers`` against ``cfg.n_layers`` and of whisper's
+``enc_layers`` against ``cfg.encoder_layers``.
 """
 from __future__ import annotations
 
@@ -26,10 +28,11 @@ def _to_torch(a, device):
 
 def _convert(cfg, what, tree_np, device):
     tree = tree_map(lambda a: _to_torch(a, device), tree_np)
-    for path, leaf in tree_paths(tree.get("layers", {})):
-        if leaf.shape[0] != cfg.n_layers:
-            raise ValueError(f"{what} layers/{'/'.join(path)} has depth "
-                             f"{leaf.shape[0]}, config has {cfg.n_layers}")
+    for group, depth in (("layers", cfg.n_layers), ("enc_layers", cfg.encoder_layers)):
+        for path, leaf in tree_paths(tree.get(group, {})):
+            if leaf.shape[0] != depth:
+                raise ValueError(f"{what} {group}/{'/'.join(path)} has depth "
+                                 f"{leaf.shape[0]}, config has {depth}")
     return tree
 
 

@@ -36,7 +36,8 @@ def enumerate_units(peft) -> UnitIndex:
             continue
         for target in sorted(peft[group]):
             first = tree_leaves(peft[group][target])[0]
-            stacked = group == "layers" and first.ndim >= 2
+            # stacked groups carry a leading layer axis
+            stacked = group in ("layers", "enc_layers") and first.ndim >= 2
             start = len(units)
             if stacked:
                 L = first.shape[0]

@@ -9,8 +9,11 @@ Port of ``repro/launch/serve.py``: the single-tenant greedy loop and, with
 (``launch/adapter_cache.py``). Runs on CUDA unless ``--device cpu`` is
 given; asking for CUDA without a card raises. The dense (llama2-7b,
 gemma3-12b, gemma3-27b, h2o-danube-3-4b, command-r-plus-104b; roberta-
-large-lora), hybrid (zamba2-1.2b) and ssm (rwkv6-1.6b, the default)
-families serve (``--arch``, reduced unless ``--full-size``). In engine mode
+large-lora), moe (qwen3-moe-235b-a22b, llama4-maverick-400b-a17b), vlm
+(internvl2-76b), audio (whisper-tiny: each prompt comes with stub encoder
+frames, encoded once into the cache), hybrid (zamba2-1.2b) and ssm
+(rwkv6-1.6b, the default) families serve (``--arch``, reduced unless
+``--full-size``). In engine mode
 ``--telemetry PATH`` writes the run's events (``run_meta``, one
 ``request`` per request, the final ``metrics`` snapshot) and
 ``--trace-out`` its Chrome trace (``repro_torch.obs``).
@@ -26,6 +29,7 @@ import torch
 from repro_torch.configs import SpryConfig, get_config, reduce_config
 from repro_torch.launch.train import _sync, resolve_device
 from repro_torch.models import get_model
+from repro_torch.models.encdec import encode
 from repro_torch.obs import make_telemetry
 from repro_torch.peft import init_peft
 
@@ -77,6 +81,17 @@ def can_fuse_prefill(cfg, model, cache, prompt_len):
     return True   # stateful families (rwkv): prefill threads exact state
 
 
+def encode_into_cache(cfg, base, peft, cache, frames):
+    """Encode ``frames`` (B, F, D) with ``peft``'s encoder adapters into the
+    cache's ``memory`` slot, in place (the encoder-decoder family: prefill
+    and decode then read it)."""
+    if not (isinstance(cache, dict) and "memory" in cache):
+        raise ValueError("frames given but the cache has no memory slot")
+    with torch.inference_mode():
+        cache["memory"].copy_(encode(cfg, base, frames, peft))
+    return cache
+
+
 def build_serve_fns(cfg, model):
     """The model's serve entry points bound to ``cfg``, run under
     ``torch.inference_mode()`` (no autograd bookkeeping). Built once and
@@ -101,12 +116,11 @@ def greedy_generate(cfg, base, peft, prompt_tokens, n_steps, cache_len=None,
 
     ``fused_prefill=True`` ingests the prompt with one chunked-attention
     pass (``model.prefill``) instead of P ``decode_step`` calls, where
-    ``can_fuse_prefill`` says the two agree. ``fns``: entry points from
-    ``build_serve_fns``. Encoder ``frames`` wait for the encoder-decoder
-    family."""
-    if frames is not None:
-        raise NotImplementedError(
-            "encoder frames need the encoder-decoder family (a later slice)")
+    ``can_fuse_prefill`` says the two agree (whisper's full-length cache,
+    unless it is shorter than the prompt). ``fns``: entry points from
+    ``build_serve_fns``. ``frames`` (B, F, D): encoder frames of the
+    encoder-decoder family, encoded once into the cache's memory before the
+    decoder runs."""
     model = get_model(cfg)
     B, P = prompt_tokens.shape
     if kv_int8 and not model.supports_kv_int8:
@@ -116,6 +130,8 @@ def greedy_generate(cfg, base, peft, prompt_tokens, n_steps, cache_len=None,
     extra = {"kv_int8": kv_int8} if model.supports_kv_int8 else {}
     cache = model.init_cache(cfg, B, cache_len or (P + n_steps),
                              device=prompt_tokens.device, **extra)
+    if frames is not None:
+        encode_into_cache(cfg, base, peft, cache, frames)
     if fns is None:
         fns = build_serve_fns(cfg, model)
     decode = fns["decode"]
@@ -140,8 +156,9 @@ def run_engine(cfg, n_requests, prompt_len, steps, max_batch=4,
     """Drive the multi-tenant ServingEngine with ``n_requests`` requests
     over ``n_adapters`` synthetic adapters (default one each), request i on
     adapter i % n_adapters. Base weights from a generator seeded with
-    ``seed`` on ``device``, prompts from numpy's ``default_rng(seed)``.
-    Returns (outputs, engine)."""
+    ``seed`` on ``device``, prompts (and for the encoder-decoder family each
+    request's stub frames, standard normal) from numpy's
+    ``default_rng(seed)``. Returns (outputs, engine)."""
     from repro_torch.launch.adapter_cache import AdapterCache, SyntheticAdapterStore
     from repro_torch.launch.serving import Request, ServingEngine
 
@@ -155,11 +172,13 @@ def run_engine(cfg, n_requests, prompt_len, steps, max_batch=4,
                            cache_len=prompt_len + steps, telemetry=telemetry)
     rng = np.random.default_rng(seed)
     n_adapters = n_adapters or max(1, n_requests)
-    reqs = [Request(request_id=f"req-{i}", adapter_id=i % n_adapters,
-                    prompt=rng.integers(0, cfg.vocab,
-                                        size=prompt_len).astype(np.int32),
-                    max_new_tokens=steps)
-            for i in range(n_requests)]
+    reqs = []
+    for i in range(n_requests):
+        prompt = rng.integers(0, cfg.vocab, size=prompt_len).astype(np.int32)
+        frames = (rng.standard_normal((cfg.encoder_seq, cfg.d_model), np.float32)
+                  if cfg.encoder_layers else None)
+        reqs.append(Request(request_id=f"req-{i}", adapter_id=i % n_adapters,
+                            prompt=prompt, max_new_tokens=steps, frames=frames))
     outputs = engine.run(reqs)
     return outputs, engine
 
@@ -227,17 +246,19 @@ def main(argv=None):
     peft = init_peft(cfg, gen, SpryConfig())
     prompt = torch.randint(0, cfg.vocab, (args.batch, args.prompt_len),
                            generator=gen, device=dev, dtype=torch.int32)
+    frames = (torch.randn((args.batch, cfg.encoder_seq, cfg.d_model), generator=gen,
+                          device=dev) if cfg.encoder_layers else None)
     total = args.prompt_len + args.steps
 
     # warm up prefill and decode at the serving shapes outside the timed
     # region (first calls pay allocator and library set-up)
     fns = build_serve_fns(cfg, model)
-    greedy_generate(cfg, base, peft, prompt, 1, cache_len=total, fns=fns)
+    greedy_generate(cfg, base, peft, prompt, 1, cache_len=total, fns=fns, frames=frames)
     _sync(dev)
 
     t0 = time.perf_counter()
     ids = greedy_generate(cfg, base, peft, prompt, args.steps, cache_len=total,
-                          fns=fns)
+                          fns=fns, frames=frames)
     _sync(dev)
     e2e = time.perf_counter() - t0
 

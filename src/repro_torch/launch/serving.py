@@ -27,7 +27,12 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch.launch.serve import build_serve_fns, can_fuse_prefill, tokenwise_prefill
+from repro_torch.launch.serve import (
+    build_serve_fns,
+    can_fuse_prefill,
+    encode_into_cache,
+    tokenwise_prefill,
+)
 from repro_torch.models import get_model
 from repro_torch.obs import NULL
 
@@ -43,10 +48,13 @@ class Request:
 
 def _scatter_row(big, row, b):
     """Write the B=1 ``row`` cache into batch row ``b`` of ``big``, in
-    place. Every cache leaf of the ported families carries batch on axis 1
-    (after the layer axis)."""
+    place. Every cache leaf carries batch on axis 1 (after the layer axis)
+    except the encoder memory (batch first)."""
     for key, buf in big.items():
-        buf[:, b].copy_(row[key][:, 0])
+        if key == "memory":
+            buf[b].copy_(row[key][0])
+        else:
+            buf[:, b].copy_(row[key][:, 0])
     return big
 
 
@@ -115,10 +123,6 @@ class ServingEngine:
         self._tg_queue.set(len(self._queue))
 
     def _admit(self, b: int, req: Request) -> None:
-        if req.frames is not None:
-            raise NotImplementedError(
-                "encoder frames need the encoder-decoder family (a later "
-                "slice); serve them with python -m repro.launch.serve")
         prompt = torch.as_tensor(np.asarray(req.prompt, np.int32).reshape(1, -1),
                                  device=self.device)
         P = prompt.shape[1]
@@ -133,6 +137,10 @@ class ServingEngine:
             peft1 = self.adapters.page_tree(page)
             cache1 = self.model.init_cache(self.cfg, 1, self.cache_len,
                                            device=self.device)
+            if req.frames is not None:      # encoded with the request's adapter
+                frames = torch.as_tensor(np.asarray(req.frames), device=self.device)
+                encode_into_cache(self.cfg, self.base, peft1, cache1,
+                                  frames[None] if frames.ndim == 2 else frames)
             if self.fused_prefill and can_fuse_prefill(self.cfg, self.model,
                                                        cache1, P):
                 logits, cache1 = self._prefill1(self.base, peft1, cache1, prompt)

@@ -4,8 +4,12 @@
         --task sst2 --method spry --rounds 100 --clients 8 --out history.json
 
 ``--arch`` takes roberta-large-lora, llama2-7b, gemma3-12b, gemma3-27b,
-h2o-danube-3-4b, command-r-plus-104b, zamba2-1.2b or rwkv6-1.6b (reduced
-unless ``--full-size``).
+h2o-danube-3-4b, command-r-plus-104b, qwen3-moe-235b-a22b,
+llama4-maverick-400b-a17b, internvl2-76b (text only, as the reference's
+tasks carry no patch embeddings), zamba2-1.2b or rwkv6-1.6b (reduced
+unless ``--full-size``). whisper-tiny raises: its loss reads encoder
+frames, which no task's batches carry (the reference's cannot train it
+either); it trains through ``forward_gradient`` on a batch with frames.
 
 Port of ``repro/launch/train.py``. The in-process path: synthetic task ->
 Dirichlet partition -> client sampling -> round step (SPRY on either
@@ -232,6 +236,11 @@ def run_training(arch="roberta-large-lora", task="sst2", method="spry",
         raise ValueError("--resume requires --checkpoint-dir")
     dev = resolve_device(device)
     cfg = get_config(arch)
+    if cfg.encoder_layers:
+        raise ValueError(
+            f"{arch}: the encoder-decoder family's loss reads encoder frames, "
+            f"and the {task!r} task's batches carry tokens only; estimate its "
+            f"gradients with core.forward_gradient on a batch with 'frames'")
     if reduced:
         cfg = reduce_config(cfg)
     x_tr, y_tr, x_te, y_te = make_task(task, seed=seed, vocab=cfg.vocab)

@@ -1,12 +1,15 @@
-"""GQA attention: train and prefill, and one-token decode (the dense
-family's ``attn_block_decode_nocopy``, the hybrid family's cache-writing
-``attn_block_decode``). Port of ``repro/models/attention.py``.
+"""GQA attention: train and prefill, one-token decode (the dense
+family's ``attn_block_decode_nocopy``, the hybrid and encoder-decoder
+families' cache-writing ``attn_block_decode``) and whisper's
+cross-attention. Port of ``repro/models/attention.py``.
 
 Outside the estimator (eval, ``cls_logits``, serving's prefill and decode)
 attention is plain torch ops, as in the reference (its
 ``use_kernel_mixers()`` is false there). Inside the estimator's forward-AD
-region the mixer goes through ``dispatch.swa_attend``: the flash kernel for
-the primal and the multi-tangent kernel for all K tangents.
+region the causal mixer goes through ``dispatch.swa_attend``: the flash
+kernel for the primal and the multi-tangent kernel for all K tangents.
+The non-causal encoder attention and the cross-attention stay plain torch
+everywhere, as in the reference.
 """
 from __future__ import annotations
 
@@ -126,21 +129,43 @@ def attn_finish(cfg, p, out, peft_layer, lora_scale):
 
 
 def attn_block_prefill_kv(cfg, p, x, peft_layer, lora_scale, *, is_global=True,
-                          rope_cs=None):
+                          causal=True, rope_cs=None):
     """``attn_block_prefill`` that also returns the roped (k, v) rows:
     exactly what decode would have inserted into the KV cache for these
-    positions (the fused-prefill serve path)."""
+    positions (the fused-prefill serve path). ``causal=False`` (whisper's
+    encoder) attends through the plain chunked ``attend_prefill``, never the
+    causal mixer site."""
     q, k, v = attn_site_qkv(cfg, p, x, peft_layer, lora_scale, rope_cs=rope_cs)
     window = None if is_global else cfg.window
-    out = swa_mixer_site(cfg, (q.transpose(1, 2), k.transpose(1, 2),
-                               v.transpose(1, 2)), window).transpose(1, 2)
+    if causal:
+        out = swa_mixer_site(cfg, (q.transpose(1, 2), k.transpose(1, 2),
+                                   v.transpose(1, 2)), window).transpose(1, 2)
+    else:
+        out = attend_prefill(q, k, v, window=window, causal=False)
     return attn_finish(cfg, p, out, peft_layer, lora_scale), k, v
 
 
 def attn_block_prefill(cfg, p, x, peft_layer, lora_scale, *, is_global=True,
-                       rope_cs=None):
+                       causal=True, rope_cs=None):
     return attn_block_prefill_kv(cfg, p, x, peft_layer, lora_scale,
-                                 is_global=is_global, rope_cs=rope_cs)[0]
+                                 is_global=is_global, causal=causal,
+                                 rope_cs=rope_cs)[0]
+
+
+def cross_attn_block(cfg, p, x, memory, peft_layer, lora_scale):
+    """Decoder cross-attention (whisper): queries from x (B,S,D), keys and
+    values from the encoder's ``memory`` (B,Sm,D), recomputed each call;
+    LoRA on ``wq`` and ``wo`` only, as the reference."""
+    B, S, _ = x.shape
+    Sm, hd = memory.shape[1], cfg.hd
+    q = proj(x, p["wq"], p.get("wq_b"), maybe_lora(peft_layer, "wq"), lora_scale)
+    k = proj(memory, p["wk"], p.get("wk_b"))
+    v = proj(memory, p["wv"], p.get("wv_b"))
+    keep = torch.ones((S, Sm), dtype=torch.bool, device=x.device)
+    out = _sdpa(q.reshape(B, S, cfg.n_heads, hd), k.reshape(B, Sm, cfg.n_kv_heads, hd),
+                v.reshape(B, Sm, cfg.n_kv_heads, hd), keep, 1.0 / math.sqrt(hd))
+    return proj(out.reshape(B, S, cfg.n_heads * hd), p["wo"], p.get("wo_b"),
+                maybe_lora(peft_layer, "wo"), lora_scale)
 
 
 def attn_block_decode(cfg, p, x, peft_layer, lora_scale, k_cache, v_cache, pos,

@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -22,26 +23,37 @@ from repro_torch.kernels.dispatch import lora_proj, lora_proj_multi
 _DRAW_BYTES_MAX = 2 ** 34     # 16 GiB of fp32: a larger draw is made a slice at a time
 
 
+def _draw(gen, shape, root_fan_in, dtype, out=None):
+    """N(0, 1) / root_fan_in in fp32, cast to ``dtype``: whole when its fp32 draw
+    is at most 16 GiB or the shape has two axes, else one leading-axis slice
+    at a time into ``out`` (each slice by the same rule)."""
+    if len(shape) > 2 and 4 * math.prod(shape) > _DRAW_BYTES_MAX:
+        out = torch.empty(shape, dtype=dtype, device=gen.device) if out is None else out
+        for i in range(shape[0]):
+            _draw(gen, shape[1:], root_fan_in, dtype, out[i])
+        return out
+    x = (torch.randn(shape, generator=gen, device=gen.device) / root_fan_in).to(dtype)
+    if out is None:
+        return x
+    out.copy_(x)
+    return out
+
+
 def dense_init(gen, shape, in_axis=-2, dtype=torch.float32):
     """LeCun-normal drawn in fp32 on the generator's device, then cast. A
-    layer-stacked leaf whose fp32 draw would pass 16 GiB (gemma3-27b's MLP
+    leaf whose fp32 draw would pass 16 GiB (gemma3-27b's stacked MLP
     weights, 29 GB each) is drawn one leading-axis slice at a time into its
-    output, so the init holds one layer's draw beside the weights made so
-    far, not the whole leaf's (which would not fit on one 80 GB card).
-    Every smaller leaf is drawn whole: a draw a slice at a time gives other
-    values, and the card limits of the configs whose leaves are all smaller
-    (the serving engines' SERVE_BF16_ATOL and SERVE_FP32_ATOL in
-    chip_smoke.py, and the readings beside them) were read on the whole
-    draws' weights, so one path for all would need each re-read."""
+    output, and a slice that would itself pass 16 GiB (one layer of
+    llama4-maverick's experts, 21.5 GB) one slice of it at a time, so the
+    init holds one small draw beside the weights made so far, not the whole
+    leaf's (which would not fit on one 80 GB card). Every draw of at most
+    16 GiB is made whole: a draw a slice at a time gives other values, and
+    the card limits of the configs whose draws are all smaller (the serving
+    engines' SERVE_BF16_ATOL and SERVE_FP32_ATOL in chip_smoke.py, and the
+    readings beside them) were read on the whole draws' weights, so one
+    path for all would need each re-read."""
     fan_in = shape[in_axis] if len(shape) > 1 else shape[0]
-    if len(shape) > 2 and 4 * math.prod(shape) > _DRAW_BYTES_MAX:
-        out = torch.empty(shape, dtype=dtype, device=gen.device)
-        for i in range(shape[0]):
-            x = torch.randn(shape[1:], generator=gen, device=gen.device)
-            out[i] = (x / math.sqrt(fan_in)).to(dtype)
-        return out
-    x = torch.randn(shape, generator=gen, device=gen.device)
-    return (x / math.sqrt(fan_in)).to(dtype)
+    return _draw(gen, tuple(shape), math.sqrt(fan_in), dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -123,6 +135,16 @@ def rope_tables_for(cfg, h):
     if not cfg.rope_theta:
         return None
     return rope_tables(cfg.rope_theta, h.shape[1], cfg.hd, device=h.device)
+
+
+def sinusoidal_positions(seq, d, device=None):
+    """(seq, d) fp32 absolute positions, sin then cos halves (whisper),
+    computed in float64 on the host and rounded once, as the reference."""
+    pos = np.arange(seq)[:, None]
+    dim = np.arange(d // 2)[None, :]
+    ang = pos / np.power(10000.0, 2 * dim / d)
+    table = np.concatenate([np.sin(ang), np.cos(ang)], axis=-1).astype(np.float32)
+    return torch.from_numpy(table).to(device)
 
 
 def layer_slice(tree, i):

@@ -1,5 +1,5 @@
-"""Family registry and task losses. Port of the dense, hybrid and ssm
-entries of ``repro/models/registry.py``.
+"""Family registry and task losses. Port of ``repro/models/registry.py``:
+the dense, moe, vlm, audio (encoder-decoder), hybrid and ssm families.
 
     model = get_model(cfg)
     base  = model.init_base(cfg, gen)
@@ -9,8 +9,12 @@ entries of ``repro/models/registry.py``.
     cache = model.init_cache(cfg, batch, seq_len, device=dev)
     logits, cache = model.decode_step(cfg, base, peft, cache, token, pos)
 
-Serving (``init_cache``, ``prefill``, ``decode_step``) is ported for all
-three families; only the dense family has an int8-KV cache.
+A batch may carry ``patch_embeds`` (B,P,D), which the transformer
+families prepend to the token embeddings (the LM loss then reads the text
+rows only), and the audio family reads ``frames`` (B,F,D) through its
+encoder. Serving (``init_cache``, ``prefill``, ``decode_step``) is ported
+for every family; the transformer families (dense, moe, vlm) have an
+int8-KV cache.
 """
 from __future__ import annotations
 
@@ -19,7 +23,7 @@ from typing import Callable, Optional
 
 import torch
 
-from repro_torch.models import hybrid, rwkv_model, transformer
+from repro_torch.models import encdec, hybrid, rwkv_model, transformer
 from repro_torch.models.common import chunked_lm_loss, classification_loss
 
 
@@ -52,11 +56,13 @@ class ModelFns:
 
 def _tf_forward(cfg, base, peft, batch, lora_scale=1.0):
     return transformer.forward(cfg, base, peft, batch["tokens"],
+                               extra_embeds=batch.get("patch_embeds"),
                                lora_scale=lora_scale)
 
 
 def _tf_split_forward(cfg, base, peft, batch, lora_scale=1.0):
     return transformer.split_forward(cfg, base, peft, batch["tokens"],
+                                     extra_embeds=batch.get("patch_embeds"),
                                      lora_scale=lora_scale)
 
 
@@ -90,15 +96,42 @@ def _rwkv_split_post(cfg, base, y, ctx, peft, batch, lora_scale=1.0):
     return rwkv_model.split_post(cfg, base, y, ctx, peft, lora_scale=lora_scale)
 
 
+def _encdec_forward(cfg, base, peft, batch, lora_scale=1.0):
+    return encdec.forward(cfg, base, peft, batch["tokens"], frames=batch["frames"],
+                          lora_scale=lora_scale)
+
+
+def _encdec_split_forward(cfg, base, peft, batch, lora_scale=1.0):
+    return encdec.split_forward(cfg, base, peft, batch["tokens"],
+                                frames=batch["frames"], lora_scale=lora_scale)
+
+
+def _encdec_split_post(cfg, base, y, ctx, peft, batch, lora_scale=1.0):
+    return encdec.split_post(cfg, base, y, ctx, peft, lora_scale=lora_scale)
+
+
+# the dense, moe and vlm families share the transformer stack
+_TRANSFORMER = ModelFns(transformer.init_base, _tf_forward, transformer.unembed,
+                        split_forward=_tf_split_forward,
+                        split_post=_tf_split_post,
+                        split_site=transformer.split_site,
+                        mixer_site=transformer.mixer_site,
+                        init_cache=transformer.init_cache,
+                        decode_step=transformer.decode_step,
+                        prefill=transformer.prefill, supports_kv_int8=True)
+
 _FAMILIES = {
-    "dense": ModelFns(transformer.init_base, _tf_forward, transformer.unembed,
-                      split_forward=_tf_split_forward,
-                      split_post=_tf_split_post,
-                      split_site=transformer.split_site,
-                      mixer_site=transformer.mixer_site,
-                      init_cache=transformer.init_cache,
-                      decode_step=transformer.decode_step,
-                      prefill=transformer.prefill, supports_kv_int8=True),
+    "dense": _TRANSFORMER,
+    "moe": _TRANSFORMER,
+    "vlm": _TRANSFORMER,
+    "audio": ModelFns(encdec.init_base, _encdec_forward, encdec.unembed,
+                      split_forward=_encdec_split_forward,
+                      split_post=_encdec_split_post,
+                      split_site=encdec.split_site,
+                      mixer_site=encdec.mixer_site,
+                      init_cache=encdec.init_cache,
+                      decode_step=encdec.decode_step,
+                      prefill=encdec.prefill),
     "hybrid": ModelFns(hybrid.init_base, _hybrid_forward, hybrid.unembed,
                        split_forward=_hybrid_split_forward,
                        split_post=_hybrid_split_post,
@@ -119,20 +152,19 @@ _FAMILIES = {
 
 
 def get_model(cfg) -> ModelFns:
-    if cfg.family not in _FAMILIES:
-        raise ValueError(
-            f"family {cfg.family!r} has no model in repro_torch (dense, hybrid "
-            f"and ssm only)")
     return _FAMILIES[cfg.family]
 
 
 def _lm_head(cfg, base, model, h, aux, batch):
     """Causal-LM next-token loss (targets rolled left, last position
-    invalid)."""
+    invalid) on the text rows only: the first P rows of h, a batch's patch
+    embeddings, are cut off."""
     tokens = batch["tokens"]
     targets = torch.cat([tokens[:, 1:], tokens[:, :1]], dim=1)
     valid = torch.ones(targets.shape, dtype=torch.float32, device=h.device)
     valid[:, -1] = 0.0
+    if batch.get("patch_embeds") is not None:
+        h = h[:, batch["patch_embeds"].shape[1]:, :]
     loss = chunked_lm_loss(h, model.unembed(cfg, base), targets, valid)
     return loss + 0.01 * aux
 

@@ -1,4 +1,4 @@
-"""Decoder-only transformer stack (dense family).
+"""Decoder-only transformer stack (the dense, moe and vlm families).
 
 Port of ``repro/models/transformer.py``: ``init_base``, ``embed_tokens``,
 ``unembed``, the train ``forward`` and its split pieces (``split_site``,
@@ -7,6 +7,11 @@ Port of ``repro/models/transformer.py``: ``init_base``, ``embed_tokens``,
 ``lax.scan`` over stacked layers becomes a plain loop over layer slices of
 the same stacked tensors. Where the reference donates the KV cache to its
 jitted prefill and decode, these write the cache in place and return it.
+A moe config's layers run ``moe.moe_block`` for the MLP and sum its aux
+loss (the train forward returns the mean over layers); ``extra_embeds``
+(B,P,D), a vlm's patch embeddings or llama4's early-fusion image tokens
+(stubs), are prepended to the token embeddings of the train forward, so
+RoPE positions run over P+S.
 """
 from __future__ import annotations
 
@@ -23,6 +28,7 @@ from repro_torch.models.common import (
     rope_tables_for,
 )
 from repro_torch.models.mlp import mlp_block, mlp_params
+from repro_torch.models.moe import moe_block, moe_params
 
 
 def init_base(cfg, gen):
@@ -33,8 +39,11 @@ def init_base(cfg, gen):
         "attn": attn.attn_params(cfg, gen, layers=L),
         "ln1": norm_params(cfg, d, layers=L, device=gen.device),
         "ln2": norm_params(cfg, d, layers=L, device=gen.device),
-        "mlp": mlp_params(cfg, gen, layers=L),
     }
+    if cfg.moe is not None:
+        layers["moe"] = moe_params(cfg, gen, layers=L)
+    else:
+        layers["mlp"] = mlp_params(cfg, gen, layers=L)
     base = {
         "embed": dense_init(gen, (V, d), in_axis=-1, dtype=cfg.dtype),
         "layers": layers,
@@ -56,11 +65,22 @@ def unembed(cfg, base):
     return base["embed"].T if cfg.tie_embeddings else base["lm_head"]
 
 
-def _layer_tail(cfg, h, lp, pl, lora_scale):
-    """ln2 + MLP + residual: the back half of a layer once its attention
-    output has been added to the residual."""
+def _layer_tail(cfg, h, aux, lp, pl, lora_scale):
+    """ln2 + MLP (or MoE, its aux added to ``aux``) + residual: the back
+    half of a layer once its attention output has been added to the
+    residual. Returns (h, aux)."""
     hn = apply_norm(cfg, h, lp["ln2"])
-    return h + mlp_block(cfg, lp["mlp"], hn, pl, lora_scale)
+    if cfg.moe is not None:
+        y, aux_l = moe_block(cfg, lp["moe"], hn)
+        return h + y, aux + aux_l
+    return h + mlp_block(cfg, lp["mlp"], hn, pl, lora_scale), aux
+
+
+def _embed(cfg, base, tokens, extra_embeds):
+    h = embed_tokens(cfg, base, tokens)
+    if extra_embeds is not None:
+        h = torch.cat([extra_embeds.to(h.dtype), h], dim=1)
+    return h
 
 
 def _slices(base, peft, i):
@@ -68,13 +88,14 @@ def _slices(base, peft, i):
             layer_slice((peft or {}).get("layers", {}), i) or None)
 
 
-def forward(cfg, base, peft, tokens, lora_scale=1.0):
-    """Train forward -> (hidden (B,S,D), aux_loss), as the split composition
+def forward(cfg, base, peft, tokens, extra_embeds=None, lora_scale=1.0):
+    """Train forward -> (hidden (B,P+S,D), aux_loss), as the split composition
     ``split_forward`` -> ``mixer_site`` -> ``split_post``: the first L-1
     layers in a loop, the final one unrolled around its attention mixer. The
     registry's split losses run exactly these pieces, so a ``SplitLoss`` and
     the plain loss compute the same ops (bitwise-equal values)."""
-    site_args, ctx = split_forward(cfg, base, peft, tokens, lora_scale=lora_scale)
+    site_args, ctx = split_forward(cfg, base, peft, tokens, extra_embeds=extra_embeds,
+                                   lora_scale=lora_scale)
     y = mixer_site(cfg, site_args)
     return split_post(cfg, base, y, ctx, peft, lora_scale=lora_scale)
 
@@ -91,26 +112,27 @@ def mixer_site(cfg, site_args):
     return attn.swa_mixer_site(cfg, site_args, split_site(cfg)[1]["window"])
 
 
-def split_forward(cfg, base, peft, tokens, lora_scale=1.0):
+def split_forward(cfg, base, peft, tokens, extra_embeds=None, lora_scale=1.0):
     """First L-1 layers, then the final layer up to its attention mixer ->
     (site_args, ctx): site_args = (q, k, v) in kernel layout (B,H,S,hd) /
-    (B,KV,S,hd), ctx = {"h": residual stream, "aux": aux loss}."""
-    h = embed_tokens(cfg, base, tokens)
+    (B,KV,S,hd), ctx = {"h": residual stream, "aux": the first L-1 layers'
+    summed MoE aux}."""
+    h = _embed(cfg, base, tokens, extra_embeds)
     rope_cs = rope_tables_for(cfg, h)
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for i in range(cfg.n_layers - 1):
         lp, pl = _slices(base, peft, i)
         hn = apply_norm(cfg, h, lp["ln1"])
         h = h + attn.attn_block_prefill(cfg, lp["attn"], hn, pl, lora_scale,
                                         is_global=cfg.is_global_layer(i),
                                         rope_cs=rope_cs)
-        h = _layer_tail(cfg, h, lp, pl, lora_scale)
+        h, aux = _layer_tail(cfg, h, aux, lp, pl, lora_scale)
     lp, pl = _slices(base, peft, cfg.n_layers - 1)
     hn = apply_norm(cfg, h, lp["ln1"])
     q, k, v = attn.attn_site_qkv(cfg, lp["attn"], hn, pl, lora_scale,
                                  rope_cs=rope_cs)
     site_args = (q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
-    return site_args, {"h": h, "aux": torch.zeros((), dtype=torch.float32,
-                                                   device=h.device)}
+    return site_args, {"h": h, "aux": aux}
 
 
 def split_post(cfg, base, y, ctx, peft, lora_scale=1.0):
@@ -119,9 +141,9 @@ def split_post(cfg, base, y, ctx, peft, lora_scale=1.0):
     lp, pl = _slices(base, peft, cfg.n_layers - 1)
     h = ctx["h"] + attn.attn_finish(cfg, lp["attn"], y.transpose(1, 2), pl,
                                     lora_scale)
-    h = _layer_tail(cfg, h, lp, pl, lora_scale)
+    h, aux = _layer_tail(cfg, h, ctx["aux"], lp, pl, lora_scale)
     h = apply_norm(cfg, h, base["final_norm"])
-    return h, ctx["aux"] / cfg.n_layers
+    return h, aux / cfg.n_layers
 
 
 # ---------------------------------------------------------------------------
@@ -180,7 +202,7 @@ def prefill(cfg, base, peft, cache, tokens, lora_scale=1.0):
         a, k, v = attn.attn_block_prefill_kv(cfg, lp["attn"], hn, pl, lora_scale,
                                              is_global=cfg.is_global_layer(i),
                                              rope_cs=rope_cs)
-        h = _layer_tail(cfg, h + a, lp, pl, lora_scale)
+        h = _layer_tail(cfg, h + a, 0.0, lp, pl, lora_scale)[0]
         ks.append(k)
         vs.append(v)
     h = apply_norm(cfg, h, base["final_norm"])
@@ -243,7 +265,7 @@ def decode_step(cfg, base, peft, cache, token, pos, lora_scale=1.0):
             window = {"is_global": bool(cfg.is_global_layer(0))}
         a, k_new, v_new = attn.attn_block_decode_nocopy(
             cfg, lp["attn"], hn, pl, lora_scale, kc, vc, pos, **window)
-        h = _layer_tail(cfg, h + a, lp, pl, lora_scale)
+        h = _layer_tail(cfg, h + a, 0.0, lp, pl, lora_scale)[0]
         k_news.append(k_new[:, 0])
         v_news.append(v_new[:, 0])
     h = apply_norm(cfg, h, base["final_norm"])

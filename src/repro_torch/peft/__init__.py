@@ -1,1 +1,6 @@
-from repro_torch.peft.lora import default_lora_targets, init_peft, target_dims
+from repro_torch.peft.lora import (
+    default_lora_targets,
+    init_peft,
+    peft_layer_groups,
+    target_dims,
+)

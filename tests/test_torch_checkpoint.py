@@ -3,7 +3,7 @@ through ``run_training``, and ``CheckpointAdapterStore``.
 
 Inside the port: atomic writes, strict restores, manifest integrity; a
 restored leaf has the template's type, device and dtype, a bf16 leaf bit
-for bit; a run killed after 2 of 3 rounds and resumed ends bitwise where
+for bit; a run killed after 1 of 2 rounds and resumed ends bitwise where
 the straight run ends (the final checkpoint's content hash, which covers
 base, peft, server state and round index, and the history), for spry and
 spry_periter with over-selection, dropout, the streaming executor, wire
@@ -51,6 +51,8 @@ from repro_torch.launch.adapter_cache import AdapterCache, CheckpointAdapterStor
 from repro_torch.models import get_model
 from repro_torch.peft import init_peft
 from repro_torch.utils.pytree import tree_leaves, tree_map
+
+from port_reference import unoptimized_reference  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
 
@@ -252,19 +254,19 @@ def _history(h):
 
 
 def kill_and_resume(tmp_path, **kw):
-    """Run 3 rounds straight and 2 + (resume to 3) into another checkpoint
-    directory; returns (straight history, resumed history, the two final
-    manifests)."""
+    """Run ``kw["rounds"]`` rounds straight and one fewer + (resume to
+    all) into another checkpoint directory; returns (straight history,
+    resumed history, the two final manifests)."""
     a, b = str(tmp_path / "straight"), str(tmp_path / "killed")
     for d in (a, b):
         shutil.rmtree(d, ignore_errors=True)
     full = ttrain.run_training(checkpoint_dir=a, **kw)
-    ttrain.run_training(checkpoint_dir=b, **dict(kw, rounds=2))
+    ttrain.run_training(checkpoint_dir=b, **dict(kw, rounds=kw["rounds"] - 1))
     resumed = ttrain.run_training(checkpoint_dir=b, resume=True, **kw)
     return full, resumed, read_manifest(a), read_manifest(b)
 
 
-RUNTIME_KW = dict(rounds=3, clients_per_round=2, total_clients=8, batch_size=2,
+RUNTIME_KW = dict(rounds=2, clients_per_round=2, total_clients=8, batch_size=2,
                   k_perturbations=2, eval_every=1, runtime=True,
                   runtime_microbatch=2, over_select=1.5, dropout_rate=0.25,
                   wire_simulate=True, faults="mild", quorum=0.5, device="cpu",
@@ -274,9 +276,9 @@ RUNTIME_KW = dict(rounds=3, clients_per_round=2, total_clients=8, batch_size=2,
 @pytest.mark.parametrize("method", ["spry", "spry_periter"])
 def test_run_training_kill_and_resume_bitwise(tmp_path, method):
     full, resumed, ma, mb = kill_and_resume(tmp_path, method=method, **RUNTIME_KW)
-    assert len(full) == len(resumed) == 3
+    assert len(full) == len(resumed) == 2
     assert _history(full) == _history(resumed)
-    assert ma.content_hash == mb.content_hash and ma.round_idx == mb.round_idx == 3
+    assert ma.content_hash == mb.content_hash and ma.round_idx == mb.round_idx == 2
     assert full[-1]["cohort"] == 3 and full[-1]["health"] is not None
 
 
@@ -287,7 +289,7 @@ def test_in_process_kill_and_resume_bitwise(tmp_path):
           if k in ("rounds", "clients_per_round", "total_clients", "batch_size",
                    "k_perturbations", "eval_every", "device", "log")}
     full, resumed, ma, mb = kill_and_resume(tmp_path, method="spry", **kw)
-    assert _history(full) == _history(resumed) and len(full) == 3
+    assert _history(full) == _history(resumed) and len(full) == 2
     assert ma.content_hash == mb.content_hash and ma.rng_state is not None
 
 

@@ -100,7 +100,15 @@ LORA_ROUTE_CASES = (
     [(256, K, K, r, T, xd) for K in (1024, 4096) for r in (1, 16) for T in (1, 8, 64)
      for xd in (True, False)]
     + [(200, K, K, r, 3, xd) for K in (1024, 4096) for r in (1, 16)    # tiles straddle
-       for xd in (True, False)])                                      # two tangents
+       for xd in (True, False)]                                       # two tangents
+    # the moe, vlm and encoder-decoder configs' wq and wv (qwen3-moe,
+    # llama4-maverick, internvl2, whisper-tiny; its encoder at two requests'
+    # 1500 frames), K=4 tangents
+    + [(256, K, N, 1, 4, xd) for K, N in ((4096, 8192), (4096, 512), (5120, 5120),
+                                          (5120, 1024), (8192, 8192), (8192, 1024),
+                                          (384, 384))
+       for xd in (True, False)]
+    + [(3000, 384, 384, 1, 4, True)])
 
 
 @pytest.mark.parametrize("M,K,N,r,T,has_xd", LORA_ROUTE_CASES)
@@ -141,6 +149,10 @@ def test_lora_bf16_routes_match_plain(dev, M, K, N, r, T, has_xd):
     (8, 32, 8, 32, 120, None, 8),    # h2o-danube: padded to 128
     (2, 12, 1, 100, 120, 40, 3),     # G = 12, band
     (1, 4, 2, 70, 200, None, 2),     # a wide width off 32: padded to 224
+    (8, 64, 4, 32, 128, None, 4),    # qwen3-moe: G = 16
+    (2, 40, 8, 160, 128, None, 4),   # llama4-maverick: 128 patches + 32 tokens
+    (2, 64, 8, 288, 128, None, 4),   # internvl2: 256 patches + 32 tokens
+    (8, 6, 6, 32, 64, None, 4),      # whisper-tiny's decoder
 ])
 def test_swa_kernels_match_plain(dev, dtype, B, H, KV, S, hd, window, T):
     """Primal and tangents against the plain versions, each on the route
@@ -350,6 +362,10 @@ def _swa_jvps_inputs(B, H, KV, S, hd, T, dtype, dev, seed):
     (2, 16, 8, 100, 256, 40, 3),
     (8, 32, 8, 32, 120, None, 8),    # h2o-danube: padded to 128
     (2, 12, 1, 100, 120, 40, 3),
+    (8, 64, 4, 32, 128, None, 4),    # qwen3-moe, llama4-maverick, internvl2, whisper-tiny
+    (2, 40, 8, 160, 128, None, 4),
+    (2, 64, 8, 288, 128, None, 4),
+    (8, 6, 6, 32, 64, None, 4),
 ])
 def test_swa_jvps_kernel_matches_plain(dev, dtype, B, H, KV, S, hd, window, T):
     from repro_torch.kernels.swa_attention import ops
@@ -707,6 +723,13 @@ def test_rwkv6_launches_per_estimate(dev, fused):
     (3, 1001, 64, 2, 1),            # K off the 8-element copies: simt in bf16
     (4, 12288, 12288, 4, 1),        # command-r-plus-104b's decode: wq
     (4, 12288, 1024, 4, 1),         # and wv, the stream route's largest K
+    (4, 4096, 8192, 4, 1),          # qwen3-moe's decode: wq
+    (4, 4096, 512, 4, 1),           # and wv
+    (4, 5120, 5120, 4, 1),          # llama4-maverick
+    (4, 5120, 1024, 4, 1),
+    (4, 8192, 8192, 4, 1),          # internvl2
+    (4, 8192, 1024, 4, 1),
+    (4, 384, 384, 4, 1),            # whisper-tiny
 ])
 def test_lora_multi_kernel_matches_plain(dev, dtype, M, K, N, P, r):
     """Against the plain version on the route ``lora_multi_path`` gives; a
@@ -789,3 +812,38 @@ def test_engine_launches_per_decode_step(dev):
     assert counts == _chip_smoke().serve_launches(cfg, eng.steps)
     assert counts["lora_dual_multi"] == 2 * cfg.n_layers * eng.steps > 0
     assert out["cuda"] == out["cpu"]
+
+
+@pytest.mark.parametrize("fused", [False, True], ids=["standard", "fused"])
+def test_whisper_launches_per_estimate(dev, fused):
+    """Reduced whisper-tiny (bf16) estimate with frames on the card: exactly
+    ``chip_smoke.round_launches`` of one estimate, one primal and one
+    tangent (or contraction) attention launch a decoder layer, none for the
+    encoder's non-causal attention, every LoRA and attention launch on a
+    tensor-core route."""
+    import dataclasses as dc
+
+    from repro_torch.configs import SpryConfig, get_config, reduce_config
+    from repro_torch.core.forward_grad import forward_gradient
+    from repro_torch.kernels import launch_counts, launch_paths, reset_launch_counts
+    from repro_torch.models import get_model
+    from repro_torch.models.registry import split_lm_loss
+    from repro_torch.peft import init_peft
+    cfg = dc.replace(reduce_config(get_config("whisper-tiny")), param_dtype="bfloat16",
+                     n_classes=0)
+    g = torch.Generator(device=dev).manual_seed(0)
+    base = get_model(cfg).init_base(cfg, g)
+    peft = init_peft(cfg, g, SpryConfig())
+    batch = {"tokens": torch.randint(0, cfg.vocab, (2, 16), generator=g, device=dev),
+             "frames": torch.randn((2, cfg.encoder_seq, cfg.d_model), generator=g,
+                                   device=dev)}
+    reset_launch_counts()
+    loss, _, jvps = forward_gradient(split_lm_loss(cfg, base, batch), peft, 3, 4,
+                                     fused_contraction=fused)
+    torch.cuda.synchronize()
+    route = "fused" if fused else "standard"
+    assert launch_counts() == _chip_smoke().round_launches(cfg, route, 1)
+    assert launch_counts()["swa_attention"] == cfg.n_layers
+    for k, by in launch_paths().items():
+        assert not by.get("simt"), (k, by)
+    assert torch.isfinite(loss) and torch.isfinite(jvps).all()

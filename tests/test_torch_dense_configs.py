@@ -5,8 +5,7 @@ JAX package.
 - Every field of the four configs, ``ASSIGNED_ARCHS``, ``ALL_ARCHS``,
   ``INPUT_SHAPES``, ``get_shape``, ``shape_applicable`` (each arch x each
   shape), ``sub_quadratic`` and the parameter estimates equal the
-  reference's; ``get_config`` raises for the archs whose families are not
-  ported.
+  reference's; ``get_config`` returns every arch of ``ALL_ARCHS``.
 - Three reduced stacks keep what ``reduce_config`` alone would hide (its
   head_dim=64 and G=2), on both sides: gemma3-12b at head_dim 256 with 6
   layers (5 local : 1 global, so layer 5 is global), h2o-danube at head_dim
@@ -50,6 +49,7 @@ from repro_torch.launch import train as ttrain
 from repro_torch.models import get_model as tget_model
 from repro_torch.utils.pytree import tree_leaves, tree_map, tree_paths
 
+from port_reference import unoptimized_reference  # noqa: F401 (autouse)
 from test_torch_fused import reference_rounds
 
 torch.set_num_threads(1)
@@ -79,10 +79,10 @@ def test_config_fields_equal_reference(arch):
     jc, tc = jcfgs.get_config(arch), tcfgs.get_config(arch)
     want = {f.name: getattr(jc, f.name) for f in dataclasses.fields(jc)}
     got = {f.name: getattr(tc, f.name) for f in dataclasses.fields(tc)}
-    # the moe, encdec and vlm fields are not ported; every dense config
-    # leaves them at their defaults
+    # every dense config leaves the moe, encoder and frontend fields at
+    # their defaults
     for name in ("moe", "encoder_layers", "encoder_seq", "frontend", "n_frontend_tokens"):
-        assert want.pop(name) in (None, 0)
+        assert want[name] in (None, 0)
     assert got == want
     assert tc.hd == jc.hd and tc.sub_quadratic == jc.sub_quadratic
     assert tc.n_param_estimate() == jc.n_param_estimate()
@@ -97,12 +97,10 @@ def test_registry_tables_equal_reference():
     assert {k: dataclasses.astuple(v) for k, v in tcfgs.INPUT_SHAPES.items()} == {
         k: dataclasses.astuple(v) for k, v in jcfgs.INPUT_SHAPES.items()}
     ported = []
+    with pytest.raises(KeyError, match="unknown arch"):
+        tcfgs.get_config("gpt-5")
     for arch in jcfgs.ALL_ARCHS:
         jc = jcfgs.get_config(arch)
-        if jc.family not in ("dense", "ssm", "hybrid"):
-            with pytest.raises(KeyError, match="not yet ported"):
-                tcfgs.get_config(arch)
-            continue
         tc = tcfgs.get_config(arch)
         ported.append(arch)
         assert tc.sub_quadratic == jc.sub_quadratic, arch
@@ -113,7 +111,7 @@ def test_registry_tables_equal_reference():
             assert dataclasses.astuple(ts) == dataclasses.astuple(js)
             assert tcfgs.shape_applicable(tc, ts) == jcfgs.shape_applicable(jc, js), \
                 (arch, name)
-    assert len(ported) == 8 and set(DENSE) <= set(ported)
+    assert len(ported) == 12 and set(DENSE) <= set(ported)
 
 
 # ---------------------------------------------------------------------------

@@ -57,6 +57,8 @@ from repro_torch.models import transformer as ttf
 from repro_torch.peft import init_peft
 from repro_torch.utils.pytree import tree_leaves, tree_map
 
+from port_reference import unoptimized_reference  # noqa: F401 (autouse)
+
 torch.set_num_threads(1)
 M = 2
 ROUTES = [(1, None), (3, 1), (4, None), (5, 2)]

@@ -58,6 +58,7 @@ from repro_torch.peft.lora import default_lora_targets as tdefault_targets
 from repro_torch.peft.lora import target_dims as ttarget_dims
 from repro_torch.utils.pytree import tree_leaves, tree_map, tree_paths
 
+from port_reference import unoptimized_reference  # noqa: F401 (autouse)
 from test_torch_fused import reference_at, reference_rounds, shared_reference
 
 torch.set_num_threads(1)

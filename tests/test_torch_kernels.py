@@ -55,6 +55,8 @@ from repro_torch.kernels.mamba2_scan import ops as m2_ops
 from repro_torch.kernels.swa_attention import ops as swa_ops
 from repro_torch.kernels.wkv6_scan import ops as w6_ops
 
+from port_reference import unoptimized_reference  # noqa: F401 (autouse)
+
 torch.set_num_threads(1)
 RTOL = 1e-5
 

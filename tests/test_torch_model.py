@@ -39,6 +39,8 @@ from repro_torch.optim import optimizers as topt
 from repro_torch.peft.lora import target_dims as ttarget_dims
 from repro_torch.utils.pytree import tree_leaves
 
+from port_reference import unoptimized_reference  # noqa: F401 (autouse)
+
 torch.set_num_threads(1)
 ARCHS = ("roberta-large-lora", "llama2-7b")
 

@@ -41,6 +41,8 @@ from repro_torch.obs.report import main as report_main
 from repro_torch.obs.report import render
 from repro_torch.obs.telemetry import _NULL_INSTRUMENT, _NULL_SPAN, _jsonable
 
+from port_reference import unoptimized_reference  # noqa: F401 (autouse)
+
 torch.set_num_threads(1)
 
 

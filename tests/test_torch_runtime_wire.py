@@ -62,6 +62,8 @@ from repro_torch.models import get_model
 from repro_torch.peft import init_peft
 from repro_torch.utils.pytree import tree_leaves, tree_map
 
+from port_reference import unoptimized_reference  # noqa: F401 (autouse)
+
 torch.set_num_threads(1)
 
 

@@ -54,6 +54,8 @@ from repro_torch.models import transformer as ttf
 from repro_torch.models.common import proj
 from repro_torch.utils.pytree import tree_leaves
 
+from port_reference import unoptimized_reference  # noqa: F401 (autouse)
+
 torch.set_num_threads(1)
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 P_LEN, NEW = 8, 5            # prompt length, new tokens

@@ -41,6 +41,7 @@ from repro_torch import configs as tcfgs
 from repro_torch.convert import from_reference
 from repro_torch.models import hybrid as thyb
 
+from port_reference import unoptimized_reference  # noqa: F401 (autouse)
 from test_torch_serve import (
     _np_tree,
     check_engine,

@@ -37,6 +37,7 @@ from repro_torch.kernels import dispatch
 from repro_torch.models import registry as treg
 from repro_torch.utils.pytree import tree_leaves, tree_map
 
+from port_reference import unoptimized_reference  # noqa: F401 (autouse)
 from test_torch_fused import (
     ROUTE_IDS,
     ROUTES,

@@ -69,6 +69,8 @@ from repro_torch.launch import train as ttrain
 from repro_torch.obs import InMemorySink, Telemetry
 from repro_torch.utils.pytree import tree_leaves, tree_map
 
+from port_reference import unoptimized_reference  # noqa: F401 (autouse)
+
 torch.set_num_threads(1)
 MODES = ("per_epoch", "per_iteration")
 RTOL = 1e-5
