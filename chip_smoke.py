@@ -4,7 +4,7 @@
     python3 chip_smoke.py                 # every phase, as a check
     python3 chip_smoke.py --only kernels  # one phase while iterating
                                           # (kernels|parity|train|serve|runtime|dense|
-                                          #  families)
+                                          #  families|peft|analysis)
 
 Phases, in order (any failure raises and exits non-zero):
   1. device   the card's name and power limit (nvidia-smi), torch's name
@@ -262,7 +262,31 @@ Phases, in order (any failure raises and exits non-zero):
               ends with the device memory allocated at its start. Phase 3
               also holds rows 1-4 and 6 at these configs' widths
               (FAMILY_SHAPES)
-Every kernel must have launched over phases 5 to 10 (the main path). The
+ 11. peft     the ia3, bitfit and classifier_only trees (``--only peft``)
+              on roberta-large-lora at full published width and depth, bf16,
+              4 clients, K=4: ``init_peft`` and ``count_trainable`` (126980 /
+              53252 / 4100 trainable, 48 / 48 / 0 units); for each, two SPRY
+              rounds through ``core.spry.make_round_step`` on the standard and
+              on the fused route, each exactly ``round_launches`` for the
+              kind (no ``lora_dual_mt`` launch; no tangent kernel under
+              classifier_only; one row-4 epilogue an estimate where the
+              fused site has a tangent), every launch on a tensor-core route;
+              the first round again with the plain versions on the card,
+              within PEFT_PLAIN_RTOL of the kernels; one ``spry_periter``
+              round with each client's estimate equal to the server's
+              rebuild bit for bit; each run's loss, s/round and round peak;
+              reduced llama2 (fp32) with a bitfit and an ia3 tree: the fused
+              prefill equals the token-by-token decode loop (PEFT_PREFILL_RTOL)
+ 12. analysis ``python -m repro_torch.analysis.lint`` on the card over every
+              family (reduced configs; ``--only analysis``): the six rules
+              over what the entry points ran, every error finding fails the
+              phase; under ``torch.profiler`` with one call of each of the
+              twelve kernels at the main path's shapes, the shared-memory and
+              register table of every instantiation of the seven built
+              libraries (``cuobjdump -res-usage`` joined with each launch's
+              block and shared memory), printed, each row within the H100's
+              budget and every row 1-12 launched
+Every kernel must have launched over phases 5 to 11 (the main path). The
 line before the last is the ``kernels`` JSON; the last line is
 ``{"ok": true, "device": {...}}``. Without a card, or without the repo
 beside it, the script exits non-zero and prints no result.
@@ -1308,6 +1332,14 @@ def phase_kernels():
     for B, H, KV, S, hd, window in ((8, 16, 8, 32, 256, None), (2, 16, 8, 100, 256, 40),
                                     (8, 32, 8, 32, 120, None), (2, 32, 8, 100, 120, 40)):
         swa_jvps_lanes_and_repeats(B, H, KV, S, hd, window, gen)
+    # the wide plan at widths no config has whose 16-column groups do not
+    # come in fours (hd 144: 10 groups, hd 200: 14, padded to 224): primal,
+    # tangents and contraction against the plain versions
+    for B, H, KV, S, hd, window in ((2, 4, 4, 100, 144, 40), (1, 4, 2, 70, 200, None)):
+        for T in (0, 2):
+            swa_case(B, H, KV, S, hd, window, T, torch.bfloat16, gen, False)
+        note("swa_attention_mt_jvps", torch.bfloat16, swa_jvps_case(
+            B, H, KV, S, hd, window, 2, torch.bfloat16, gen, False))
     # the mamba2 recurrence (fp32 only): zamba2's shapes (one client estimate,
     # B=8, S=32, H=64, hd=N=64, one 32-token chunk), one token past the chunk
     # (S=33), a ragged shape (odd S; hd, N and B*H*hd not multiples of 32 or
@@ -1611,7 +1643,7 @@ KERNELS = ("lora_dual_mt", "swa_attention", "swa_attention_mt",
            "wkv6_scan", "wkv6_scan_mt", "wkv6_scan_mt_jvps")
 
 
-def round_launches(cfg, kind, estimates):
+def round_launches(cfg, kind, estimates, peft="lora"):
     """The launches a round of ``estimates`` estimates must make on ``cfg``:
     per estimate, one primal and one multi-tangent kernel per mixer site and
     one multi-tangent LoRA kernel per adapted projection on the standard
@@ -1619,11 +1651,27 @@ def round_launches(cfg, kind, estimates):
     contraction epilogue; at a mamba2 site the final layer's out_proj sits in
     the reversed post-head and launches nothing (at a wkv6 site the final
     layer's adapted wr and wv come before the site, so every LoRA launch
-    stays). Reverse mode and the zero-order clients launch no kernel."""
+    stays). Reverse mode and the zero-order clients launch no kernel.
+
+    ``peft`` other than lora (the dense family): no LoRA projection, and
+    an attention site has a tangent only where the tree reaches its inputs:
+    every layer under ia3 (k and v are scaled), every layer but the first
+    under bitfit (its biases follow the attention), none under
+    classifier_only, whose fused route then launches no epilogue either."""
     want = dict.fromkeys(KERNELS, 0)
     if kind not in ("standard", "fused"):
         return want
     L = cfg.n_layers
+    if peft != "lora":
+        if cfg.family != "dense":
+            raise NotImplementedError(f"round_launches: peft {peft!r} on {cfg.family}")
+        tangent = {"ia3": L, "bitfit": L - 1, "classifier_only": 0}[peft]
+        per = {"swa_attention": L, "swa_attention_mt": tangent}
+        if kind == "fused" and tangent:
+            per["swa_attention_mt"] -= 1
+            per["swa_attention_mt_jvps"] = 1
+        want.update({k: n * estimates for k, n in per.items()})
+        return want
     if cfg.family == "hybrid":
         every = cfg.hybrid_attn_every
         sites = L // every                 # shared attention applications
@@ -3523,6 +3571,276 @@ def phase_families(totals, path_totals, smi):
         raise AssertionError(f"phase 10 left {held - held_before} bytes allocated")
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the ia3, bitfit and classifier_only PEFT trees at full width
+# ---------------------------------------------------------------------------
+
+PEFT_KINDS = ("ia3", "bitfit", "classifier_only")
+PEFT_COUNTS = {"ia3": (126980, 48), "bitfit": (53252, 48), "classifier_only": (4100, 0)}
+PEFT_M, PEFT_K = 4, 4            # clients a round, perturbations an estimate
+# the first round's kernels against the plain versions on the card (bf16):
+# loss (relative), jvps (of the largest |jvp|) and the new PEFT's update
+# (of the largest |update|); about twice the largest of seeds 0-2 on both
+# routes and all three kinds (0.0028, 0.0253, 0.0285;
+# scripts/dense_readings.py peft)
+PEFT_PLAIN_RTOL = {"loss": 6e-3, "jvps": 0.05, "update": 0.06}
+PEFT_PREFILL_RTOL = 2e-5         # reduced llama2, fp32: fused prefill vs token loop
+
+
+def peft_setup(kind, seed=0):
+    """roberta-large-lora at full width on the card (bf16 base), the
+    ``kind`` tree from ``init_peft`` and a batch of PEFT_M clients x 8 x 32
+    tokens, all from ``seed``."""
+    import torch
+    from repro_torch.configs import SpryConfig, get_config
+    from repro_torch.models import get_model
+    from repro_torch.peft import init_peft
+    cfg = get_config("roberta-large-lora")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    base = get_model(cfg).init_base(cfg, gen)
+    peft = init_peft(cfg, gen, SpryConfig(peft=kind))
+    batch = {"tokens": torch.randint(0, cfg.vocab, (PEFT_M, 8, 32), generator=gen,
+                                     device="cuda"),
+             "labels": torch.randint(0, cfg.n_classes, (PEFT_M, 8), generator=gen,
+                                     device="cuda")}
+    return cfg, base, peft, batch
+
+
+def peft_rounds(cfg, base, peft, batch, kind, fused, rounds, plain=False, seed=0):
+    """``rounds`` SPRY rounds through ``make_round_step`` (the plain
+    versions on the card with ``plain``); per round its metrics, seconds,
+    peak device memory, launches and routes, and the new PEFT."""
+    import torch
+    from repro_torch.configs import SpryConfig
+    from repro_torch.core.spry import init_state, make_round_step
+    from repro_torch.kernels import launch_counts, launch_paths, reset_launch_counts
+    sc = SpryConfig(peft=kind, n_clients_per_round=PEFT_M, k_perturbations=PEFT_K,
+                    fused_contraction=fused, seed=seed)
+    step = make_round_step(cfg, sc, "cls")
+    state = init_state(base, peft)
+    out = []
+    for _ in range(rounds):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        t = time.time()
+        with plain_dispatch() if plain else contextlib.nullcontext():
+            state, met = step(state, batch)
+        torch.cuda.synchronize()
+        out.append({"s": time.time() - t, "loss": float(met["loss"]),
+                    "jvps": met["jvps"].float().clone(), "peft": state.peft,
+                    "peak_GiB": torch.cuda.max_memory_allocated() / 2 ** 30,
+                    "launches": launch_counts(), "paths": launch_paths()})
+    return out
+
+
+def _update_rel(got, want, peft):
+    """max |got - want| / max |want - peft| over the trees' leaves: two new
+    PEFT trees against the update from ``peft``."""
+    from repro_torch.utils.pytree import tree_leaves
+    num = max(float((a.float() - b.float()).abs().max())
+              for a, b in zip(tree_leaves(got), tree_leaves(want)))
+    den = max(float((b.float() - p.float()).abs().max())
+              for b, p in zip(tree_leaves(want), tree_leaves(peft)))
+    return num / max(den, 1e-30)
+
+
+def peft_readings(kind, seed=0, rounds=1):
+    """The first round of ``kind`` on both routes, kernels and plain versions
+    on the card: the kernel runs and the readings of kernels against plain
+    (loss, jvps, update)."""
+    cfg, base, peft, batch = peft_setup(kind, seed)
+    out = {}
+    for fused in (False, True):
+        kern = peft_rounds(cfg, base, peft, batch, kind, fused, rounds, seed=seed)
+        plain = peft_rounds(cfg, base, peft, batch, kind, fused, 1, plain=True, seed=seed)
+        k0, p0 = kern[0], plain[0]
+        out["fused" if fused else "standard"] = {
+            "runs": kern,
+            "plain_s": p0["s"],
+            "loss": abs(k0["loss"] - p0["loss"]) / abs(p0["loss"]),
+            "jvps": rel_max(k0["jvps"], p0["jvps"]),
+            "update": _update_rel(k0["peft"], p0["peft"], peft)}
+    return cfg, base, peft, batch, out
+
+
+def peft_periter(cfg, base, peft, batch, kind, totals, path_totals, seed=0):
+    """One spry_periter round (fused route): each client's estimate equals
+    the server's rebuild from its K jvps bit for bit, and the round makes
+    exactly one estimate a client's launches."""
+    import torch
+    from repro_torch.configs import SpryConfig
+    from repro_torch.core.assignment import (assignment_matrix, build_mask_tree,
+                                             enumerate_units)
+    from repro_torch.core.forward_grad import fold_in, forward_gradient
+    from repro_torch.core.spry import (init_state, make_rebuild_fn,
+                                       make_round_step_per_iteration, make_task_loss)
+    from repro_torch.kernels import launch_counts, launch_paths, reset_launch_counts
+    from repro_torch.utils.pytree import tree_leaves
+    sc = SpryConfig(peft=kind, n_clients_per_round=PEFT_M, k_perturbations=PEFT_K,
+                    fused_contraction=True, seed=seed)
+    index = enumerate_units(peft)
+    rows = assignment_matrix(index.n_units, PEFT_M, 0, device="cuda")
+    rk = fold_in(sc.seed, 0)
+    rebuild = make_rebuild_fn()
+    for m in range(PEFT_M):
+        cb = {k: v[m] for k, v in batch.items()}
+        _, g, jvps = forward_gradient(
+            make_task_loss(cfg, sc, "cls", base, cb), peft, fold_in(fold_in(rk, m), 0),
+            PEFT_K, mask_tree=build_mask_tree(peft, index, rows[m]), fused_contraction=True)
+        g_srv = rebuild(peft, rk, m, rows[m], jvps)
+        if not all(torch.equal(a, b) for a, b in zip(tree_leaves(g), tree_leaves(g_srv))):
+            raise AssertionError(f"peft {kind}: client {m}'s estimate != the server's rebuild")
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t = time.time()
+    _, met = make_round_step_per_iteration(cfg, sc, "cls")(init_state(base, peft), batch)
+    torch.cuda.synchronize()
+    secs = time.time() - t
+    counts, paths = launch_counts(), launch_paths()
+    want = round_launches(cfg, "fused", PEFT_M, peft=kind)
+    if counts != want:
+        raise AssertionError(f"peft {kind} spry_periter: launches {counts} != {want}")
+    check_paths(f"peft {kind} spry_periter", paths, path_totals)
+    for k, n in counts.items():
+        totals[k] += n
+    return {"loss": float(met["loss"]), "s": secs}
+
+
+def peft_prefill(kind, seed=0):
+    """Reduced llama2 in fp32 on the card with a ``kind`` tree (its scales or
+    biases moved off identity): the fused prefill against the token loop,
+    logits and every cache leaf (BitFit stays out of serving, as in the
+    reference)."""
+    import torch
+    from repro_torch.configs import SpryConfig, get_config, reduce_config
+    from repro_torch.launch.serve import build_serve_fns, tokenwise_prefill
+    from repro_torch.models import get_model
+    from repro_torch.peft import init_peft
+    from repro_torch.utils.pytree import tree_map
+    cfg = reduce_config(get_config("llama2-7b"))
+    model = get_model(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    base = model.init_base(cfg, gen)
+    peft = init_peft(cfg, gen, SpryConfig(peft=kind))
+    peft["layers"] = tree_map(
+        lambda x: x + 0.1 * torch.randn(x.shape, generator=gen, device="cuda"),
+        peft["layers"])
+    prompt = torch.randint(0, cfg.vocab, (2, 12), generator=gen, device="cuda")
+    fused = model.init_cache(cfg, 2, 16, device="cuda")
+    loop = model.init_cache(cfg, 2, 16, device="cuda")
+    lf, fused = build_serve_fns(cfg, model)["prefill"](base, peft, fused, prompt)
+    with torch.inference_mode():
+        ll, loop = tokenwise_prefill(cfg, model, base, peft, loop, prompt)
+    errs = {"logits": rel_max(lf, ll)}
+    errs.update({name: rel_max(fused[name], loop[name]) for name in loop})
+    return errs
+
+
+def peft_kind(kind, totals, path_totals, smi):
+    """Phase 11 for one PEFT kind: the counts, the rounds on both routes
+    with their launches and the plain versions' readings, and the
+    per-iteration round."""
+    from repro_torch.core.assignment import enumerate_units
+    from repro_torch.peft import count_trainable
+    cfg, base, peft, batch, read = peft_readings(kind, rounds=2)
+    got = (count_trainable(peft), enumerate_units(peft).n_units)
+    log(f"[peft] {kind}: count_trainable {got[0]}, units {got[1]}")
+    if got != PEFT_COUNTS[kind]:
+        raise AssertionError(f"peft {kind}: (trainable, units) {got} != {PEFT_COUNTS[kind]}")
+    for route, r in read.items():
+        for i, run in enumerate(r["runs"]):
+            want = round_launches(cfg, route, PEFT_M, peft=kind)
+            if run["launches"] != want:
+                raise AssertionError(f"peft {kind} {route} round {i + 1}: launches "
+                                     f"{run['launches']} != {want}")
+            check_paths(f"peft {kind} {route}", run["paths"], path_totals)
+            for k, n in run["launches"].items():
+                totals[k] += n
+            if not math.isfinite(run["loss"]):
+                raise AssertionError(f"peft {kind} {route}: loss not finite")
+            log(f"[peft] {kind} spry K={PEFT_K} {route} round {i + 1}: " + json.dumps(
+                {"loss": run["loss"], "s_round": round(run["s"], 4),
+                 "round_peak_GiB": round(run["peak_GiB"], 3),
+                 "launches": {k: n for k, n in run["launches"].items() if n}})
+                + f"  [{smi}]")
+        reading = {k: r[k] for k in ("loss", "jvps", "update")}
+        log(f"[peft] {kind} {route} first round, kernels vs plain versions on the "
+            f"card (plain {r['plain_s']:.3f} s): " + json.dumps(reading)
+            + f" limits {json.dumps(PEFT_PLAIN_RTOL)}")
+        bad = {k: v for k, v in reading.items() if not v <= PEFT_PLAIN_RTOL[k]}
+        if bad:
+            raise AssertionError(f"peft {kind} {route}: kernels vs plain {bad} past "
+                                 f"{PEFT_PLAIN_RTOL}")
+    per = peft_periter(cfg, base, peft, batch, kind, totals, path_totals)
+    log(f"[peft] {kind} spry_periter (fused): client estimate == server rebuild "
+        f"bitwise; round loss {per['loss']:.6f}, {per['s']:.4f} s  [{smi}]")
+
+
+def phase_peft(totals, path_totals, smi):
+    """Phase 11 (see the module docstring)."""
+    import torch
+    t_phase = time.time()
+    _free()
+    held_before = torch.cuda.memory_allocated()
+    for kind in PEFT_KINDS:
+        peft_kind(kind, totals, path_totals, smi)
+        _free()
+    for kind in ("bitfit", "ia3"):
+        errs = peft_prefill(kind)
+        log(f"[peft] reduced llama2 fp32 with a {kind} tree: fused prefill vs token "
+            f"loop " + json.dumps(errs) + f" limit {PEFT_PREFILL_RTOL}")
+        if not all(e <= PEFT_PREFILL_RTOL for e in errs.values()):
+            raise AssertionError(f"peft {kind}: prefill vs token loop {errs}")
+    _free()
+    held = torch.cuda.memory_allocated()
+    log(f"[peft] device memory allocated before / after the phase: "
+        f"{held_before / 2 ** 30:.3f} / {held / 2 ** 30:.3f} GiB; phase "
+        f"{time.time() - t_phase:.1f}s")
+    if held != held_before:
+        raise AssertionError(f"phase 11 left {held - held_before} bytes allocated")
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the analysis rules on the card
+# ---------------------------------------------------------------------------
+
+def phase_analysis(smi):
+    """Phase 12: the lint (``python -m repro_torch.analysis.lint``) over
+    every family on the card, in a process of its own (a profiler trace
+    taken after this process's earlier sessions can miss its first
+    launches), with its kernel calls at the main path's shapes profiled
+    too; fails on any error finding."""
+    import tempfile
+    t_phase = time.time()
+    fd, path = tempfile.mkstemp(suffix=".analysis.json")
+    os.close(fd)
+    try:
+        env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+        proc = subprocess.run([sys.executable, "-m", "repro_torch.analysis.lint",
+                               "--device", "cuda", "--json", path], cwd=ROOT, env=env,
+                              capture_output=True, text=True, timeout=600)
+        log("[analysis] " + proc.stdout.rstrip().replace("\n", "\n[analysis] "))
+        if proc.returncode not in (0, 1):
+            raise AssertionError(f"analysis: the lint exited {proc.returncode}:\n"
+                                 f"{proc.stderr[-4000:]}")
+        with open(path) as f:
+            doc = json.load(f)
+    finally:
+        os.remove(path)
+    s, rows = doc["summary"], doc["smem_kernels"]
+    log("[analysis] kernel functions launched (threads and dynamic shared memory "
+        "measured): " + json.dumps(sorted({row["function"] for row in rows
+                                           if row["launched"]})))
+    log(f"[analysis] {s['entrypoints']} entry points, {len(rows)} kernel instantiations "
+        f"({sum(row['launched'] for row in rows)} launched in this run), findings "
+        f"{json.dumps({k: s[k] for k in ('errors', 'warnings', 'info')})}; phase "
+        f"{time.time() - t_phase:.1f}s  [{smi}]")
+    if s["errors"] or proc.returncode:
+        raise AssertionError(f"analysis: {s['errors']} error finding(s), lint exit "
+                             f"{proc.returncode}")
+
+
 # the tensor-core kernels: (library, a name fragment of each kernel's
 # instantiations, the SASS instruction that proves tensor-core use; DMMA:
 # the fp64 tensor cores). Every instantiation is counted: the mamba2 and
@@ -3536,20 +3854,12 @@ TENSOR_CORE_KERNELS = (("lora_dual", "lora_mt_tc_kernel", "HGMMA"),
                        ("wkv6_chunk", "wkv6_chunk_kernel", "DMMA"))
 
 
-def _cuobjdump(build, *args):
-    """``cuobjdump`` (beside nvcc) on the arguments; its standard output."""
-    import shutil
-    exe = shutil.which("cuobjdump") or os.path.join(os.path.dirname(build._nvcc()),
-                                                    "cuobjdump")
-    return subprocess.run([exe, *args], capture_output=True, text=True, timeout=300,
-                          check=True).stdout
-
-
 def log_tensor_core_sass(build):
     """Count each tensor-core kernel's HGMMA / HMMA / DMMA instructions in the built
     library's SASS (``cuobjdump -sass``); fail if an instantiation has none."""
+    from repro_torch.analysis import smem
     for lib, kernel, op in TENSOR_CORE_KERNELS:
-        sass = _cuobjdump(build, "-sass", str(build._target(lib)))
+        sass = smem.cuobjdump("-sass", str(build._target(lib)))
         counts, fn = {}, None
         for line in sass.splitlines():
             m = re.search(r"Function : (\S+)", line)
@@ -3565,26 +3875,20 @@ def log_tensor_core_sass(build):
             raise AssertionError(f"{lib}: {kernel} has no {op} instruction: {short}")
 
 
-def check_dense_spills(build):
+def check_dense_spills():
     """The resource use of the swa_attention tensor-core instantiations that
     serve gemma3-12b (16 column groups: hd 256, the wide plan) and
     h2o-danube-3-4b (8, padded: hd 120), read from the built library
-    (``cuobjdump -res-usage``, so a library an earlier run built is read
+    (``analysis.smem.res_usage``, so a library an earlier run built is read
     too): fails unless each of the 9 has no stack frame and no local
     memory, where spilled registers would go."""
-    text = _cuobjdump(build, "-res-usage", str(build._target("swa_attention")))
-    fn, use = None, {}
-    for line in text.splitlines():
-        m = re.search(r"Function (\S+):", line)
-        if m:
-            fn = m.group(1)
-            continue
-        m = re.search(r"REG:(\d+) STACK:(\d+) SHARED:\d+ LOCAL:(\d+)", line)
-        k = fn and re.search(r"swa_tc(_mt|_jvps)?_kernelILi(16|8)ELb([01])E", fn)
-        if m and k:
+    from repro_torch.analysis import smem
+    use = {}
+    for fn, u in smem.res_usage("swa_attention").items():
+        k = re.search(r"swa_tc(_mt|_jvps)?_kernelILi(16|8)ELb([01])E", fn)
+        if k:
             name = f"swa_tc{k.group(1) or ''}_kernel<{k.group(2)}, pad={k.group(3)}>"
-            use[name] = {"reg": int(m.group(1)), "stack": int(m.group(2)),
-                         "local": int(m.group(3))}
+            use[name] = {key: u[key] for key in ("reg", "stack", "local")}
     log("[build] swa_attention registers, stack and local bytes of the hd-256 and "
         "hd-120 tensor-core instantiations: " + json.dumps(use))
     if len(use) != 9 or any(u["stack"] or u["local"] for u in use.values()):
@@ -3595,7 +3899,7 @@ def check_dense_spills(build):
 def main(argv=None):
     ap = argparse.ArgumentParser(description="On-card smoke test of repro_torch")
     ap.add_argument("--only", choices=("kernels", "parity", "train", "serve", "runtime",
-                                       "dense", "families"),
+                                       "dense", "families", "peft", "analysis"),
                     default=None,
                     help="run one phase; 'train' covers the site and train phases")
     args = ap.parse_args(argv)
@@ -3631,7 +3935,7 @@ def main(argv=None):
             if any(s in line for s in ("Compiling entry", "registers", "spill")):
                 log(f"[build] {name}: {line.strip()}")
     log_tensor_core_sass(build)
-    check_dense_spills(build)
+    check_dense_spills()
 
     tp = time.time()
     main_cases = phase_kernels() if args.only in (None, "kernels") else {}
@@ -3708,10 +4012,21 @@ def main(argv=None):
     if args.only in (None, "families"):
         phase_families(totals, path_totals, smi)
     log(f"[phase] families {time.time() - tp:.1f}s")
+    tp = time.time()
+    if args.only in (None, "peft"):
+        before = dict(totals)
+        phase_peft(totals, path_totals, smi)
+        log("[peft] launches of the phase: " + json.dumps(
+            {k: n - before[k] for k, n in totals.items() if n != before[k]}))
+    log(f"[phase] peft {time.time() - tp:.1f}s")
+    tp = time.time()
+    if args.only in (None, "analysis"):
+        phase_analysis(smi)
+    log(f"[phase] analysis {time.time() - tp:.1f}s")
     if args.only is None:
         missing = [k for k, n in totals.items() if n == 0]
         if missing:
-            raise AssertionError(f"main path (phases 5-10) never launched {missing}")
+            raise AssertionError(f"main path (phases 5-11) never launched {missing}")
     log(f"[done] {time.time() - t0:.1f}s")
     kernels = []
     for name in KERNELS:

@@ -5,6 +5,7 @@ chip_smoke.py rest on.
     python3 scripts/dense_readings.py long [--layers 48] [--seeds 0 1 2] [--ablate]
     python3 scripts/dense_readings.py serve [--seeds 0 1 2] [--archs ...]
     python3 scripts/dense_readings.py families [--seeds 0 1 2] [--archs ...]
+    python3 scripts/dense_readings.py peft [--seeds 0 1 2] [--kinds ...]
 
 ``long`` runs ``chip_smoke.long_estimate_readings`` (gemma3-12b at full
 width, B=1, S=2048, K=4) at each depth and seed and prints one JSON line
@@ -26,7 +27,12 @@ the fp32 estimate; one JSON line each: the kernels against the plain
 versions and each bf16 run against fp32) and its serving
 (``chip_smoke.dense_serve`` at FAMILY_LAYERS' depth and the fp32 witness
 at FAMILY_FP32_LAYERS'), with every limit lifted so that each reading is
-printed.
+printed. ``peft`` runs phase 11's first rounds
+(``chip_smoke.peft_readings``: roberta-large-lora at full width, bf16, 4
+clients, K=4, each PEFT kind on both routes, kernels and plain versions on
+the card) and prints one JSON line a kind, route and seed: the kernels
+against the plain versions (loss, jvps, update), the seconds a round and
+the round's peak memory.
 
 It checks nothing and is no part of the port. Needs one CUDA card with room
 for gemma3-12b's weights in fp32 (~47 GB); prints the card's name and power
@@ -138,6 +144,23 @@ def family_readings(cs, smi, archs, seeds, estimates_only=False, serve_only=Fals
             cs._free()
 
 
+def peft_readings(cs, smi, kinds, seeds):
+    for kind in kinds:
+        for seed in seeds:
+            read = cs.peft_readings(kind, seed)[-1]    # the model goes with the rest
+            cs._free()
+            for route, r in read.items():
+                run = r["runs"][0]
+                print(json.dumps({"kind": kind, "route": route, "seed": seed,
+                                  "kernels_vs_plain": {k: r[k] for k in
+                                                       ("loss", "jvps", "update")},
+                                  "s_round": run["s"], "plain_s": r["plain_s"],
+                                  "round_peak_GiB": run["peak_GiB"], "card": smi}),
+                      flush=True)
+            del read
+            cs._free()
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     sub = ap.add_subparsers(dest="what", required=True)
@@ -153,6 +176,9 @@ def main(argv=None):
     fa.add_argument("--archs", nargs="+", default=None)
     fa.add_argument("--estimates-only", action="store_true")
     fa.add_argument("--serve-only", action="store_true")
+    pe = sub.add_parser("peft")
+    pe.add_argument("--seeds", type=int, nargs="+", default=[0, 1, 2])
+    pe.add_argument("--kinds", nargs="+", default=None)
     args = ap.parse_args(argv)
     sys.path.insert(0, os.path.join(ROOT, "src"))
     import torch
@@ -170,6 +196,8 @@ def main(argv=None):
         long_readings(cs, smi, args.layers, args.seeds, args.ablate)
     elif args.what == "serve":
         serve_readings(cs, smi, args.archs or cs.DENSE_ARCHS, args.seeds)
+    elif args.what == "peft":
+        peft_readings(cs, smi, args.kinds or cs.PEFT_KINDS, args.seeds)
     else:
         family_readings(cs, smi, args.archs or cs.FAMILY_ARCHS, args.seeds,
                         args.estimates_only, args.serve_only)

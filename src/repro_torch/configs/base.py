@@ -165,7 +165,7 @@ class SpryConfig:
     lora_rank: int = 1                   # paper default r=1, alpha=1
     lora_alpha: float = 1.0
     lora_targets: Tuple[str, ...] = ("wq", "wv")
-    peft: str = "lora"                   # lora (ported) | ia3 | bitfit | classifier_only
+    peft: str = "lora"                   # lora | ia3 | bitfit | classifier_only (all ported)
     dirichlet_alpha: float = 0.1
     seed: int = 0
 

@@ -51,10 +51,14 @@ def enumerate_units(peft) -> UnitIndex:
 
 def assignment_matrix(n_units: int, n_clients: int, round_offset: int,
                       device=None):
-    """(M, U) fp32 0/1 mask."""
+    """(M, U) fp32 0/1 mask. With no units (a ``classifier_only`` tree:
+    the head alone, which every client trains) it is the empty (M, 0) mask,
+    as the reference's scatter into it drops every update."""
     U, M = n_units, n_clients
-    i = torch.arange(max(U, M), device=device)
     mask = torch.zeros((M, U), dtype=torch.float32, device=device)
+    if U == 0:
+        return mask
+    i = torch.arange(max(U, M), device=device)
     mask[(i + round_offset) % M, i % U] = 1.0
     return mask
 

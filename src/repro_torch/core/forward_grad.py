@@ -214,7 +214,10 @@ def fused_jvps(loss_fn: SplitLoss, peft32, vs):
             y = loss_fn.site(site_args)
         loss, post_vjp = vjp(post, y, ctx, peft32)
         gy, g_ctx, g_p = post_vjp(torch.ones_like(loss))
-        val = _site_contract(loss_fn, gy, site_args, argdots)
+        # a site with no tangent (its inputs do not depend on the tree) adds 0
+        val = (_site_contract(loss_fn, gy, site_args, argdots)
+               if dispatch.site_has_tangent(argdots)
+               else torch.zeros((), device=gy.device))
         return loss, val + _tree_vdot(g_ctx, ctxdot) + _tree_vdot(g_p, v)
     return vmap(one, out_dims=(None, 0))(vs)
 

@@ -267,7 +267,7 @@ size_t jvps_smem_floats(int T) {
 }
 
 template <typename XT, bool HAS_XD>
-__global__ void __launch_bounds__(JTHREADS)
+__global__ void __launch_bounds__(JTHREADS, 1)
 lora_dual_mt_jvps_kernel(const XT* __restrict__ x, const XT* __restrict__ xd,
                          const XT* __restrict__ w, const float* __restrict__ a,
                          const float* __restrict__ ad, const float* __restrict__ b,

@@ -468,13 +468,16 @@ __device__ __forceinline__ void tile_scores(float (&s)[TC_BKV / 8][4], const bf1
                                             const bf16* kt, int lane, int groups) {
   const int mi = lane >> 3;
   if constexpr (NHD > 8) {
-    // the wide plan walks the depth in unrolled chunks of 4 steps, so its
+    // the wide plan walks the depth in unrolled chunks of KC steps, so its
     // ldmatrix addresses are not all live at once (the products go into s
-    // in the same order)
+    // in the same order); KC divides NHD (10 and 14 groups: 2), so no step
+    // reads past the row
+    constexpr int KC = NHD % 4 == 0 ? 4 : 2;
+    static_assert(NHD % KC == 0, "the wide plan's groups come in whole chunks");
 #pragma unroll 1
-    for (int k0 = 0; k0 < NHD; k0 += 4) {
+    for (int k0 = 0; k0 < NHD; k0 += KC) {
 #pragma unroll
-      for (int kk = k0; kk < k0 + 4; ++kk) {
+      for (int kk = k0; kk < k0 + KC; ++kk) {
         uint32_t af[4];
         hopper::ldsm_x4(af[0], af[1], af[2], af[3],
                         a + (lane & 15) * LD + 16 * kk + 8 * (lane >> 4));

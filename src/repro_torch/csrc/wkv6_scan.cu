@@ -105,7 +105,7 @@ size_t smem_floats(int mode, int hp, int tc) {
 }
 
 template <int R, int TC, int MODE>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, 1)
 wkv6_kernel(const float* __restrict__ r, const float* __restrict__ k,
             const float* __restrict__ v, const float* __restrict__ w,
             const float* __restrict__ u, const float* __restrict__ rd,
@@ -297,7 +297,12 @@ int launch_t(const Args& a, cudaStream_t stream) {
 template <int R, int MODE>
 int launch_r(const Args& a, cudaStream_t s) {
   switch (tangent_chunk(a.T)) {
-    case 8: return launch_t<R, 8, MODE>(a, s);
+    case 8:
+      // eight tangents' state at hd > 32 in TANGENTS mode pass 255 registers
+      // and spill: four a block there (a tangent's output does not depend on
+      // its chunk)
+      if constexpr (R == 8 && MODE == TANGENTS) return launch_t<R, 4, MODE>(a, s);
+      else return launch_t<R, 8, MODE>(a, s);
     case 4: return launch_t<R, 4, MODE>(a, s);
     case 2: return launch_t<R, 2, MODE>(a, s);
     default: return launch_t<R, 1, MODE>(a, s);

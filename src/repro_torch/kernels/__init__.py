@@ -15,6 +15,8 @@ wkv6_scan/      the RWKV6 WKV recurrence: primal, multi-tangent, and the
 dispatch.py     forward-mode rules that route the model's LoRA projections,
                 attention mixers and mamba2 / wkv6 recurrences to those kernels,
                 and the contraction ops of the fused-contraction route
+calls.py        the forward-AD region and the recorder of the calls that
+                reach a kernel entry point (``record_calls``)
 build.py        nvcc build at first use, ctypes loading
 csrc/           the CUDA sources
 

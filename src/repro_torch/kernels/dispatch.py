@@ -33,11 +33,9 @@ tangent output.
 """
 from __future__ import annotations
 
-import contextlib
-import contextvars
-
 import torch
 
+from repro_torch.kernels.calls import forward_ad_region, in_forward_ad_region  # noqa: F401
 from repro_torch.kernels.lora_dual.ops import (
     lora_dual_mt_jvps,
     lora_dual_mt_tangents,
@@ -60,24 +58,6 @@ from repro_torch.kernels.wkv6_scan.ops import (
     wkv6_scan_mt_tangents,
 )
 
-_fwd_region = contextvars.ContextVar("repro_torch_forward_ad_region", default=False)
-
-
-@contextlib.contextmanager
-def forward_ad_region():
-    """Within this context LoRA-projection and attention tangents go to the
-    multi-tangent kernels."""
-    token = _fwd_region.set(True)
-    try:
-        yield
-    finally:
-        _fwd_region.reset(token)
-
-
-def in_forward_ad_region() -> bool:
-    return _fwd_region.get()
-
-
 def _one(t):
     """A single tangent as a T=1 stack for the kernel."""
     return None if t is None else t.contiguous()[None]
@@ -97,6 +77,33 @@ def _materialize(t, like):
     e.g. layer 0's B/C/decay) as explicit zeros, as the reference's
     ``_materialize``; the kernel still runs on it."""
     return torch.zeros_like(like) if t is None else t
+
+
+class _Varies(torch.autograd.Function):
+    """True when its input carries the enclosing vmap's batch axis. The
+    answer is a CPU tensor, so reading it does not wait for the card."""
+
+    @staticmethod
+    def forward(t):
+        return torch.tensor(False)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def vmap(info, in_dims, t):
+        return torch.tensor(in_dims[0] is not None), None
+
+
+def site_has_tangent(tangents) -> bool:
+    """Whether any of a site's tangents varies over the estimator's vmap
+    over the K perturbations. One that does not vary does not depend on
+    them, so it is zero: ``torch.func.jvp`` gives an output that does not
+    depend on its input unbatched zeros (the ``classifier_only`` body, or a
+    family whose site reads no leaf of the tree). The site's <gy, ydot> is
+    then exactly 0, which the fused route takes without a launch."""
+    return any(t is not None and bool(_Varies.apply(t)) for t in tangents)
 
 
 def _primal_batched(name):

@@ -54,7 +54,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, calls
 
 R_MAX = 16          # LoRA rank bound of the kernel's shared-memory tiles
 JT_MAX = 64         # tangents a contraction-epilogue launch
@@ -164,7 +164,10 @@ def lora_dual_mt_tangents(x, xdots, w, a, adots, b, bdots, scale=1.0):
     adots (T, K, r); b (r, N); bdots (T, r, N) -> ydots (T, ..., N) in
     x's dtype."""
     if x.device.type == "cpu":
-        return lora_dual_mt_tangents_ref(x, xdots, w, a, adots, b, bdots, scale)
+        out = lora_dual_mt_tangents_ref(x, xdots, w, a, adots, b, bdots, scale)
+        if calls.recording is not None:
+            calls.record("lora_dual_mt", "plain", (x, xdots, w, a, adots, b, bdots), out)
+        return out
     if x.device.type != "cuda":
         raise ValueError(f"lora_dual_mt_tangents: unsupported device {x.device}")
     _check(x, xdots, w, a, adots, b, bdots)
@@ -193,6 +196,9 @@ def lora_dual_mt_tangents(x, xdots, w, a, adots, b, bdots, scale=1.0):
     build.check(err, "lora_dual_mt_tangents")
     launches["lora_dual_mt"] += 1
     launches_by_path["lora_dual_mt"][path] += 1
+    if calls.recording is not None:
+        calls.record("lora_dual_mt", path, (x, xdots, w, a, adots, b, bdots),
+                     (out, None if path == "simt" else scratch))
     return out
 
 
@@ -317,7 +323,11 @@ def lora_dual_mt_jvps(x, w, a, adots, b, bdots, gy, scale=1.0, xdots=None):
     a (K, r); adots (T, K, r); b (r, N); bdots (T, r, N); gy (..., N) in
     x's dtype; xdots (T, ..., K) or None."""
     if x.device.type == "cpu":
-        return lora_dual_mt_jvps_ref(x, w, a, adots, b, bdots, gy, scale, xdots)
+        out = lora_dual_mt_jvps_ref(x, w, a, adots, b, bdots, gy, scale, xdots)
+        if calls.recording is not None:
+            calls.record("lora_dual_mt_jvps", "plain", (x, w, a, adots, b, bdots, gy, xdots),
+                         out)
+        return out
     if x.device.type != "cuda":
         raise ValueError(f"lora_dual_mt_jvps: unsupported device {x.device}")
     _check(x, xdots, w, a, adots, b, bdots, gy, what="lora_dual_mt_jvps",
@@ -351,7 +361,11 @@ def lora_dual_mt_jvps(x, w, a, adots, b, bdots, gy, scale=1.0, xdots=None):
     build.check(err, "lora_dual_mt_jvps")
     launches["lora_dual_mt_jvps"] += 1
     launches_by_path["lora_dual_mt_jvps"][path] += 1
-    return jvps if path == "tc" else parts.sum(dim=(0, 1))
+    out = jvps if path == "tc" else parts.sum(dim=(0, 1))
+    if calls.recording is not None:
+        calls.record("lora_dual_mt_jvps", path, (x, w, a, adots, b, bdots, gy, xdots),
+                     (out, scratch if path == "tc" else parts))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -433,7 +447,10 @@ def lora_dual_multi(x, idx, w, a_stack, b_stack, scale=1.0):
     a_stack (P, K, r); b_stack (P, r, N) -> y (..., N) in x's dtype. Pages
     must lie in [0, P): on the card a row outside it comes back NaN."""
     if x.device.type == "cpu":
-        return lora_dual_multi_ref(x, idx, w, a_stack, b_stack, scale)
+        out = lora_dual_multi_ref(x, idx, w, a_stack, b_stack, scale)
+        if calls.recording is not None:
+            calls.record("lora_dual_multi", "plain", (x, idx, w, a_stack, b_stack), out)
+        return out
     if x.device.type != "cuda":
         raise ValueError(f"lora_dual_multi: unsupported device {x.device}")
     K, N = w.shape
@@ -477,6 +494,8 @@ def lora_dual_multi(x, idx, w, a_stack, b_stack, scale=1.0):
     build.check(err, "lora_dual_multi")
     launches["lora_dual_multi"] += 1
     launches_by_path["lora_dual_multi"][path] += 1
+    if calls.recording is not None:
+        calls.record("lora_dual_multi", path, (x, pages, w, a_stack, b_stack), y)
     return y
 
 

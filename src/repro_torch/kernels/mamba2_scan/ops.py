@@ -63,7 +63,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, calls
 
 N_MAX = 128
 CHUNK = 32          # tokens of the chunked contraction route; longer S: recurrent
@@ -250,7 +250,10 @@ def _stream(t):
 def mamba2_scan(xdt, bmat, cmat, decay):
     """y (B,S,H,hd) fp32 of the recurrence from a fresh state."""
     if xdt.device.type == "cpu":
-        return mamba2_scan_ref(xdt, bmat, cmat, decay)[0]
+        out = mamba2_scan_ref(xdt, bmat, cmat, decay)[0]
+        if calls.recording is not None:
+            calls.record("mamba2_scan", "plain", (xdt, bmat, cmat, decay), out)
+        return out
     if xdt.device.type != "cuda":
         raise ValueError(f"mamba2_scan: unsupported device {xdt.device}")
     B, S, H, hd, N = _check("mamba2_scan", xdt, bmat, cmat, decay)
@@ -262,6 +265,8 @@ def mamba2_scan(xdt, bmat, cmat, decay):
         y.data_ptr(), B, S, H, hd, N, _stream(xdt))
     build.check(err, "mamba2_scan")
     launches["mamba2_scan"] += 1
+    if calls.recording is not None:
+        calls.record("mamba2_scan", "cuda", (xdt, bmat, cmat, decay), y)
     return y
 
 
@@ -271,8 +276,11 @@ def mamba2_scan_mt_tangents(xdt, bmat, cmat, decay, xdtds, bds, cds, decayds):
     pieces (L, G, the carried state) are formed inside the kernel but y is
     not written."""
     if xdt.device.type == "cpu":
-        return mamba2_scan_mt_ref(xdt, bmat, cmat, decay, xdtds, bds, cds,
-                                  decayds)[1]
+        out = mamba2_scan_mt_ref(xdt, bmat, cmat, decay, xdtds, bds, cds, decayds)[1]
+        if calls.recording is not None:
+            calls.record("mamba2_scan_mt", "plain",
+                         (xdt, bmat, cmat, decay, xdtds, bds, cds, decayds), out)
+        return out
     if xdt.device.type != "cuda":
         raise ValueError(f"mamba2_scan_mt_tangents: unsupported device {xdt.device}")
     B, S, H, hd, N, T = _check_tangents("mamba2_scan_mt_tangents", xdt, bmat,
@@ -286,6 +294,9 @@ def mamba2_scan_mt_tangents(xdt, bmat, cmat, decay, xdtds, bds, cds, decayds):
         out.data_ptr(), B, S, H, hd, N, T, _stream(xdt))
     build.check(err, "mamba2_scan_mt_tangents")
     launches["mamba2_scan_mt"] += 1
+    if calls.recording is not None:
+        calls.record("mamba2_scan_mt", "cuda",
+                     (xdt, bmat, cmat, decay, xdtds, bds, cds, decayds), out)
     return out
 
 
@@ -313,8 +324,12 @@ def mamba2_scan_mt_jvps(xdt, bmat, cmat, decay, xdtds, bds, cds, decayds, gy):
     plus the output cotangent gy (B,S,H,hd); no (T,B,S,H,hd) output is
     formed. The route is ``mamba2_jvps_path(S)``."""
     if xdt.device.type == "cpu":
-        return mamba2_scan_mt_jvps_ref(xdt, bmat, cmat, decay, xdtds, bds, cds,
-                                       decayds, gy)
+        out = mamba2_scan_mt_jvps_ref(xdt, bmat, cmat, decay, xdtds, bds, cds,
+                                      decayds, gy)
+        if calls.recording is not None:
+            calls.record("mamba2_scan_mt_jvps", "plain",
+                         (xdt, bmat, cmat, decay, xdtds, bds, cds, decayds, gy), out)
+        return out
     if xdt.device.type != "cuda":
         raise ValueError(f"mamba2_scan_mt_jvps: unsupported device {xdt.device}")
     B, S, H, hd, N, T = _check_tangents("mamba2_scan_mt_jvps", xdt, bmat, cmat,
@@ -339,4 +354,7 @@ def mamba2_scan_mt_jvps(xdt, bmat, cmat, decay, xdtds, bds, cds, decayds, gy):
     build.check(err, "mamba2_scan_mt_jvps")
     launches["mamba2_scan_mt_jvps"] += 1
     launches_by_path["mamba2_scan_mt_jvps"][path] += 1
+    if calls.recording is not None:
+        calls.record("mamba2_scan_mt_jvps", path,
+                     (xdt, bmat, cmat, decay, xdtds, bds, cds, decayds, gy), (jvps, parts))
     return jvps

@@ -82,7 +82,7 @@ import math
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, calls
 
 T_MAX = 64          # tangents a launch (the kernel's shared-memory plan)
 HD_MAX = 256        # gemma3-12b; 120 (h2o-danube) and every width off the 16
@@ -233,7 +233,10 @@ def swa_attention(q, k, v, window=None):
     """q (B,H,S,hd); k,v (B,KV,S,hd) -> (B,H,S,hd), causal, banded to the
     last ``window`` keys when window is set."""
     if q.device.type == "cpu":
-        return swa_attention_ref(q, k, v, window)
+        out = swa_attention_ref(q, k, v, window)
+        if calls.recording is not None:
+            calls.record("swa_attention", "plain", (q, k, v), out)
+        return out
     if q.device.type != "cuda":
         raise ValueError(f"swa_attention: unsupported device {q.device}")
     _check("swa_attention", q, k, v)
@@ -252,6 +255,8 @@ def swa_attention(q, k, v, window=None):
     build.check(err, "swa_attention")
     launches["swa_attention"] += 1
     launches_by_path["swa_attention"][path] += 1
+    if calls.recording is not None:
+        calls.record("swa_attention", path, (q, k, v), out)
     return out
 
 
@@ -259,7 +264,10 @@ def swa_attention_mt_tangents(q, k, v, qds, kds, vds, window=None):
     """Tangent-only multi-tangent pass: qds (T,B,H,S,hd); kds, vds
     (T,B,KV,S,hd) -> outds (T,B,H,S,hd)."""
     if q.device.type == "cpu":
-        return swa_attention_mt_tangents_ref(q, k, v, qds, kds, vds, window)
+        out = swa_attention_mt_tangents_ref(q, k, v, qds, kds, vds, window)
+        if calls.recording is not None:
+            calls.record("swa_attention_mt", "plain", (q, k, v, qds, kds, vds), out)
+        return out
     if q.device.type != "cuda":
         raise ValueError(f"swa_attention_mt_tangents: unsupported device {q.device}")
     T = _check_tangents("swa_attention_mt_tangents", q, k, v, qds, kds, vds)
@@ -280,6 +288,8 @@ def swa_attention_mt_tangents(q, k, v, qds, kds, vds, window=None):
     build.check(err, "swa_attention_mt_tangents")
     launches["swa_attention_mt"] += 1
     launches_by_path["swa_attention_mt"][path] += 1
+    if calls.recording is not None:
+        calls.record("swa_attention_mt", path, (q, k, v, qds, kds, vds), out)
     return out
 
 
@@ -353,7 +363,11 @@ def swa_attention_mt_jvps(q, k, v, qds, kds, vds, gy, window=None):
     """jvps (T,) fp32 = <gy, outd_t>: operands as
     ``swa_attention_mt_tangents`` plus the output cotangent gy (B,H,S,hd)."""
     if q.device.type == "cpu":
-        return swa_attention_mt_jvps_ref(q, k, v, qds, kds, vds, gy, window)
+        out = swa_attention_mt_jvps_ref(q, k, v, qds, kds, vds, gy, window)
+        if calls.recording is not None:
+            calls.record("swa_attention_mt_jvps", "plain", (q, k, v, qds, kds, vds, gy),
+                         out)
+        return out
     if q.device.type != "cuda":
         raise ValueError(f"swa_attention_mt_jvps: unsupported device {q.device}")
     T = _check_jvps(q, k, v, qds, kds, vds, gy)
@@ -379,4 +393,8 @@ def swa_attention_mt_jvps(q, k, v, qds, kds, vds, gy, window=None):
     build.check(err, "swa_attention_mt_jvps")
     launches["swa_attention_mt_jvps"] += 1
     launches_by_path["swa_attention_mt_jvps"][path] += 1
-    return jvps if path == "tc" else parts.sum(dim=(0, 1))
+    out = jvps if path == "tc" else parts.sum(dim=(0, 1))
+    if calls.recording is not None:
+        calls.record("swa_attention_mt_jvps", path, (q, k, v, qds, kds, vds, gy),
+                     (out, parts))
+    return out

@@ -77,7 +77,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, calls
 
 HD_MAX = 64
 CHUNK = 32          # tokens of the chunked tangent route; longer S: recurrent
@@ -296,7 +296,10 @@ def wkv6_scan(r, k, v, w, u):
     """y (B,S,H,hd) fp32 of the recurrence from a fresh state."""
     r, k, v, w, u = _f32(r, k, v, w, u)
     if r.device.type == "cpu":
-        return wkv6_scan_ref(r, k, v, w, u)[0]
+        out = wkv6_scan_ref(r, k, v, w, u)[0]
+        if calls.recording is not None:
+            calls.record("wkv6_scan", "plain", (r, k, v, w, u), out)
+        return out
     if r.device.type != "cuda":
         raise ValueError(f"wkv6_scan: unsupported device {r.device}")
     B, S, H, hd = _check("wkv6_scan", r, k, v, w, u)
@@ -308,6 +311,8 @@ def wkv6_scan(r, k, v, w, u):
                                B, S, H, hd, _stream(r))
     build.check(err, "wkv6_scan")
     launches["wkv6_scan"] += 1
+    if calls.recording is not None:
+        calls.record("wkv6_scan", "cuda", (r, k, v, w, u), y)
     return y
 
 
@@ -319,7 +324,11 @@ def wkv6_scan_mt_tangents(r, k, v, w, u, rds, kds, vds, wds, uds=None):
     r, k, v, w, u, rds, kds, vds, wds, uds = _f32(r, k, v, w, u, rds, kds, vds,
                                                   wds, uds)
     if r.device.type == "cpu":
-        return wkv6_scan_mt_ref(r, k, v, w, u, rds, kds, vds, wds, uds)[1]
+        out = wkv6_scan_mt_ref(r, k, v, w, u, rds, kds, vds, wds, uds)[1]
+        if calls.recording is not None:
+            calls.record("wkv6_scan_mt", "plain", (r, k, v, w, u, rds, kds, vds, wds, uds),
+                         out)
+        return out
     if r.device.type != "cuda":
         raise ValueError(f"wkv6_scan_mt_tangents: unsupported device {r.device}")
     B, S, H, hd, T = _check_tangents("wkv6_scan_mt_tangents", r, k, v, w, u,
@@ -336,6 +345,8 @@ def wkv6_scan_mt_tangents(r, k, v, w, u, rds, kds, vds, wds, uds=None):
     build.check(err, "wkv6_scan_mt_tangents")
     launches["wkv6_scan_mt"] += 1
     launches_by_path["wkv6_scan_mt"][path] += 1
+    if calls.recording is not None:
+        calls.record("wkv6_scan_mt", path, (r, k, v, w, u, rds, kds, vds, wds, uds), out)
     return out
 
 
@@ -365,7 +376,11 @@ def wkv6_scan_mt_jvps(r, k, v, w, u, rds, kds, vds, wds, gy, uds=None):
     r, k, v, w, u, rds, kds, vds, wds, gy, uds = _f32(r, k, v, w, u, rds, kds,
                                                       vds, wds, gy, uds)
     if r.device.type == "cpu":
-        return wkv6_scan_mt_jvps_ref(r, k, v, w, u, rds, kds, vds, wds, gy, uds)
+        out = wkv6_scan_mt_jvps_ref(r, k, v, w, u, rds, kds, vds, wds, gy, uds)
+        if calls.recording is not None:
+            calls.record("wkv6_scan_mt_jvps", "plain",
+                         (r, k, v, w, u, rds, kds, vds, wds, gy, uds), out)
+        return out
     if r.device.type != "cuda":
         raise ValueError(f"wkv6_scan_mt_jvps: unsupported device {r.device}")
     B, S, H, hd, T = _check_tangents("wkv6_scan_mt_jvps", r, k, v, w, u, rds,
@@ -389,4 +404,7 @@ def wkv6_scan_mt_jvps(r, k, v, w, u, rds, kds, vds, wds, gy, uds=None):
     build.check(err, "wkv6_scan_mt_jvps")
     launches["wkv6_scan_mt_jvps"] += 1
     launches_by_path["wkv6_scan_mt_jvps"][path] += 1
+    if calls.recording is not None:
+        calls.record("wkv6_scan_mt_jvps", path,
+                     (r, k, v, w, u, rds, kds, vds, wds, gy, uds), (jvps, parts))
     return jvps

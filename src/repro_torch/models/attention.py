@@ -95,6 +95,10 @@ def qkv(cfg, p, x, peft_layer, lora_scale):
     q = proj(x, p["wq"], p.get("wq_b"), maybe_lora(peft_layer, "wq"), lora_scale)
     k = proj(x, p["wk"], p.get("wk_b"), maybe_lora(peft_layer, "wk"), lora_scale)
     v = proj(x, p["wv"], p.get("wv_b"), maybe_lora(peft_layer, "wv"), lora_scale)
+    if peft_layer is not None and "ia3_kv" in peft_layer:   # IA3: the fp32 master in k's dtype
+        s = peft_layer["ia3_kv"]["s"].to(k.dtype)
+        k = k * s
+        v = v * s
     return (q.reshape(B, S, cfg.n_heads, hd), k.reshape(B, S, cfg.n_kv_heads, hd),
             v.reshape(B, S, cfg.n_kv_heads, hd))
 

@@ -24,4 +24,6 @@ def mlp_block(cfg, p, x, peft_layer=None, lora_scale=1.0):
     up = proj(x, p["wi"], p.get("wi_b"), maybe_lora(peft_layer, "wi"), lora_scale)
     gate = proj(x, p["wg"], None, maybe_lora(peft_layer, "wg"), lora_scale)
     h = activation(cfg, gate) * up
+    if peft_layer is not None and "ia3_ff" in peft_layer:   # IA3 on the gated hidden
+        h = h * peft_layer["ia3_ff"]["s"].to(h.dtype)
     return proj(h, p["wd"], p.get("wd_b"), maybe_lora(peft_layer, "wd"), lora_scale)

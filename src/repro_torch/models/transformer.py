@@ -1,7 +1,8 @@
 """Decoder-only transformer stack (the dense, moe and vlm families).
 
 Port of ``repro/models/transformer.py``: ``init_base``, ``embed_tokens``,
-``unembed``, the train ``forward`` and its split pieces (``split_site``,
+``unembed``, the train ``forward`` (and its one-loop oracle
+``forward_scanned``) and its split pieces (``split_site``,
 ``mixer_site``, ``split_forward``, ``split_post``), and serving's
 ``prefill``, ``init_cache`` and ``decode_step``. The reference's
 ``lax.scan`` over stacked layers becomes a plain loop over layer slices of
@@ -65,15 +66,35 @@ def unembed(cfg, base):
     return base["embed"].T if cfg.tie_embeddings else base["lm_head"]
 
 
-def _layer_tail(cfg, h, aux, lp, pl, lora_scale):
-    """ln2 + MLP (or MoE, its aux added to ``aux``) + residual: the back
-    half of a layer once its attention output has been added to the
-    residual. Returns (h, aux)."""
+def _peft_bias(h, pl, name):
+    """``h`` plus the BitFit bias ``pl[name]`` in h's dtype, if the layer's
+    PEFT slice has one."""
+    if pl is not None and name in pl:
+        return h + pl[name]["b"].to(h.dtype)
+    return h
+
+
+def _layer_tail(cfg, h, aux, lp, pl, lora_scale, bitfit=True):
+    """ln2 + MLP (or MoE, its aux added to ``aux``) + residual (+ the BitFit
+    ``bias2``; serving passes ``bitfit=False``, as the reference's prefill
+    and decode apply no BitFit bias): the back half of a layer once its
+    attention output has been added to the residual. Returns (h, aux)."""
     hn = apply_norm(cfg, h, lp["ln2"])
     if cfg.moe is not None:
         y, aux_l = moe_block(cfg, lp["moe"], hn)
-        return h + y, aux + aux_l
-    return h + mlp_block(cfg, lp["mlp"], hn, pl, lora_scale), aux
+        aux = aux + aux_l
+    else:
+        y = mlp_block(cfg, lp["mlp"], hn, pl, lora_scale)
+    return (_peft_bias(h + y, pl, "bias2") if bitfit else h + y), aux
+
+
+def _train_layer(cfg, h, aux, lp, pl, lora_scale, i, rope_cs):
+    """One full decoder layer of the train forward -> (h, aux)."""
+    hn = apply_norm(cfg, h, lp["ln1"])
+    h = _peft_bias(h + attn.attn_block_prefill(cfg, lp["attn"], hn, pl, lora_scale,
+                                               is_global=cfg.is_global_layer(i),
+                                               rope_cs=rope_cs), pl, "bias1")
+    return _layer_tail(cfg, h, aux, lp, pl, lora_scale)
 
 
 def _embed(cfg, base, tokens, extra_embeds):
@@ -86,6 +107,20 @@ def _embed(cfg, base, tokens, extra_embeds):
 def _slices(base, peft, i):
     return (layer_slice(base["layers"], i),
             layer_slice((peft or {}).get("layers", {}), i) or None)
+
+
+def forward_scanned(cfg, base, peft, tokens, extra_embeds=None, lora_scale=1.0):
+    """Test oracle: the train forward as ONE loop over all L layers (the
+    reference's single ``lax.scan``), the final layer's attention through
+    the plain mixer. ``forward`` below is the split composition of the same
+    per-layer ops."""
+    h = _embed(cfg, base, tokens, extra_embeds)
+    rope_cs = rope_tables_for(cfg, h)
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    for i in range(cfg.n_layers):
+        lp, pl = _slices(base, peft, i)
+        h, aux = _train_layer(cfg, h, aux, lp, pl, lora_scale, i, rope_cs)
+    return apply_norm(cfg, h, base["final_norm"]), aux / cfg.n_layers
 
 
 def forward(cfg, base, peft, tokens, extra_embeds=None, lora_scale=1.0):
@@ -122,11 +157,7 @@ def split_forward(cfg, base, peft, tokens, extra_embeds=None, lora_scale=1.0):
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for i in range(cfg.n_layers - 1):
         lp, pl = _slices(base, peft, i)
-        hn = apply_norm(cfg, h, lp["ln1"])
-        h = h + attn.attn_block_prefill(cfg, lp["attn"], hn, pl, lora_scale,
-                                        is_global=cfg.is_global_layer(i),
-                                        rope_cs=rope_cs)
-        h, aux = _layer_tail(cfg, h, aux, lp, pl, lora_scale)
+        h, aux = _train_layer(cfg, h, aux, lp, pl, lora_scale, i, rope_cs)
     lp, pl = _slices(base, peft, cfg.n_layers - 1)
     hn = apply_norm(cfg, h, lp["ln1"])
     q, k, v = attn.attn_site_qkv(cfg, lp["attn"], hn, pl, lora_scale,
@@ -139,8 +170,8 @@ def split_post(cfg, base, y, ctx, peft, lora_scale=1.0):
     """Post-head: final mixer output (B,H,S,hd) -> (final hidden, aux).
     The fused estimator reverses it once."""
     lp, pl = _slices(base, peft, cfg.n_layers - 1)
-    h = ctx["h"] + attn.attn_finish(cfg, lp["attn"], y.transpose(1, 2), pl,
-                                    lora_scale)
+    h = _peft_bias(ctx["h"] + attn.attn_finish(cfg, lp["attn"], y.transpose(1, 2),
+                                               pl, lora_scale), pl, "bias1")
     h, aux = _layer_tail(cfg, h, ctx["aux"], lp, pl, lora_scale)
     h = apply_norm(cfg, h, base["final_norm"])
     return h, aux / cfg.n_layers
@@ -202,7 +233,7 @@ def prefill(cfg, base, peft, cache, tokens, lora_scale=1.0):
         a, k, v = attn.attn_block_prefill_kv(cfg, lp["attn"], hn, pl, lora_scale,
                                              is_global=cfg.is_global_layer(i),
                                              rope_cs=rope_cs)
-        h = _layer_tail(cfg, h + a, 0.0, lp, pl, lora_scale)[0]
+        h = _layer_tail(cfg, h + a, 0.0, lp, pl, lora_scale, bitfit=False)[0]
         ks.append(k)
         vs.append(v)
     h = apply_norm(cfg, h, base["final_norm"])
@@ -265,7 +296,7 @@ def decode_step(cfg, base, peft, cache, token, pos, lora_scale=1.0):
             window = {"is_global": bool(cfg.is_global_layer(0))}
         a, k_new, v_new = attn.attn_block_decode_nocopy(
             cfg, lp["attn"], hn, pl, lora_scale, kc, vc, pos, **window)
-        h = _layer_tail(cfg, h + a, 0.0, lp, pl, lora_scale)[0]
+        h = _layer_tail(cfg, h + a, 0.0, lp, pl, lora_scale, bitfit=False)[0]
         k_news.append(k_new[:, 0])
         v_news.append(v_new[:, 0])
     h = apply_norm(cfg, h, base["final_norm"])

@@ -3,6 +3,8 @@ from repro_torch.optim.optimizers import (
     adam,
     adamw,
     apply_updates,
+    clip_by_global_norm,
+    momentum,
     sgd,
     yogi,
 )

@@ -13,7 +13,7 @@ from typing import Any, Callable, NamedTuple
 
 import torch
 
-from repro_torch.utils.pytree import tree_map, tree_zeros_like
+from repro_torch.utils.pytree import tree_map, tree_norm, tree_zeros_like
 
 
 @dataclasses.dataclass(frozen=True)
@@ -32,6 +32,23 @@ def sgd(lr: float) -> Optimizer:
 
     def update(grads, state, params=None):
         return tree_map(lambda g: -lr * g, grads), state
+
+    return Optimizer(init, update)
+
+
+def momentum(lr: float, beta: float = 0.9, nesterov: bool = False) -> Optimizer:
+    """Heavy-ball momentum m <- beta m + g; the step -lr m, or with
+    ``nesterov`` -lr (beta m + g)."""
+    def init(params):
+        return {"m": tree_zeros_like(params)}
+
+    def update(grads, state, params=None):
+        m = tree_map(lambda mi, g: beta * mi + g, state["m"], grads)
+        if nesterov:
+            upd = tree_map(lambda mi, g: -lr * (beta * mi + g), m, grads)
+        else:
+            upd = tree_map(lambda mi: -lr * mi, m)
+        return upd, {"m": m}
 
     return Optimizer(init, update)
 
@@ -87,3 +104,10 @@ def adamw(lr: float, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
 
 def yogi(lr: float, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-3) -> Optimizer:
     return _adam_core(lr, b1, b2, eps, second_moment="yogi")
+
+
+def clip_by_global_norm(grads, max_norm: float):
+    """(grads scaled by min(1, max_norm / (|grads| + 1e-12)), |grads|)."""
+    norm = tree_norm(grads)
+    scale = torch.clamp(max_norm / (norm + 1e-12), max=1.0)
+    return tree_map(lambda g: g * scale, grads), norm

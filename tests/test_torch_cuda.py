@@ -149,6 +149,7 @@ def test_lora_bf16_routes_match_plain(dev, M, K, N, r, T, has_xd):
     (8, 32, 8, 32, 120, None, 8),    # h2o-danube: padded to 128
     (2, 12, 1, 100, 120, 40, 3),     # G = 12, band
     (1, 4, 2, 70, 200, None, 2),     # a wide width off 32: padded to 224
+    (2, 4, 4, 100, 144, 40, 2),      # 10 column groups: the wide plan's depth in twos
     (8, 64, 4, 32, 128, None, 4),    # qwen3-moe: G = 16
     (2, 40, 8, 160, 128, None, 4),   # llama4-maverick: 128 patches + 32 tokens
     (2, 64, 8, 288, 128, None, 4),   # internvl2: 256 patches + 32 tokens

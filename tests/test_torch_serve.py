@@ -380,6 +380,10 @@ def check_forward_scanned(ref, tmod, jmod):
     assert _rel(h_scan, np.asarray(want)) <= 1e-5
 
 
+def test_forward_scanned_matches_forward_and_reference(ref):
+    check_forward_scanned(ref, ttf, jtf)
+
+
 # ---------------------------------------------------------------------------
 # adapter cache and engine
 # ---------------------------------------------------------------------------

@@ -237,14 +237,6 @@ def test_spry_config_fields_equal_reference():
     assert fields(tcfgs.SpryConfig) == fields(jcfgs.SpryConfig)
 
 
-def test_peft_kinds_other_than_lora_raise(setup):
-    from repro_torch.peft import init_peft
-    for kind in ("ia3", "bitfit", "classifier_only"):
-        with pytest.raises(NotImplementedError, match=kind):
-            init_peft(setup["tc"], torch.Generator().manual_seed(0),
-                      tcfgs.SpryConfig(peft=kind))
-
-
 def test_comm_modes_other_than_per_epoch_raise(setup):
     """make_round_step runs per-epoch rounds: a config that asks for
     per-iteration rounds raises instead of silently running per-epoch ones."""
